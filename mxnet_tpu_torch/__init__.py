@@ -1,0 +1,26 @@
+"""mxnet_tpu_torch: the PyTorch + CUDA port of mxnet_tpu, for NVIDIA Hopper.
+
+This package sits beside ``mxnet_tpu/`` (the JAX reference) and ports it
+slice by slice.  This slice serves BERT-base through ``serve.Server``, and
+every attention call on that path runs a hand-written CUDA flash-attention
+forward kernel (``csrc/flash_fwd.cu``).
+
+Ground rules:
+
+- **The JAX package stays as it is.**  It is the reference the port's tests
+  compare against.
+- **No imports from the JAX side.**  This package imports ``torch`` and
+  never ``jax``, and nothing of ``mxnet_tpu`` (not even a JAX-free module):
+  it keeps its own copy of what it needs.  Weights cross by parameter name
+  through numpy (``convert.load_jax_params``).
+- **Same names, PyTorch idiom.**  Module and class names match the JAX
+  package.  Blocks are ``nn.Module``s, ops are plain functions on tensors,
+  devices are explicit.
+- **The card is the default, and nothing falls back.**  Entry points run
+  on ``cuda:0`` unless the caller passes ``ctx=mx.cpu()``; without a card
+  they raise.  A CUDA tensor handed to a kernel wrapper launches the kernel
+  or raises; only a CPU tensor takes the kernel's plain PyTorch version.
+"""
+from . import base, context, convert, gluon, ops, serve, telemetry, trace  # noqa: F401
+from .base import MXNetError  # noqa: F401
+from .context import Context, cpu, current_context, gpu  # noqa: F401

@@ -1,0 +1,149 @@
+"""Transformer layers of the serving slice.
+
+Counterpart of ``mxnet_tpu/gluon/nn/transformer.py`` (``MultiHeadAttention``,
+``PositionwiseFFN``, ``TransformerEncoderCell``, ``TransformerEncoder``,
+``PositionalEmbedding``), with the same children and parameter names.  The
+attention core is ``ops.nn.multi_head_attention``: long sequences go to the
+hand-written CUDA flash kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...base import MXNetError
+from ...ops import nn as F
+from ..block import HybridBlock
+from .basic_layers import Dense, Dropout, Embedding, HybridSequential, \
+    LayerNorm
+
+__all__ = ["MultiHeadAttention", "PositionwiseFFN",
+           "TransformerEncoderCell", "TransformerEncoder",
+           "PositionalEmbedding"]
+
+
+class MultiHeadAttention(HybridBlock):
+    """Multi-head (self/cross) attention.
+
+    forward(query, key=None, value=None, mask=None): key/value default to
+    query.  ``mask`` broadcasts against (B, H, Tq, Tk).  ``dropout`` on the
+    attention probabilities applies in training only, which lands with the
+    training slice."""
+
+    def __init__(self, units, num_heads, dropout=0.0, use_bias=True,
+                 causal=False, attention_impl="auto", in_units=0, **kwargs):
+        super().__init__()
+        if units % num_heads:
+            raise MXNetError("units %d not divisible by num_heads %d"
+                             % (units, num_heads))
+        self._num_heads = num_heads
+        self._causal = causal
+        self._impl = attention_impl
+        self._dropout = dropout
+        in_units = in_units or units
+        self.query_proj = Dense(units, use_bias=use_bias, flatten=False,
+                                in_units=in_units)
+        self.key_proj = Dense(units, use_bias=use_bias, flatten=False,
+                              in_units=in_units)
+        self.value_proj = Dense(units, use_bias=use_bias, flatten=False,
+                                in_units=in_units)
+        self.out_proj = Dense(units, use_bias=use_bias, flatten=False,
+                              in_units=units)
+
+    def forward(self, query, key=None, value=None, mask=None):
+        key = query if key is None else key
+        value = key if value is None else value
+        out = F.multi_head_attention(
+            self.query_proj(query), self.key_proj(key),
+            self.value_proj(value), num_heads=self._num_heads, mask=mask,
+            causal=self._causal, impl=self._impl,
+            attn_dropout=self._dropout if self.training else 0.0)
+        return self.out_proj(out)
+
+
+class PositionwiseFFN(HybridBlock):
+    """Transformer FFN: dense -> activation -> dense (+dropout)."""
+
+    def __init__(self, units, hidden_size, activation="gelu", dropout=0.0,
+                 use_bias=True, in_units=0, **kwargs):
+        super().__init__()
+        self.ffn_1 = Dense(hidden_size, use_bias=use_bias, flatten=False,
+                           activation=activation, in_units=in_units or units)
+        self.ffn_2 = Dense(units, use_bias=use_bias, flatten=False,
+                           in_units=hidden_size)
+        self.dropout = Dropout(dropout) if dropout else None
+
+    def forward(self, x):
+        out = self.ffn_2(self.ffn_1(x))
+        if self.dropout is not None:
+            out = self.dropout(out)
+        return out
+
+
+class TransformerEncoderCell(HybridBlock):
+    """Pre/post-LN encoder block: MHA + FFN with residuals."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 attention_dropout=0.0, activation="gelu", pre_norm=False,
+                 layer_norm_eps=1e-12, causal=False, **kwargs):
+        super().__init__()
+        self._pre_norm = pre_norm
+        self.attention = MultiHeadAttention(units, num_heads,
+                                            dropout=attention_dropout,
+                                            causal=causal, in_units=units)
+        self.attn_ln = LayerNorm(epsilon=layer_norm_eps, in_channels=units)
+        self.ffn = PositionwiseFFN(units, hidden_size, activation=activation,
+                                   dropout=dropout, in_units=units)
+        self.ffn_ln = LayerNorm(epsilon=layer_norm_eps, in_channels=units)
+        self.dropout = Dropout(dropout) if dropout else None
+
+    def forward(self, x, mask=None):
+        if self._pre_norm:
+            h = self.attention(self.attn_ln(x), mask=mask)
+            x = x + (self.dropout(h) if self.dropout is not None else h)
+            return x + self.ffn(self.ffn_ln(x))
+        h = self.attention(x, mask=mask)
+        if self.dropout is not None:
+            h = self.dropout(h)
+        x = self.attn_ln(x + h)
+        return self.ffn_ln(x + self.ffn(x))
+
+
+class TransformerEncoder(HybridBlock):
+    """Stack of encoder cells."""
+
+    def __init__(self, num_layers, units, hidden_size, num_heads,
+                 dropout=0.0, attention_dropout=0.0, activation="gelu",
+                 pre_norm=False, layer_norm_eps=1e-12, causal=False,
+                 **kwargs):
+        super().__init__()
+        self.layers = HybridSequential()
+        for _ in range(num_layers):
+            self.layers.add(TransformerEncoderCell(
+                units, hidden_size, num_heads, dropout=dropout,
+                attention_dropout=attention_dropout, activation=activation,
+                pre_norm=pre_norm, layer_norm_eps=layer_norm_eps,
+                causal=causal))
+
+    def forward(self, x, mask=None):
+        for cell in self.layers:
+            x = cell(x, mask=mask)
+        return x
+
+
+class PositionalEmbedding(HybridBlock):
+    """Learned positional embedding (BERT-style)."""
+
+    def __init__(self, max_length, units, **kwargs):
+        super().__init__()
+        self.embed = Embedding(max_length, units)
+        self._max_length = max_length
+
+    def forward(self, x):
+        """x: (B, T, C) token embeddings -> x + pos[:T]."""
+        T = x.shape[1]
+        if T > self._max_length:
+            raise MXNetError(
+                "sequence length %d exceeds max_length %d of the learned "
+                "positional table" % (T, self._max_length))
+        pos = torch.arange(T, device=x.device)
+        return x + self.embed(pos).reshape(1, T, -1)

@@ -1,0 +1,115 @@
+"""Neural-net ops of the serving slice: dense, activations, layer norm,
+embedding and multi-head attention.
+
+Counterpart of ``mxnet_tpu/ops/nn.py`` (and ``ops/core.py`` for
+``embedding``).  Ops are plain functions on tensors.  What the JAX package
+leaves to XLA (matrix products, elementwise chains, the dense attention
+branch) is plain PyTorch here; the flash branch runs the hand-written CUDA
+kernel through ``flash_attention``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..base import MXNetError
+from . import flash_attention as fa
+
+__all__ = ["fully_connected", "activation", "gelu", "layer_norm",
+           "embedding", "multi_head_attention"]
+
+
+def gelu(x, approximate=True):
+    # the JAX op defaults to the tanh approximation (jax.nn.gelu)
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "softrelu": F.softplus,
+    "softsign": F.softsign,
+    "log_sigmoid": F.logsigmoid,
+    "mish": F.mish,
+    "gelu": gelu,
+    "silu": F.silu,
+}
+
+
+def activation(x, act_type="relu"):
+    """act_type dispatcher (the ``Activation`` op)."""
+    try:
+        fn = _ACTIVATIONS[act_type]
+    except KeyError:
+        raise MXNetError("Activation: unknown act_type %r" % (act_type,)) \
+            from None
+    return fn(x)
+
+
+def fully_connected(x, weight, bias=None, num_hidden=None, flatten=True,
+                    no_bias=False):
+    """y = x @ W^T + b, weight layout (out, in)."""
+    if flatten and x.dim() > 2:
+        x = x.reshape(x.shape[0], -1)
+    return F.linear(x, weight, None if no_bias else bias)
+
+
+def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
+    """(x - mean) / sqrt(var + eps) * gamma + beta over ``axis``."""
+    m = x.mean(dim=axis, keepdim=True)
+    v = x.var(dim=axis, keepdim=True, unbiased=False)
+    out = (x - m) * torch.rsqrt(v + eps)
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+def embedding(indices, weight):
+    return F.embedding(indices.long(), weight)
+
+
+def multi_head_attention(q, k, v, num_heads=1, mask=None, scale=None,
+                         causal=False, impl="auto", attn_dropout=0.0):
+    """Batched SDPA over q, k, v of shape (B, T, H*D).
+
+    impl: 'auto' | 'dense' | 'flash' (blockwise) | 'pallas' (the flash
+    kernel; the name is kept from the JAX package, where that path is the
+    Pallas kernel).  'auto' takes the kernel when ``use_flash`` says so."""
+    if attn_dropout > 0.0:
+        raise NotImplementedError(
+            "attention dropout lands with the training slice")
+    B, Tq, HD = q.shape
+    Tk = k.shape[1]
+    D = HD // num_heads
+    qh = q.reshape(B, Tq, num_heads, D).transpose(1, 2)
+    kh = k.reshape(B, Tk, num_heads, D).transpose(1, 2)
+    vh = v.reshape(B, Tk, num_heads, D).transpose(1, 2)
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    if impl == "auto":
+        impl = "pallas" if fa.use_flash(Tq, Tk, D, mask is not None) \
+            else "dense"
+    if impl in ("pallas", "flash"):
+        if mask is not None:
+            raise MXNetError(
+                "impl=%r does not support an arbitrary mask (only causal=); "
+                "use impl='dense' or drop the mask" % impl)
+        if impl == "pallas":
+            out, _ = fa.flash_attention(qh.contiguous(), kh.contiguous(),
+                                        vh.contiguous(), causal, scale)
+        else:
+            out = fa.blockwise_attention(qh, kh, vh, causal=causal,
+                                         sm_scale=scale)
+        return out.transpose(1, 2).reshape(B, Tq, HD)
+    if impl != "dense":
+        raise MXNetError("unknown attention impl %r (have auto, dense, "
+                         "flash, pallas)" % (impl,))
+    scores = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float()) * scale
+    if causal:
+        keep = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, -1e30)
+    if mask is not None:
+        scores = scores.masked_fill(~mask.bool(), -1e30)
+    w = torch.softmax(scores, dim=-1).to(qh.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", w, vh)
+    return out.transpose(1, 2).reshape(B, Tq, HD)

@@ -1,0 +1,280 @@
+"""Runtime telemetry: the ``serve_*`` counters, gauges and histograms.
+
+A cut copy of ``mxnet_tpu/telemetry.py``: the registry and metric kinds,
+``totals``/``value`` readers, and only the metrics that
+``serve/{batching,runner,server,breaker}.py`` touch.  Disabled cost is one
+boolean check per hook (``if telemetry.ENABLED:``);
+``MXNET_TELEMETRY_DISABLE=1`` flips it at import.
+"""
+from __future__ import annotations
+
+import threading
+
+from .base import get_env
+
+__all__ = ["ENABLED", "enable", "disable", "counter", "gauge", "histogram",
+           "get_metric", "reset", "totals", "value", "DEFAULT_BUCKETS"]
+
+_LOCK = threading.Lock()
+_REGISTRY = {}  # name -> Metric, insertion-ordered
+
+ENABLED = not get_env("MXNET_TELEMETRY_DISABLE", bool, False)
+
+DEFAULT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                   0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
+
+def enable():
+    global ENABLED
+    ENABLED = True
+
+
+def disable():
+    global ENABLED
+    ENABLED = False
+
+
+class _CounterChild:
+    __slots__ = ("_value",)
+
+    def __init__(self):
+        self._value = 0.0
+
+    def inc(self, amount=1.0):
+        if amount < 0:
+            raise ValueError("counters can only increase (got %r)" % amount)
+        with _LOCK:
+            self._value += amount
+
+    @property
+    def value(self):
+        return self._value
+
+
+class _GaugeChild:
+    __slots__ = ("_value",)
+
+    def __init__(self):
+        self._value = 0.0
+
+    def set(self, v):
+        with _LOCK:
+            self._value = float(v)
+
+    @property
+    def value(self):
+        return self._value
+
+
+class _HistogramChild:
+    __slots__ = ("_buckets", "_counts", "_sum", "_count")
+
+    def __init__(self, buckets):
+        self._buckets = buckets
+        self._counts = [0] * (len(buckets) + 1)  # last = +Inf overflow
+        self._sum = 0.0
+        self._count = 0
+
+    def observe(self, v):
+        v = float(v)
+        i = len(self._buckets)
+        for j, ub in enumerate(self._buckets):
+            if v <= ub:
+                i = j
+                break
+        with _LOCK:
+            self._counts[i] += 1
+            self._sum += v
+            self._count += 1
+
+    @property
+    def count(self):
+        return self._count
+
+    @property
+    def sum(self):
+        return self._sum
+
+
+_CHILD_FACTORY = {
+    "counter": lambda m: _CounterChild(),
+    "gauge": lambda m: _GaugeChild(),
+    "histogram": lambda m: _HistogramChild(m.buckets),
+}
+
+
+class Metric:
+    """A named metric family; label children are created on demand."""
+
+    def __init__(self, kind, name, help="", labelnames=(), buckets=None):
+        self.kind = kind
+        self.name = name
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        self.buckets = tuple(sorted(buckets or DEFAULT_BUCKETS)) \
+            if kind == "histogram" else None
+        self._children = {}
+        self._default = None if self.labelnames \
+            else _CHILD_FACTORY[kind](self)
+
+    def labels(self, **kwargs):
+        if set(kwargs) != set(self.labelnames):
+            raise ValueError("%s takes labels %s, got %s"
+                             % (self.name, self.labelnames, sorted(kwargs)))
+        values = tuple(str(kwargs[k]) for k in self.labelnames)
+        child = self._children.get(values)
+        if child is None:
+            with _LOCK:
+                child = self._children.setdefault(
+                    values, _CHILD_FACTORY[self.kind](self))
+        return child
+
+    def _delegate(self):
+        if self._default is None:
+            raise ValueError("%s has labels %s: call .labels(...) first"
+                             % (self.name, self.labelnames))
+        return self._default
+
+    def inc(self, amount=1.0):
+        self._delegate().inc(amount)
+
+    def set(self, v):
+        self._delegate().set(v)
+
+    def observe(self, v):
+        self._delegate().observe(v)
+
+    def _samples(self):
+        """[(labelvalues tuple, child), ...] including the default child."""
+        with _LOCK:
+            items = list(self._children.items())
+        out = [((), self._default)] if self._default is not None else []
+        out.extend(sorted(items, key=lambda kv: kv[0]))
+        return out
+
+    def _reset(self):
+        # zero IN PLACE: call sites may hold child references
+        with _LOCK:
+            children = list(self._children.values())
+            if self._default is not None:
+                children.append(self._default)
+            for child in children:
+                if self.kind == "histogram":
+                    child._counts = [0] * (len(self.buckets) + 1)
+                    child._sum = 0.0
+                    child._count = 0
+                else:
+                    child._value = 0.0
+
+
+def _register(kind, name, help, labelnames, buckets=None):
+    with _LOCK:
+        m = _REGISTRY.get(name)
+        if m is not None:
+            if m.kind != kind or m.labelnames != tuple(labelnames):
+                raise ValueError("metric %r already registered as %s%s"
+                                 % (name, m.kind, m.labelnames))
+            return m
+        m = _REGISTRY[name] = Metric(kind, name, help, labelnames, buckets)
+    return m
+
+
+def counter(name, help="", labelnames=()):
+    return _register("counter", name, help, labelnames)
+
+
+def gauge(name, help="", labelnames=()):
+    return _register("gauge", name, help, labelnames)
+
+
+def histogram(name, help="", labelnames=(), buckets=None):
+    return _register("histogram", name, help, labelnames, buckets)
+
+
+def get_metric(name):
+    return _REGISTRY.get(name)
+
+
+def reset():
+    """Zero every registered metric (registrations are kept)."""
+    for m in list(_REGISTRY.values()):
+        m._reset()
+
+
+def totals():
+    """Flat {name: summed value}; histograms give ``_count``/``_sum``."""
+    out = {}
+    for name, m in list(_REGISTRY.items()):
+        samples = m._samples()
+        if m.kind == "histogram":
+            out[name + "_count"] = sum(c.count for _, c in samples)
+            out[name + "_sum"] = sum(c.sum for _, c in samples)
+        else:
+            out[name] = sum(c.value for _, c in samples)
+    return out
+
+
+def value(name, labels=None):
+    """Sum of a metric's samples whose labels contain ``labels``
+    (a histogram counts observations)."""
+    m = _REGISTRY.get(name)
+    if m is None:
+        return 0.0
+    want = {k: str(v) for k, v in (labels or {}).items()}
+    tot = 0.0
+    for values, child in m._samples():
+        have = dict(zip(m.labelnames, values))
+        if all(have.get(k) == v for k, v in want.items()):
+            tot += child.count if m.kind == "histogram" else child.value
+    return tot
+
+
+# mx.serve: queue wait is the time a request sat in the BatchQueue before
+# its micro-batch was dispatched; pad waste is the zero-fill the bucket
+# table forced.
+SERVE_REQUESTS = counter(
+    "serve_requests_total", "serving requests by outcome "
+    "(ok/rejected/timeout/error/cancelled/quarantined/poisoned)",
+    ("result",))
+SERVE_REQUEST_SECONDS = histogram(
+    "serve_request_seconds",
+    "end-to-end request latency (enqueue -> result set)")
+SERVE_QUEUE_WAIT_SECONDS = histogram(
+    "serve_queue_wait_seconds",
+    "time a request waited in the batch queue before dispatch")
+SERVE_QUEUE_DEPTH = gauge(
+    "serve_queue_depth", "requests currently waiting in the batch queue")
+SERVE_BATCHES = counter(
+    "serve_batches_total", "micro-batches dispatched to the model runner")
+SERVE_BATCH_SIZE = histogram(
+    "serve_batch_size", "requests coalesced per dispatched micro-batch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))
+SERVE_PAD_ELEMENTS = counter(
+    "serve_pad_elements_total",
+    "zero elements added by bucket padding (batch + shape fill)")
+SERVE_PAD_FRACTION = histogram(
+    "serve_pad_fraction",
+    "padded/total element fraction per dispatched micro-batch",
+    buckets=(0.01, 0.05, 0.1, 0.2, 0.3, 0.5, 0.7, 0.9))
+SERVE_NONFINITE_OUTPUTS = counter(
+    "serve_nonfinite_outputs_total",
+    "nonfinite (NaN/Inf) elements in served model outputs")
+SERVE_NONFINITE_BATCHES = counter(
+    "serve_nonfinite_batches_total",
+    "dispatched micro-batches containing at least one nonfinite "
+    "output element")
+SERVE_POISON = counter(
+    "serve_poison_requests_total",
+    "requests whose failure was isolated by bisect retry while their "
+    "batch-mates were served independently")
+SERVE_BISECT_SPLITS = counter(
+    "serve_bisect_splits_total",
+    "failed micro-batches split in half for retry (poison isolation)")
+SERVE_BREAKER_STATE = gauge(
+    "serve_breaker_state",
+    "per-bucket circuit breaker state (0=closed 1=half-open 2=open)",
+    ("bucket",))
+SERVE_BREAKER_TRIPS = counter(
+    "serve_breaker_trips_total",
+    "circuit breaker openings (bucket quarantined after repeated "
+    "dispatch failures)", ("bucket",))

@@ -1,0 +1,137 @@
+"""Package rules of the PyTorch port (``mxnet_tpu_torch``).
+
+- Import: every module of the port imports without pulling ``jax`` or
+  ``mxnet_tpu`` into the process, and no source line imports them.
+- No fallback: entry points without a ctx want the card and raise where
+  there is none; a tensor that is not on the CPU never reaches a kernel's
+  plain version.
+"""
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import MXNetError, serve, trace
+from mxnet_tpu_torch.gluon import nn
+from mxnet_tpu_torch.ops import _ext
+from mxnet_tpu_torch.ops import flash_attention as fa
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "mxnet_tpu_torch"
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import mxnet_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
+                                              "mxnet_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+print(json.dumps({"modules": mods, "bad": bad}))
+"""
+
+
+def test_import_pulls_in_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "mxnet_tpu_torch.serve.server" in res["modules"]
+    assert "mxnet_tpu_torch.ops._ext" in res["modules"]
+    assert res["bad"] == []
+
+
+_IMPORT = re.compile(r"^\s*(?:from|import)\s+[^#\n]*"
+                     r"(?:\bmxnet_tpu\b(?!_torch)|\bjax\b)", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT) for p in PKG.rglob("*.py")]
+    + [Path("chip_smoke.py")]), ids=str)
+def test_source_imports_neither_jax_nor_mxnet_tpu(path):
+    assert _IMPORT.findall((ROOT / path).read_text()) == []
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+
+
+def test_server_without_ctx_wants_the_card(monkeypatch):
+    _no_card(monkeypatch)
+    blk = nn.Dense(4, flatten=False, in_units=16)
+    with pytest.raises(MXNetError, match=r"ctx=mx\.cpu\(\)"):
+        serve.Server(blk, config=serve.ServeConfig(
+            sample_shapes=[(8, 16)], batch_sizes=(1,), max_batch_size=1))
+    with pytest.raises(MXNetError, match=r"ctx=mx\.cpu\(\)"):
+        mx.gpu(0).torch_device
+
+
+class _ClaimsCuda:
+    """Stands in for a CUDA tensor: passes every check the wrapper makes
+    before it needs the kernel library."""
+
+    device = torch.device("cuda", 0)
+    dtype = torch.float32
+    shape = (1, 2, 64, 32)
+
+    def dim(self):
+        return 4
+
+    def is_contiguous(self):
+        return True
+
+
+@pytest.fixture
+def no_reference(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a non-CPU tensor")
+
+    monkeypatch.setattr(fa, "flash_attention_reference", refuse)
+
+
+def test_cuda_tensor_without_kernel_library_raises(monkeypatch, tmp_path,
+                                                   no_reference):
+    # no library on disk and no nvcc to build one
+    monkeypatch.setattr(_ext, "LIBRARY", tmp_path / "absent.so")
+    monkeypatch.setattr(_ext, "_LIB", None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    launches = fa.flash_attention.launches
+    t = _ClaimsCuda()
+    with pytest.raises(MXNetError, match="nvcc not found"):
+        fa.flash_attention(t, t, t)
+    assert fa.flash_attention.launches == launches
+
+
+@pytest.mark.parametrize("fault", ["meta", "mixed", "dropout"])
+def test_non_cpu_tensor_never_takes_the_plain_version(no_reference, fault):
+    q = torch.zeros(1, 2, 64, 32, device="meta")
+    k = torch.zeros(1, 2, 64, 32, device="cpu" if fault == "mixed"
+                    else "meta")
+    err = NotImplementedError if fault == "dropout" else MXNetError
+    with pytest.raises(err):
+        fa.flash_attention(q, k, q, dropout_p=0.1 if fault == "dropout"
+                           else 0.0)
+
+
+def test_cpu_ctx_serves():
+    blk = nn.Dense(4, flatten=False, in_units=16)
+    cfg = serve.ServeConfig(sample_shapes=[(8, 16)], batch_sizes=(1,),
+                            max_batch_size=1)
+    with serve.Server(blk, ctx=mx.cpu(), config=cfg) as srv:
+        out = srv.submit(np.ones((3, 16), np.float32), request_id="r-cpu")
+    assert out.shape == (3, 4) and srv.runner.device.type == "cpu"
+    spans = {e["name"] for e in trace.events() if e["trace"] == "r-cpu"}
+    assert {"serve_enqueue", "serve_queue_wait", "serve_dispatch",
+            "serve_pad", "serve_execute", "serve_unpad",
+            "serve_request"} <= spans
