@@ -7,17 +7,31 @@ Needs one CUDA card (NVIDIA H100), ``nvcc`` and numpy; never imports JAX
 or ``mxnet_tpu``.  Phases, each printed as one JSON line:
 
 1. device  -- card name and count, and ``nvidia-smi`` name + power limit.
-2. build   -- nvcc time for ``mxnet_tpu_torch/csrc/*.cu`` (sm_90a).
-3. kernels -- the flash-attention forward kernel against its plain PyTorch
-   version on the card, over shapes x {f32, bf16} x {causal, not}, with
-   its time, the plain version's, ``F.scaled_dot_product_attention``'s
-   (a yardstick only; the port never calls it) and the card's bound.
+2. build   -- nvcc time for ``mxnet_tpu_torch/csrc/*.cu`` (sm_90a, one
+   nvcc per source, in parallel).
+3. kernels -- the three flash-attention kernels against their plain
+   PyTorch versions on the card, over shapes x {f32, bf16} x {causal, not}
+   x dropout p in {0, 0.1}: the forward (O, LSE) and the backward (dq, dk,
+   dv against ``flash_attention_backward_reference``, within
+   1e-4*max(1, max|ref|) in f32 and 2e-2*max(1, max|ref|) in bf16), each
+   with its time, the plain version's, PyTorch's
+   ``F.scaled_dot_product_attention`` (a yardstick only; the port never
+   calls it; for the backward its fwd+bwd minus its fwd) and the card's
+   bound.
 4. serve   -- full-width BERT-base (12 x 768, 12 heads, vocab 30522,
    max_length 512) in f32 with random weights from ``--seed``, served
    through ``serve.Server(...).submit()`` on the card: 32 concurrent
    requests of 64..512 tokens.  Every output is finite and shaped; the
-   kernel's launch count is exactly 12 x the batches dispatched; two
-   requests match the same model run on the CPU.
+   forward kernel's launch count is exactly 12 x the batches dispatched;
+   two requests match the same model run on the CPU.
+5. train   -- full-width BERT-base pretraining (``BERTForPretraining``,
+   dropout 0.1 on hidden states and attention) with Adam at lr 1e-4, fp32
+   with TF32 off: 10 steps of ``autograd.record()``, ``backward()`` and
+   ``trainer.step(1)`` on one synthetic batch (B=8, T=512, 76 masked
+   positions).  Every loss is finite and the last is below the first; the
+   forward, dq and dk/dv kernels each launch exactly 12 x 10 times; one
+   step's parameter gradients at B=1 with dropout off match the same model
+   on the CPU within 1e-3*max(1, max|g|).
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -43,8 +57,17 @@ PEAK_FLOPS = {"float32": 67e12,     # fp32 outside the tensor cores
 TOL_O = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL_LSE = 1e-3
 TOL_SERVE = 1e-3
-FLASH_SOURCE = "mxnet_tpu_torch/csrc/flash_fwd.cu"
-FLASH_REPLACES = "mxnet_tpu/ops/pallas_attention.py:203"
+TOL_GRAD = 1e-3      # card vs CPU parameter gradients, x max(1, max|g|)
+DROPOUT_P = 0.1
+SEED_DROP = 0x5EED_0F_D120   # the kernel phase's dropout seed
+KERNELS = {  # name: (source, the Pallas kernel it replaces)
+    "flash_fwd": ("mxnet_tpu_torch/csrc/flash_fwd.cu",
+                  "mxnet_tpu/ops/pallas_attention.py:203"),
+    "flash_bwd_dq": ("mxnet_tpu_torch/csrc/flash_bwd.cu",
+                     "mxnet_tpu/ops/pallas_attention.py:256"),
+    "flash_bwd_dkv": ("mxnet_tpu_torch/csrc/flash_bwd.cu",
+                      "mxnet_tpu/ops/pallas_attention.py:301"),
+}
 
 
 def emit(obj):
@@ -78,26 +101,78 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(B, H, Tq, Tk, D, dtype, causal):
-    """(ms, "bytes"|"operations"): Q/K/V read once, O and LSE written
-    once; 4*D operations per (query, visible key) pair."""
-    itemsize = 4 if dtype == "float32" else 2
-    nbytes = B * H * (2 * Tq * D + 2 * Tk * D) * itemsize + B * H * Tq * 4
-    pairs = sum(min(i + 1, Tk) for i in range(Tq)) if causal else Tq * Tk
-    ops = 4.0 * B * H * D * pairs
+def _pairs(Tq, Tk, causal):
+    """(query, key) pairs a query may see (top-left causal mask)."""
+    return sum(min(i + 1, Tk) for i in range(Tq)) if causal else Tq * Tk
+
+
+def _bound(nbytes, ops, dtype):
+    """(ms, "bytes"|"operations"): the larger of bytes over the memory
+    rate and operations over the dtype's peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bound(B, H, Tq, Tk, D, dtype, causal):
+    """Forward: Q/K/V read once, O and LSE written once; 4*D operations
+    per (query, visible key) pair."""
+    itemsize = 4 if dtype == "float32" else 2
+    nbytes = B * H * (2 * Tq * D + 2 * Tk * D) * itemsize + B * H * Tq * 4
+    return _bound(nbytes, 4.0 * B * H * D * _pairs(Tq, Tk, causal), dtype)
+
+
+def backward_bounds(B, H, Tq, Tk, D, dtype, causal):
+    """{"bwd", "dq", "dkv"}: (ms, by).  The whole backward reads Q, K, V,
+    O, dO, LSE and delta once and writes dQ, dK, dV once, and does 10*D
+    operations per visible pair (recomputing S, then dP, dV, dK, dQ).  The
+    dq function alone reads Q, K, V, dO, LSE, delta and writes dQ (6*D:
+    S, dP, dQ); the dk/dv function writes dK, dV (8*D: S, dP, dV, dK)."""
+    itemsize = 4 if dtype == "float32" else 2
+    bh, pairs, rows = B * H, _pairs(Tq, Tk, causal), 2 * B * H * Tq * 4
+    tq, tk = Tq * D * itemsize, Tk * D * itemsize
+    return {
+        "bwd": _bound(bh * (4 * tq + 4 * tk) + rows, 10.0 * bh * D * pairs,
+                      dtype),
+        "dq": _bound(bh * (3 * tq + 2 * tk) + rows, 6.0 * bh * D * pairs,
+                     dtype),
+        "dkv": _bound(bh * (2 * tq + 4 * tk) + rows, 8.0 * bh * D * pairs,
+                      dtype)}
+
+
+def _rel_err(got, ref):
+    ref = ref.float()
+    return ((got.float() - ref).abs().max().item()
+            / max(1.0, ref.abs().max().item()))
+
+
+def _sdpa_backward_ms(torch, F, q, k, v, do, causal, p, iters):
+    """The backward half of PyTorch's SDPA: fwd+bwd through
+    ``torch.autograd.grad`` minus fwd."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, dropout_p=p,
+                                              is_causal=causal)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), leaves, do)
+
+    return cuda_ms(fwd_bwd, iters) - cuda_ms(fwd, iters)
 
 
 def phase_kernels(torch, fa, seed):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    # the serving and training shapes, then ragged ones and the head
+    # dims that take the other tiles (D=40: 2 columns a lane; D=256: the
+    # 32-row tiles of the backward)
     shapes = [(8, 12, 512, 512, 64), (4, 12, 512, 512, 64),
               (2, 12, 512, 512, 64), (1, 12, 512, 512, 64),
-              (2, 4, 200, 200, 64), (1, 2, 384, 512, 128)]
-    cases = []
+              (2, 4, 200, 200, 64), (1, 2, 384, 512, 128),
+              (1, 3, 100, 100, 40), (1, 2, 130, 70, 256)]
+    fwd_cases, bwd_cases = [], []
     for B, H, Tq, Tk, D in shapes:
         serve_shape = (H, Tq, Tk, D) == (12, 512, 512, 64)
         for dname in ("float32", "bfloat16"):
@@ -105,41 +180,103 @@ def phase_kernels(torch, fa, seed):
                 if serve_shape and B != 8 and (dname != "float32" or causal):
                     continue  # the other serving batches: f32, not causal
                 dt = getattr(torch, dname)
-                q = torch.randn(B, H, Tq, D, device="cuda", generator=gen,
-                                dtype=dt)
-                k = torch.randn(B, H, Tk, D, device="cuda", generator=gen,
-                                dtype=dt)
-                v = torch.randn(B, H, Tk, D, device="cuda", generator=gen,
-                                dtype=dt)
-                out, lse = fa.flash_attention(q, k, v, causal)
-                torch.cuda.synchronize()
-                ref_out, ref_lse = fa.flash_attention_reference(
-                    q, k, v, causal)
-                err_o = (out.float() - ref_out.float()).abs().max().item()
-                err_l = (lse - ref_lse).abs().max().item()
-                ok = err_o <= TOL_O[dname] and err_l <= TOL_LSE
-                bound, by = attention_bound(B, H, Tq, Tk, D, dname, causal)
+                q, k, v = (torch.randn(B, H, T, D, device="cuda",
+                                       generator=gen, dtype=dt)
+                           for T in (Tq, Tk, Tk))
+                do = torch.randn(B, H, Tq, D, device="cuda", generator=gen,
+                                 dtype=dt)
                 iters = 20 if B * H * Tq * Tk > 1 << 22 else 50
-                case = {
-                    "shape": [B, H, Tq, Tk, D], "dtype": dname,
-                    "causal": causal, "max_abs_err_o": err_o,
-                    "max_abs_err_lse": err_l, "tol_o": TOL_O[dname],
-                    "tol_lse": TOL_LSE, "ok": ok,
-                    "ms": cuda_ms(lambda: fa.flash_attention(
-                        q, k, v, causal), iters),
-                    "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(
-                        q, k, v, causal), iters),
-                    "library_ms": cuda_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            q, k, v, is_causal=causal), iters),
-                    "bound_ms": bound, "bound_by": by}
-                cases.append(case)
-                if not ok:
-                    emit({"phase": "kernels", "failed_case": case})
-                    fail("flash_fwd disagrees with its plain version at %s"
-                         % case["shape"])
-    emit({"phase": "kernels", "kernel": "flash_fwd", "cases": cases})
-    return cases
+                for p in (0.0, DROPOUT_P):
+                    if serve_shape and B != 8 and p:
+                        continue
+                    fwd_cases.append(_fwd_case(torch, F, fa, q, k, v, causal,
+                                               p, dname, iters))
+                    bwd_cases.append(_bwd_case(torch, F, fa, q, k, v, do,
+                                               causal, p, dname, iters))
+    emit({"phase": "kernels", "kernel": "flash_fwd", "cases": fwd_cases})
+    emit({"phase": "kernels", "kernel": "flash_bwd_dq+flash_bwd_dkv",
+          "cases": bwd_cases})
+    return fwd_cases, bwd_cases
+
+
+def _fwd_case(torch, F, fa, q, k, v, causal, p, dname, iters):
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    out, lse = fa.flash_attention(q, k, v, causal, dropout_p=p,
+                                  seed=SEED_DROP)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal,
+                                                    dropout_p=p,
+                                                    seed=SEED_DROP)
+    err_o = (out.float() - ref_out.float()).abs().max().item()
+    err_l = (lse - ref_lse).abs().max().item()
+    ok = err_o <= TOL_O[dname] and err_l <= TOL_LSE
+    bound, by = attention_bound(B, H, Tq, Tk, D, dname, causal)
+    case = {
+        "shape": [B, H, Tq, Tk, D], "dtype": dname, "causal": causal,
+        "dropout_p": p, "max_abs_err_o": err_o, "max_abs_err_lse": err_l,
+        "tol_o": TOL_O[dname], "tol_lse": TOL_LSE, "ok": ok,
+        "ms": cuda_ms(lambda: fa.flash_attention(
+            q, k, v, causal, dropout_p=p, seed=SEED_DROP), iters),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(
+            q, k, v, causal, dropout_p=p, seed=SEED_DROP), iters),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, dropout_p=p, is_causal=causal), iters),
+        "bound_ms": bound, "bound_by": by}
+    if not ok:
+        emit({"phase": "kernels", "failed_case": case})
+        fail("flash_fwd disagrees with its plain version at %s"
+             % case["shape"])
+    return case
+
+
+def _bwd_case(torch, F, fa, q, k, v, do, causal, p, dname, iters):
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    out, lse = fa.flash_attention(q, k, v, causal, dropout_p=p,
+                                  seed=SEED_DROP)
+    delta = fa._delta(do, out)
+    args = (q, k, v, do, lse, delta, causal, None, p, SEED_DROP)
+
+    def kernels():
+        fa.flash_bwd_dq(*args)
+        fa.flash_bwd_dkv(*args)
+
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_backward_reference(q, k, v, out, lse, do,
+                                                causal, None, p, SEED_DROP)
+    names = ("dq", "dk", "dv")
+    errs = {n: _rel_err(g, r) for n, g, r in zip(names, (dq, dk, dv), ref)}
+    abs_errs = {n: (g.float() - r.float()).abs().max().item()
+                for n, g, r in zip(names, (dq, dk, dv), ref)}
+    tol = 1e-4 if dname == "float32" else 2e-2
+    ok = all(e <= tol for e in errs.values())
+    bounds = backward_bounds(B, H, Tq, Tk, D, dname, causal)
+    case = {
+        "shape": [B, H, Tq, Tk, D], "dtype": dname, "causal": causal,
+        "dropout_p": p, "rel_err": errs, "max_abs_err": abs_errs,
+        "tol": tol, "ok": ok,
+        "ms": cuda_ms(lambda: (fa._delta(do, out), kernels()), iters),
+        "dq_ms": cuda_ms(lambda: fa.flash_bwd_dq(*args), iters),
+        "dkv_ms": cuda_ms(lambda: fa.flash_bwd_dkv(*args), iters),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_backward_reference(
+            q, k, v, out, lse, do, causal, None, p, SEED_DROP), iters),
+        "plain_dq_ms": cuda_ms(lambda: fa.flash_bwd_dq_reference(*args),
+                               iters),
+        "plain_dkv_ms": cuda_ms(lambda: fa.flash_bwd_dkv_reference(*args),
+                                iters),
+        "library_ms": _sdpa_backward_ms(torch, F, q, k, v, do, causal, p,
+                                        iters),
+        "bound_ms": bounds["bwd"][0], "bound_by": bounds["bwd"][1],
+        "dq_bound_ms": bounds["dq"][0], "dq_bound_by": bounds["dq"][1],
+        "dkv_bound_ms": bounds["dkv"][0], "dkv_bound_by": bounds["dkv"][1]}
+    if not ok:
+        emit({"phase": "kernels", "failed_case": case})
+        fail("flash backward disagrees with its plain version at %s"
+             % case["shape"])
+    return case
 
 
 def bert_params(block, seed):
@@ -260,6 +397,153 @@ def phase_serve(torch, mx, fa, seed, smi):
     return launches
 
 
+def _train_batch(rng, B, T, M, vocab):
+    ids = rng.integers(0, vocab, (B, T)).astype(np.int64)
+    types = (np.arange(T)[None, :] >= T // 2).repeat(B, 0).astype(np.int64)
+    pos = np.stack([rng.choice(T, M, replace=False) for _ in range(B)])
+    return dict(ids=ids, types=types, pos=pos.astype(np.int64),
+                labels=rng.integers(0, vocab, (B, M)).astype(np.int64),
+                weights=np.ones((B, M), np.float32),
+                nsp=rng.integers(0, 2, (B,)).astype(np.int64))
+
+
+def _train_step(mx, bert, net, batch, train_mode=True):
+    """record -> forward + loss -> backward; returns the loss tensor."""
+    with mx.autograd.record(train_mode=train_mode):
+        mlm, nsp = net(batch["ids"], batch["types"], None, batch["pos"])
+        loss = bert.pretraining_loss(mlm, nsp, batch["labels"],
+                                     batch["weights"], batch["nsp"])
+    loss.backward()
+    return loss
+
+
+def phase_train(torch, mx, fa, seed, smi):
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    B, T, M, vocab, steps = 8, 512, 76, 30522, 10
+    H, D = 12, 64
+    t0 = time.perf_counter()
+    net = bert.bert_12_768_12(pretraining=True, vocab_size=vocab,
+                              max_length=T, dropout=DROPOUT_P)
+    net.initialize()                    # no ctx: the card
+    mx.convert.load_jax_params(net, bert_params(net, seed))
+    params = net.collect_params()
+    if any(p.device.type != "cuda" for p in params.values()):
+        fail("initialize() did not place the parameters on the card")
+    trainer = mx.gluon.Trainer(params, "adam", {"learning_rate": 1e-4})
+    rng = np.random.default_rng(seed + 2)
+    host = _train_batch(rng, B, T, M, vocab)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    t_build = time.perf_counter() - t0
+    mx.random.seed(seed)
+
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, fwd_ms, bwd_ms, upd_ms = [], [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            mlm, nsp = net(batch["ids"], batch["types"], None, batch["pos"])
+            loss = bert.pretraining_loss(mlm, nsp, batch["labels"],
+                                         batch["weights"], batch["nsp"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        trainer.step(1)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        losses.append(loss.item())
+        fwd_ms.append((t1 - t0) * 1e3)
+        bwd_ms.append((t2 - t1) * 1e3)
+        upd_ms.append((t3 - t2) * 1e3)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+
+    if not all(np.isfinite(losses)):
+        fail("nonfinite training loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        fail("training loss did not fall: %s" % losses)
+    for name, n in launches.items():
+        if n != 12 * steps:
+            fail("%s launched %d times in %d steps (want 12 per step)"
+                 % (name, n, steps))
+
+    step_ms = [f + b + u for f, b, u in zip(fwd_ms, bwd_ms, upd_ms)]
+    med = float(np.median(step_ms))
+    # the 36 kernel launches of one step, timed alone at the step's shapes
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
+                   for _ in range(4))
+    with torch.no_grad():
+        out, lse = fa.flash_attention(q, k, v, dropout_p=DROPOUT_P, seed=1)
+        delta = fa._delta(do, out)
+        args = (q, k, v, do, lse, delta, False, None, DROPOUT_P, 1)
+        kern_ms = 12 * (cuda_ms(lambda: fa.flash_attention(
+            q, k, v, dropout_p=DROPOUT_P, seed=1), 20)
+            + cuda_ms(lambda: fa.flash_bwd_dq(*args), 20)
+            + cuda_ms(lambda: fa.flash_bwd_dkv(*args), 20))
+    del q, k, v, do, out, lse, delta
+
+    grad_err = _train_grad_parity(torch, mx, bert, net, host, vocab, T)
+    emit({"phase": "train", "model": "bert_12_768_12", "head":
+          "BERTForPretraining", "dtype": "float32", "tf32": False,
+          "batch": B, "seq_len": T, "masked_positions": M,
+          "dropout": DROPOUT_P, "optimizer": "adam", "lr": 1e-4,
+          "steps": steps, "losses": losses, "launches": launches,
+          "step_ms": step_ms, "step_ms_median": med,
+          "forward_ms_median": float(np.median(fwd_ms)),
+          "backward_ms_median": float(np.median(bwd_ms)),
+          "update_ms_median": float(np.median(upd_ms)),
+          "tokens_per_s": B * T / (med / 1e3),
+          "kernels_ms_per_step": kern_ms, "kernels_share": kern_ms / med,
+          "max_memory_allocated_bytes": peak,
+          "grad_parity_b1_max_rel_err": grad_err, "grad_tol": TOL_GRAD,
+          "model_build_s": t_build, "card": smi})
+    return launches
+
+
+def _train_grad_parity(torch, mx, bert, net, host, vocab, T):
+    """One step's gradients at B=1 with dropout off (``record(train_mode=
+    False)``), card against the same weights on the CPU: the largest
+    |g_card - g_cpu| / max(1, max|g_cpu|) over the parameters."""
+    one = {k: v[:1] for k, v in host.items()}
+    net.zero_grad(set_to_none=True)
+    _train_step(mx, bert, net, {k: torch.from_numpy(v).cuda()
+                                for k, v in one.items()}, train_mode=False)
+    cpu = bert.bert_12_768_12(pretraining=True, vocab_size=vocab,
+                              max_length=T, dropout=DROPOUT_P)
+    mx.convert.load_jax_params(cpu, {k: p.detach().cpu().numpy()
+                                     for k, p in net.collect_params().items()})
+    _train_step(mx, bert, cpu, {k: torch.from_numpy(v)
+                                for k, v in one.items()}, train_mode=False)
+    worst = 0.0
+    card = net.collect_params()
+    for name, p in cpu.collect_params().items():
+        g = p.grad
+        err = ((card[name].grad.cpu() - g).abs().max().item()
+               / max(1.0, g.abs().max().item()))
+        worst = max(worst, err)
+        if err > TOL_GRAD:
+            fail("gradient of %s differs from the CPU run by %g (x max(1, "
+                 "max|g|))" % (name, err))
+    net.zero_grad(set_to_none=True)
+    return worst
+
+
+def _kernel_entry(name, launches, case, ms, plain_ms, bound, max_abs_err):
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": case[ms],
+            "plain_ms": case[plain_ms], "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": case["library_ms"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -293,20 +577,34 @@ def main():
           "ptxas": [ln.strip() for ln in _ext.build_log.splitlines()
                     if "registers" in ln or "spill" in ln]})
 
-    cases = phase_kernels(torch, fa, args.seed)
-    launches = phase_serve(torch, mx, fa, args.seed, smi)
+    fwd_cases, bwd_cases = phase_kernels(torch, fa, args.seed)
+    serve_launches = phase_serve(torch, mx, fa, args.seed, smi)
+    train_launches = phase_train(torch, mx, fa, args.seed, smi)
 
-    main_case = cases[0]   # (8, 12, 512, 512, 64) f32, not causal
-    serve_cases = [c for c in cases if c["shape"][1:] == [12, 512, 512, 64]
-                   and c["dtype"] == "float32" and not c["causal"]]
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": launches,
-        "max_abs_err": max(c["max_abs_err_o"] for c in serve_cases),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]})
+    # the main paths' shape, (8, 12, 512, 512, 64) f32, not causal: the
+    # forward as served (no dropout), the backward as trained (p = 0.1)
+    def main_case(cases, p):
+        return next(c for c in cases if c["shape"] == [8, 12, 512, 512, 64]
+                    and c["dtype"] == "float32" and not c["causal"]
+                    and c["dropout_p"] == p)
+
+    fwd, bwd = main_case(fwd_cases, 0.0), main_case(bwd_cases, DROPOUT_P)
+    served = [c for c in fwd_cases if c["shape"][1:] == [12, 512, 512, 64]
+              and c["dtype"] == "float32" and not c["causal"]]
+    entries = [_kernel_entry(
+        "flash_fwd", serve_launches + train_launches["flash_attention"], fwd,
+        "ms", "plain_ms", (fwd["bound_ms"], fwd["bound_by"]),
+        max(c["max_abs_err_o"] for c in served))]
+    entries[0]["launches_by_path"] = {
+        "serve": serve_launches, "train": train_launches["flash_attention"]}
+    for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
+                               ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
+        entries.append(_kernel_entry(
+            kname, train_launches[kname], bwd, short + "_ms",
+            "plain_%s_ms" % short,
+            (bwd[short + "_bound_ms"], bwd[short + "_bound_by"]),
+            max(bwd["max_abs_err"][o] for o in outs)))
+    emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})

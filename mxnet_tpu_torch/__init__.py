@@ -1,9 +1,11 @@
 """mxnet_tpu_torch: the PyTorch + CUDA port of mxnet_tpu, for NVIDIA Hopper.
 
 This package sits beside ``mxnet_tpu/`` (the JAX reference) and ports it
-slice by slice.  This slice serves BERT-base through ``serve.Server``, and
-every attention call on that path runs a hand-written CUDA flash-attention
-forward kernel (``csrc/flash_fwd.cu``).
+slice by slice.  It serves BERT-base through ``serve.Server`` and trains it
+through ``autograd.record()``, ``backward()`` and ``gluon.Trainer``; every
+attention call on those paths runs hand-written CUDA flash-attention
+kernels (``csrc/flash_fwd.cu``, and ``csrc/flash_bwd.cu`` for the
+gradients).
 
 Ground rules:
 
@@ -21,6 +23,7 @@ Ground rules:
   they raise.  A CUDA tensor handed to a kernel wrapper launches the kernel
   or raises; only a CPU tensor takes the kernel's plain PyTorch version.
 """
-from . import base, context, convert, gluon, ops, serve, telemetry, trace  # noqa: F401
+from . import (autograd, base, context, convert, gluon, initializer,  # noqa: F401
+               ops, optimizer, random, serve, telemetry, trace)
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, current_context, gpu  # noqa: F401

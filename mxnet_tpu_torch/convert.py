@@ -36,7 +36,6 @@ def load_jax_params(block, params):
                              "expects %s" % (name, tuple(a.shape),
                                              tuple(p.shape)))
         arrays[name] = a
-    with torch.no_grad():
-        for name, p in own.items():
-            p.copy_(torch.from_numpy(arrays[name]))
+    for name, p in own.items():
+        p.set_data(torch.from_numpy(arrays[name]))
     return block

@@ -7,6 +7,10 @@
 // with the online softmax of the TPU kernel: running max m, running
 // denominator l and the output accumulator kept in fp32 while K/V tiles
 // stream past.  Q is scaled in fp32 as it is loaded, as the TPU kernel does.
+// With dropout p (training), O = (softmax(s) * keep / (1-p)) V: the keep
+// bits come from the hash of flash_common.cuh, the denominator and the LSE
+// stay undropped, and the backward kernels (flash_bwd.cu) regenerate the
+// same bits.
 //
 // Design.  One thread block owns one (b*h, 64-row query tile); 8 warps own 8
 // rows each.  The block loops over 64-key tiles of K and V staged in shared
@@ -27,41 +31,15 @@
 // computes in fp32 on the CUDA cores for both input types, without wgmma,
 // TMA or pipelining: simple and correct first.  Its inner loops are bound
 // by shared-memory loads (10 loads per 64 FMAs in QK^T, fewer in PV).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace mxflash;
+
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kWarps = 8;
 constexpr int kRows = kBlockQ / kWarps;  // query rows per warp
-constexpr float kNegInf = -1e30f;        // the TPU kernel's mask value
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Shared-memory floats for head dim D: Q tile (stride D), K tile (stride
 // D+4: lanes reading float4s from different key rows then hit distinct
@@ -72,12 +50,14 @@ __host__ __device__ inline size_t smem_floats(int D) {
 }
 
 // NC = output columns per lane = ceil(D / 32); D is a multiple of 8, <= 256.
-template <typename T, int NC>
+// kDropout: attention-probability dropout (a separate instance, so the
+// inference kernel's instructions are those of the kernel without dropout).
+template <typename T, int NC, bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Tq, int Tk, int D, int nq,
-                 float scale, int causal) {
+                 float scale, int causal, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   const int ldk = D + 4;
   float* sQ = smem;
@@ -100,8 +80,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   float m[kRows], l[kRows], acc[kRows][NC];
+  uint32_t rkey[kRows];  // dropout: one hash key per query row
+  const uint32_t bh_key = kDropout ? drop_bh_key(drop.seed, bh) : 0u;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
+    if (kDropout) rkey[r] = drop_row_key(bh_key, q0 + r0 + r);
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
@@ -139,7 +122,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // mask, then the online-softmax update of (m, l, acc)
+    // mask, then the online-softmax update of (m, l, acc).  The
+    // denominator l keeps the undropped mass (dropout(softmax(s)) V, as
+    // the TPU kernel); only the probabilities into acc are dropped.
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int qi = q0 + r0 + r;
@@ -155,8 +140,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[r] = m_new;
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[r][c] *= corr;
-      myP[r * kBlockK + lane] = p0;
-      myP[r * kBlockK + lane + 32] = p1;
+      float d0 = p0, d1 = p1;
+      if (kDropout) {
+        d0 = drop_keep(rkey[r], k0 + lane, drop.thresh) ? p0 * drop.inv_keep : 0.f;
+        d1 = drop_keep(rkey[r], k0 + lane + 32, drop.thresh) ? p1 * drop.inv_keep
+                                                            : 0.f;
+      }
+      myP[r * kBlockK + lane] = d0;
+      myP[r * kBlockK + lane + 32] = d1;
     }
     __syncwarp();
 
@@ -197,32 +188,33 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool kDropout>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int bh, int Tq, int Tk, int D, float scale,
-                   int causal, cudaStream_t stream) {
+                   int causal, Dropout drop, cudaStream_t stream) {
   const size_t smem = smem_floats(D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, NC, kDropout>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int nq = (Tq + kBlockQ - 1) / kBlockQ;
-  flash_fwd_kernel<T, NC>
+  flash_fwd_kernel<T, NC, kDropout>
       <<<dim3((unsigned)(bh * nq)), dim3(kWarps * 32), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, Tq, Tk, D, nq,
-      scale, causal);
+      scale, causal, drop);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kDropout>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      float* lse, int bh, int Tq, int Tk, int D, float scale,
-                     int causal, cudaStream_t stream) {
+                     int causal, Dropout drop, cudaStream_t stream) {
   switch ((D + 31) / 32) {
-#define MX_CASE(NC) \
-  case NC:          \
-    return launch<T, NC>(q, k, v, o, lse, bh, Tq, Tk, D, scale, causal, stream);
+#define MX_CASE(NC)                                                         \
+  case NC:                                                                  \
+    return launch<T, NC, kDropout>(q, k, v, o, lse, bh, Tq, Tk, D, scale,   \
+                                   causal, drop, stream);
     MX_CASE(1) MX_CASE(2) MX_CASE(3) MX_CASE(4)
     MX_CASE(5) MX_CASE(6) MX_CASE(7) MX_CASE(8)
 #undef MX_CASE
@@ -231,23 +223,44 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+template <typename T>
+cudaError_t dispatch_dropout(const void* q, const void* k, const void* v,
+                             void* o, float* lse, int bh, int Tq, int Tk,
+                             int D, float scale, int causal, int dropout,
+                             Dropout drop, cudaStream_t stream) {
+  return dropout ? dispatch<T, true>(q, k, v, o, lse, bh, Tq, Tk, D, scale,
+                                     causal, drop, stream)
+                 : dispatch<T, false>(q, k, v, o, lse, bh, Tq, Tk, D, scale,
+                                      causal, drop, stream);
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  q/k/v/o: contiguous (B*H, T, D)
-// of dtype 0 = float32 or 1 = bfloat16; lse: (B*H, Tq) float32.  Launches
-// on `stream` of `device` and returns cudaGetLastError() (0 on success).
+// of dtype 0 = float32 or 1 = bfloat16; lse: (B*H, Tq) float32.  dropout != 0
+// drops attention probabilities with the mask of flash_common.cuh (seed,
+// keep threshold, 1 / (1 - p)).  Launches on `stream` of `device` and
+// returns cudaGetLastError() (0 on success).
 extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int Tq, int Tk,
                             int D, float scale, int causal, int dtype,
-                            int device, void* stream) {
+                            int dropout, unsigned long long seed,
+                            unsigned int thresh, float inv_keep, int device,
+                            void* stream) {
   if (D <= 0 || D > 256 || D % 8 != 0 || bh <= 0 || Tq <= 0 || Tk <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0) err = dispatch<float>(q, k, v, o, l, bh, Tq, Tk, D, scale, causal, s);
-  else if (dtype == 1) err = dispatch<__nv_bfloat16>(q, k, v, o, l, bh, Tq, Tk, D, scale, causal, s);
-  else err = cudaErrorInvalidValue;
+  const Dropout drop{seed, thresh, inv_keep};
+  if (dtype == 0)
+    err = dispatch_dropout<float>(q, k, v, o, l, bh, Tq, Tk, D, scale, causal,
+                                  dropout, drop, s);
+  else if (dtype == 1)
+    err = dispatch_dropout<__nv_bfloat16>(q, k, v, o, l, bh, Tq, Tk, D, scale,
+                                          causal, dropout, drop, s);
+  else
+    err = cudaErrorInvalidValue;
   return (int)err;
 }

@@ -5,14 +5,19 @@ Counterpart of ``mxnet_tpu/gluon/block.py``.  A ``Block`` is an
 (``encoder.layers.0.attention.query_proj.weight``), so weights cross
 between the two packages by name (``convert.load_jax_params``).
 
-Blocks start in inference mode (``training`` False), as the JAX package's
-blocks run outside ``autograd.record()``.
+Training mode follows ``autograd``, not ``nn.Module.training``: dropout
+acts while ``autograd.is_training()``, and a block builds an autograd graph
+only inside ``autograd.record()`` (outside it, it runs under
+``torch.no_grad()``), as the JAX package's blocks do.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 
+import torch
 from torch import nn
+
+from .. import autograd
 
 __all__ = ["Block", "HybridBlock"]
 
@@ -20,13 +25,36 @@ __all__ = ["Block", "HybridBlock"]
 class Block(nn.Module):
     """Base block: an ``nn.Module`` with Gluon's parameter naming."""
 
-    def __init__(self):
-        super().__init__()
-        self.training = False
+    def __call__(self, *args, **kwargs):
+        if autograd.is_recording() or not torch.is_grad_enabled():
+            return super().__call__(*args, **kwargs)
+        with torch.no_grad():   # not recording: no graph, as in JAX
+            return super().__call__(*args, **kwargs)
 
     def collect_params(self):
-        """Structured-name parameter dict ``{name: torch.nn.Parameter}``."""
+        """Structured-name parameter dict ``{name: Parameter}``."""
         return OrderedDict(self.named_parameters())
+
+    def initialize(self, init=None, ctx=None, force_reinit=False):
+        """Place every parameter on ``ctx`` (default the card; raises
+        without one unless ``ctx=mx.cpu()``) and fill those not yet
+        initialized or set: a parameter's own ``init`` first, else
+        ``init``, else ``initializer.Uniform()``."""
+        from .. import initializer
+
+        default = init or initializer.Uniform()
+        for name, param in self.collect_params().items():
+            param.initialize(ctx=ctx, default_init=default,
+                             force_reinit=force_reinit, name=name)
+
+    def zero_grad(self, set_to_none=False):
+        """Zero every parameter's gradient in place (Gluon semantics;
+        ``set_to_none=True`` drops them instead, as ``nn.Module`` does)."""
+        for param in self.parameters():
+            if set_to_none:
+                param.grad = None
+            elif param.grad is not None:
+                param.grad.zero_()
 
     def register_child(self, block, name=None):
         name = name or str(len(self._modules))

@@ -1,21 +1,24 @@
-"""Basic layers of the serving slice: Dense, Dropout, LayerNorm, Embedding
-and HybridSequential.
+"""Basic layers: Dense, Dropout, LayerNorm, Embedding and
+HybridSequential.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``.  Parameter names
 and layouts match (Dense weight (units, in_units), LayerNorm gamma/beta,
 Embedding weight (input_dim, output_dim)).  Shapes are static: ``in_units``
 and ``in_channels`` must be given, as every layer of BERT gives them.
-Parameters are created zero-filled (LayerNorm gamma one); weights come in
-through ``convert.load_jax_params``.
+Parameters are trainable ``gluon.Parameter``s, created zero-filled
+(LayerNorm gamma one) on the CPU; ``Block.initialize`` moves and fills them,
+or weights come in through ``convert.load_jax_params``.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn as _tnn
 
+from ... import autograd
+from ... import random as _random
 from ...base import MXNetError
 from ...ops import nn as F
 from ..block import HybridBlock
+from ..parameter import Parameter
 
 __all__ = ["HybridSequential", "Dense", "Dropout", "LayerNorm", "Embedding"]
 
@@ -24,9 +27,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def _param(shape, dtype="float32", fill=0.0):
-    return _tnn.Parameter(torch.full(tuple(shape), fill,
-                                     dtype=_DTYPES[dtype]),
-                          requires_grad=False)
+    return Parameter(torch.full(tuple(shape), fill, dtype=_DTYPES[dtype]),
+                     grad_req="write")
 
 
 def _static(n, what, layer):
@@ -80,18 +82,19 @@ class Dense(HybridBlock):
 
 
 class Dropout(HybridBlock):
-    """Identity at inference; training-mode dropout lands with the
-    training slice."""
+    """Drops while ``autograd.is_training()`` (inside ``record()``), with a
+    mask from the port's generator of x's device; identity otherwise."""
 
     def __init__(self, rate, axes=(), **kwargs):
         super().__init__()
+        if axes:
+            raise MXNetError("Dropout(axes=...) is not ported")
         self._rate = rate
 
     def forward(self, x):
-        if self.training and self._rate > 0.0:
-            raise NotImplementedError(
-                "training-mode dropout lands with the training slice")
-        return x
+        if not autograd.is_training() or self._rate <= 0.0:
+            return x
+        return F.dropout(x, self._rate, _random.generator(x.device))
 
 
 class LayerNorm(HybridBlock):

@@ -1,4 +1,4 @@
-"""Transformer layers of the serving slice.
+"""Transformer layers.
 
 Counterpart of ``mxnet_tpu/gluon/nn/transformer.py`` (``MultiHeadAttention``,
 ``PositionwiseFFN``, ``TransformerEncoderCell``, ``TransformerEncoder``,
@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ... import autograd
+from ... import random as _random
 from ...base import MXNetError
 from ...ops import nn as F
 from ..block import HybridBlock
@@ -25,9 +27,9 @@ class MultiHeadAttention(HybridBlock):
     """Multi-head (self/cross) attention.
 
     forward(query, key=None, value=None, mask=None): key/value default to
-    query.  ``mask`` broadcasts against (B, H, Tq, Tk).  ``dropout`` on the
-    attention probabilities applies in training only, which lands with the
-    training slice."""
+    query.  ``mask`` broadcasts against (B, H, Tq, Tk).  ``dropout`` drops
+    attention probabilities while ``autograd.is_training()``; long
+    sequences take it inside the flash kernels."""
 
     def __init__(self, units, num_heads, dropout=0.0, use_bias=True,
                  causal=False, attention_impl="auto", in_units=0, **kwargs):
@@ -52,11 +54,14 @@ class MultiHeadAttention(HybridBlock):
     def forward(self, query, key=None, value=None, mask=None):
         key = query if key is None else key
         value = key if value is None else value
+        drop = {}
+        if self._dropout > 0.0 and autograd.is_training():
+            drop = dict(attn_dropout=self._dropout,
+                        dropout_seed=_random.take_key())
         out = F.multi_head_attention(
             self.query_proj(query), self.key_proj(key),
             self.value_proj(value), num_heads=self._num_heads, mask=mask,
-            causal=self._causal, impl=self._impl,
-            attn_dropout=self._dropout if self.training else 0.0)
+            causal=self._causal, impl=self._impl, **drop)
         return self.out_proj(out)
 
 

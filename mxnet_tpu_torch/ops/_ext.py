@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``mxnet_tpu_torch/csrc/`` have a plain C interface.  At
-first use, ``nvcc`` compiles them for ``sm_90a`` into one shared library
-under ``build/torch_ext/`` of the checkout (rebuilt whenever a source is
-newer than the library), and ``ctypes`` loads it.  Nothing is built at
-import time, and a failed build raises with the compiler's output: there is
-no plain-PyTorch stand-in for a missing kernel.
+first use, ``nvcc`` compiles them for ``sm_90a``, one process per source,
+all started together, and links the objects into one shared library under
+``build/torch_ext/`` of the checkout (rebuilt whenever a source or header
+is newer than the library); ``ctypes`` loads it.  Nothing is built at import
+time, and a failed build raises with the compiler's output: there is no
+plain-PyTorch stand-in for a missing kernel.
 """
 from __future__ import annotations
 
@@ -23,9 +24,10 @@ __all__ = ["SOURCES", "LIBRARY", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
+HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 LIBRARY = _PKG.parent / "build" / "torch_ext" / "libmxnet_tpu_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -49,7 +51,7 @@ def _stale():
     if not LIBRARY.exists():
         return True
     built = LIBRARY.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in SOURCES)
+    return any(src.stat().st_mtime > built for src in SOURCES + HEADERS)
 
 
 def build(force=False):
@@ -61,20 +63,29 @@ def build(force=False):
             return LIBRARY
         nvcc = _nvcc()
         LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=LIBRARY.parent)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)],
-                capture_output=True, text=True, check=False)
-            build_log = proc.stdout + proc.stderr
+        with tempfile.TemporaryDirectory(dir=LIBRARY.parent) as tmp:
+            objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(SOURCES, objs)]
+            logs = [proc.communicate()[0] for proc in procs]
+            build_log = "".join("== %s\n%s" % (src.name, log)
+                                for src, log in zip(SOURCES, logs))
+            failed = [src.name for src, proc in zip(SOURCES, procs)
+                      if proc.returncode != 0]
+            if failed:
+                raise MXNetError("nvcc failed on %s:\n%s"
+                                 % (", ".join(failed), build_log))
+            lib = os.path.join(tmp, LIBRARY.name)
+            proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                                  capture_output=True, text=True,
+                                  check=False)
+            build_log += proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise MXNetError("nvcc failed (exit %d):\n%s"
+                raise MXNetError("nvcc link failed (exit %d):\n%s"
                                  % (proc.returncode, build_log))
-            os.replace(tmp, LIBRARY)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            os.replace(lib, LIBRARY)
         return LIBRARY
 
 
@@ -87,9 +98,17 @@ def load():
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(path))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.mx_flash_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                         ctypes.c_float, ci, ci, ci, vp]
-            lib.mx_flash_fwd.restype = ci
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            # dropout, seed, keep threshold, 1 / keep
+            drop = [ci, ctypes.c_uint64, ctypes.c_uint32, cf]
+            lib.mx_flash_fwd.argtypes = [vp] * 5 + [ci] * 4 + [cf, ci, ci] \
+                + drop + [ci, vp]
+            lib.mx_flash_bwd_dq.argtypes = [vp] * 7 + [ci] * 4 + [cf, ci, ci] \
+                + drop + [ci, vp]
+            lib.mx_flash_bwd_dkv.argtypes = [vp] * 8 + [ci] * 4 \
+                + [cf, ci, ci] + drop + [ci, vp]
+            for fn in (lib.mx_flash_fwd, lib.mx_flash_bwd_dq,
+                       lib.mx_flash_bwd_dkv):
+                fn.restype = ci
             _LIB = lib
     return _LIB

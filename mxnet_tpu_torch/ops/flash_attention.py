@@ -1,20 +1,33 @@
-"""Flash attention: the hand-written CUDA forward kernel and its plain
-PyTorch versions.
+"""Flash attention: the hand-written CUDA kernels (forward, dq, dk/dv) and
+their plain PyTorch versions.
 
 Counterpart of ``mxnet_tpu/ops/pallas_attention.py``.  Layout is
 (B, H, T, D) as there.
 
-- ``flash_attention``           -- the wrapper.  A CUDA tensor launches
-                                   ``csrc/flash_fwd.cu`` (the port of the
-                                   Pallas ``_flash_kernel``) or raises; a
-                                   CPU tensor runs the plain version.
-- ``flash_attention_reference`` -- the plain version: dense fp32 softmax
-                                   attention plus the row logsumexp.
-- ``blockwise_attention``       -- a plain port of the JAX blockwise
-                                   online-softmax scan (``impl='flash'``).
+- ``flash_attention``        -- the entry point: a ``torch.autograd.Function``
+                                (in place of the JAX ``custom_vjp``) whose
+                                forward is ``csrc/flash_fwd.cu`` and whose
+                                backward is Δ = rowsum(dO∘O) followed by
+                                ``flash_bwd_dq`` and ``flash_bwd_dkv``
+                                (``csrc/flash_bwd.cu``).
+- ``flash_bwd_dq``,
+  ``flash_bwd_dkv``          -- the backward kernels' wrappers.
+- ``*_reference``            -- the plain versions, dense in fp32 (fp64 for
+                                fp64 inputs).
+- ``dropout_keep_mask``      -- the exact keep mask the kernels regenerate.
+- ``blockwise_attention``    -- a plain port of the JAX blockwise
+                                online-softmax scan (``impl='flash'``).
 
-Forward only: the backward kernels and in-kernel dropout arrive with the
-training slice, so ``dropout_p > 0`` raises.
+Every wrapper takes its plain version for tensors on the CPU only; a CUDA
+tensor launches the kernel or raises.
+
+Attention dropout (``dropout_p`` > 0) drops probabilities after the
+softmax, as the TPU kernels do: the softmax denominator and the LSE keep the
+undropped mass.  Its keep bit is a counter-based hash of the absolute
+(seed, batch*head, query row, key column) (``csrc/flash_common.cuh``), so
+the mask is independent of the kernels' tile sizes, is regenerated by all
+three kernels and never stored; ``dropout_keep_mask`` computes the same
+bits with integer tensor ops.  Its bits do not match the TPU generator's.
 """
 from __future__ import annotations
 
@@ -25,107 +38,372 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["flash_attention", "flash_attention_reference",
+           "flash_attention_backward_reference", "flash_bwd_dq",
+           "flash_bwd_dkv", "flash_bwd_dq_reference",
+           "flash_bwd_dkv_reference", "dropout_keep_mask",
            "blockwise_attention", "use_flash", "DEFAULT_BLOCKWISE_K"]
 
 _NEG_INF = -1e30
 DEFAULT_BLOCKWISE_K = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# ---- the dropout mask (the hash of csrc/flash_common.cuh) -----------------
+_MASK32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+
+
+def _mul32(x, c):
+    """x * c mod 2^32 for x in [0, 2^32) (int64 tensor or int) and a 32-bit
+    constant c, with no intermediate above 2^49."""
+    lo = (x & 0xFFFF) * c
+    hi = ((x >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _MASK32
+
+
+def _fmix32(h):
+    """murmur3's 32-bit finaliser on int64 values in [0, 2^32)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _keep_threshold(p):
+    """Keep when bits < this: the TPU kernel's uint32((1-p)·(2^32-1))."""
+    return int((1.0 - p) * float(2 ** 32 - 1))
+
+
+def _keep_bits(seed, bh, rows, cols):
+    """Hash bits for every (bh, row, col): int64 (len(bh), len(rows),
+    len(cols)) in [0, 2^32).  bh, rows, cols: 1-D int64 tensors."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    h = _fmix32((seed & _MASK32) ^ _GOLDEN)
+    h = _fmix32(h ^ (seed >> 32))
+    bh_key = _fmix32(h ^ bh)                                  # (BH,)
+    row_key = _fmix32(bh_key[:, None] ^ rows[None, :])        # (BH, Tq)
+    col = _mul32(cols, _GOLDEN)                               # (Tk,)
+    return _fmix32((row_key[:, :, None] + col[None, None, :]) & _MASK32)
+
+
+def dropout_keep_mask(seed, BH, Tq, Tk, p, device=None, col0=0):
+    """The kernels' keep mask: bool (BH, Tq, Tk), True where the attention
+    probability of (batch*head, query row, key column + col0) is kept at
+    dropout rate ``p`` with 64-bit ``seed``."""
+    def ar(n, start=0):
+        return torch.arange(start, start + n, dtype=torch.int64,
+                            device=device)
+
+    return _keep_bits(seed, ar(BH), ar(Tq), ar(Tk, col0)) \
+        < _keep_threshold(p)
+
+
+def _acc_dtype(x):
+    """Accumulation type of the plain versions: fp32, or fp64 for fp64."""
+    return torch.promote_types(x.dtype, torch.float32)
+
 
 def _scale(q, sm_scale):
     return sm_scale if sm_scale is not None else 1.0 / (q.shape[-1] ** 0.5)
 
 
-def _no_dropout(dropout_p):
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet: it lands with the "
-            "training slice (backward kernels + in-kernel dropout mask)")
+def _drop_factor(seed, p, B, H, Tq, Tk, k0, device, dtype):
+    """keep / (1 - p) as a (B, H, Tq, Tk) tensor of ``dtype``."""
+    keep = dropout_keep_mask(seed, B * H, Tq, Tk, p, device, col0=k0)
+    return keep.reshape(B, H, Tq, Tk).to(dtype) / (1.0 - p)
 
 
-def flash_attention_reference(q, k, v, causal=False, sm_scale=None):
-    """Dense softmax attention in fp32 -> (out in q's dtype, lse fp32).
-
-    ``lse`` is (B, H, Tq): log sum_k exp(scale * q.k) over the keys each
-    query may see (top-left aligned causal mask, as the TPU kernel)."""
-    scale = _scale(q, sm_scale)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
+def _scores(q, k, causal, scale, ft):
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ft) * scale, k.to(ft))
     if causal:
         Tq, Tk = q.shape[2], k.shape[2]
         keep = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~keep, _NEG_INF)
+    return s
+
+
+def flash_attention_reference(q, k, v, causal=False, sm_scale=None,
+                              dropout_p=0.0, seed=0):
+    """Dense softmax attention -> (out in q's dtype, lse).
+
+    ``lse`` is (B, H, Tq): log sum_k exp(scale * q.k) over the keys each
+    query may see (top-left aligned causal mask, as the TPU kernel), fp32
+    (fp64 for fp64 inputs).  With ``dropout_p`` the probabilities are
+    multiplied by ``dropout_keep_mask(seed, ...) / (1 - dropout_p)`` after
+    the softmax; ``lse`` stays undropped."""
+    scale = _scale(q, sm_scale)
+    ft = _acc_dtype(q)
+    s = _scores(q, k, causal, scale, ft)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    if dropout_p > 0.0:
+        B, H, Tq, Tk = s.shape
+        p = p * _drop_factor(seed, dropout_p, B, H, Tq, Tk, 0, q.device, ft)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(ft))
     return out.to(q.dtype), lse
 
 
-def flash_attention(q, k, v, causal=False, sm_scale=None, dropout_p=0.0):
-    """Flash attention forward -> ``(out, lse)``.
+def _bwd_terms(q, k, v, do, lse, delta, causal, scale, dropout_p, seed):
+    """(p*m, ds) of the backward, dense: p = exp(s - lse), m the dropout
+    factor, ds = p * (m * dO.v - delta)."""
+    ft = _acc_dtype(q)
+    s = _scores(q, k, causal, scale, ft)
+    p = torch.exp(s - lse.to(ft)[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.to(ft), v.to(ft))
+    pm = p
+    if dropout_p > 0.0:
+        B, H, Tq, Tk = s.shape
+        m = _drop_factor(seed, dropout_p, B, H, Tq, Tk, 0, q.device, ft)
+        pm, dp = p * m, dp * m
+    return pm, p * (dp - delta.to(ft)[..., None])
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=False,
+                           scale=None, dropout_p=0.0, seed=0):
+    """Plain version of the dq kernel: dq = scale * ds K, in q's dtype."""
+    scale = _scale(q, scale)
+    _, ds = _bwd_terms(q, k, v, do, lse, delta, causal, scale, dropout_p,
+                       seed)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(ds.dtype)) * scale
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=False,
+                            scale=None, dropout_p=0.0, seed=0):
+    """Plain version of the dk/dv kernel: dv = (p m)^T dO and
+    dk = scale * ds^T Q, in k's and v's dtypes."""
+    scale = _scale(q, scale)
+    pm, ds = _bwd_terms(q, k, v, do, lse, delta, causal, scale, dropout_p,
+                        seed)
+    ft = ds.dtype
+    dv = torch.einsum("bhqk,bhqd->bhkd", pm, do.to(ft))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(ft) * scale)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(do, o):
+    """Δ = rowsum(dO∘O), the softmax backward's row term (fp32, or fp64
+    for fp64 inputs), as the JAX package computes it outside its kernels."""
+    ft = _acc_dtype(o)
+    return (do.to(ft) * o.to(ft)).sum(-1)
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, causal=False,
+                                       scale=None, dropout_p=0.0, seed=0):
+    """The plain backward: (dq, dk, dv) of ``flash_attention_reference``
+    at output ``o`` and cotangent ``do``, a dense recompute with the same
+    dropout mask."""
+    delta = _delta(do, o)
+    dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale,
+                                dropout_p, seed)
+    return (dq,) + flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
+                                           scale, dropout_p, seed)
+
+
+# ---- the kernels' wrappers ------------------------------------------------
+def _on_cpu(*ts):
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _check_cuda(name, ts, shapes):
+    """Checks every kernel wrapper makes before it launches: one CUDA
+    device, float32/bfloat16 of one dtype, (B, H, T, D) with D a multiple
+    of 8 and at most 256, contiguous."""
+    if not all(t.device.type == "cuda" for t in ts) or \
+            len({t.device for t in ts}) != 1:
+        raise MXNetError("%s: inputs must all lie on one CUDA device or all "
+                         "on the CPU (got %s)"
+                         % (name, [str(t.device) for t in ts]))
+    dtype = ts[0].dtype
+    if dtype not in _DTYPE_CODE or any(t.dtype != dtype for t in ts):
+        raise MXNetError("%s kernel takes float32 or bfloat16 inputs of one "
+                         "dtype (got %s)" % (name, [t.dtype for t in ts]))
+    for t, want in zip(ts, shapes):
+        if t.dim() != 4 or tuple(t.shape) != want:
+            raise MXNetError("%s: shape %s, expected %s"
+                             % (name, tuple(t.shape), want))
+    B, H, Tq, D = shapes[0]
+    if D % 8 or D > 256 or min(B, H, Tq, shapes[1][2]) < 1:
+        raise MXNetError("%s kernel needs D a multiple of 8 and <= 256 and "
+                         "non-empty tensors (got %s, Tk=%d)"
+                         % (name, shapes[0], shapes[1][2]))
+    if not all(t.is_contiguous() for t in ts):
+        raise MXNetError("%s kernel takes contiguous inputs" % name)
+
+
+def _check_rows(name, ts, B, H, Tq):
+    for t in ts:
+        if t.device.type != "cuda" or t.dtype != torch.float32 or \
+                tuple(t.shape) != (B, H, Tq) or not t.is_contiguous():
+            raise MXNetError("%s: lse/delta must be contiguous float32 "
+                             "(B, H, Tq) on the card (got %s %s %s)"
+                             % (name, t.dtype, tuple(t.shape), t.device))
+
+
+def _dropout_args(dropout_p, seed):
+    """(flag, seed, keep threshold, 1 / keep) for the C entry points."""
+    if not 0.0 <= dropout_p < 1.0:
+        raise MXNetError("dropout_p must lie in [0, 1), got %r" % dropout_p)
+    if dropout_p == 0.0:
+        return 0, 0, 0, ctypes.c_float(1.0)
+    return (1, int(seed) & 0xFFFFFFFFFFFFFFFF, _keep_threshold(dropout_p),
+            ctypes.c_float(1.0 / (1.0 - dropout_p)))
+
+
+def _launch(name, fn, *args):
+    err = fn(*args)
+    if err != 0:
+        raise MXNetError("%s launch failed: CUDA error %d" % (name, err))
+
+
+def _flash_forward(q, k, v, causal, scale, dropout_p, seed):
+    """Forward wrapper: plain version on the CPU, the kernel on the card."""
+    if _on_cpu(q, k, v):
+        return flash_attention_reference(q, k, v, causal, scale, dropout_p,
+                                         seed)
+    from . import _ext
+
+    if q.dim() != 4 or k.dim() != 4:
+        raise MXNetError("flash_attention expects (B, H, T, D) tensors")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    _check_cuda("flash_attention", (q, k, v),
+                ((B, H, Tq, D), (B, H, Tk, D), (B, H, Tk, D)))
+    drop = _dropout_args(dropout_p, seed)
+    lib = _ext.load()
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launch("flash_fwd", lib.mx_flash_fwd,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B * H, Tq, Tk, D, ctypes.c_float(scale),
+            int(causal), _DTYPE_CODE[q.dtype], *drop, q.device.index or 0,
+            stream)
+    flash_attention.launches += 1
+    return out, lse
+
+
+def _bwd_args(name, q, k, v, do, lse, delta):
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    _check_cuda(name, (q, k, v, do),
+                ((B, H, Tq, D), (B, H, Tk, D), (B, H, Tk, D),
+                 (B, H, Tq, D)))
+    _check_rows(name, (lse, delta), B, H, Tq)
+    return B, H, Tq, Tk, D
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, scale=None,
+                 dropout_p=0.0, seed=0):
+    """dq of flash attention from the forward's ``lse`` and Δ =
+    rowsum(dO∘O): the ``csrc/flash_bwd.cu`` dq kernel on the card (port of
+    the Pallas ``_bwd_dq_kernel``), ``flash_bwd_dq_reference`` on the CPU.
+    ``flash_bwd_dq.launches`` counts kernel launches."""
+    scale = _scale(q, scale)
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                      scale, dropout_p, seed)
+    from . import _ext
+
+    B, H, Tq, Tk, D = _bwd_args("flash_bwd_dq", q, k, v, do, lse, delta)
+    drop = _dropout_args(dropout_p, seed)
+    lib = _ext.load()
+    dq = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launch("flash_bwd_dq", lib.mx_flash_bwd_dq,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B * H, Tq, Tk,
+            D, ctypes.c_float(scale), int(causal), _DTYPE_CODE[q.dtype],
+            *drop, q.device.index or 0, stream)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
+                  dropout_p=0.0, seed=0):
+    """(dk, dv) of flash attention: the ``csrc/flash_bwd.cu`` dk/dv kernel
+    on the card (port of the Pallas ``_bwd_dkv_kernel``),
+    ``flash_bwd_dkv_reference`` on the CPU.  ``flash_bwd_dkv.launches``
+    counts kernel launches."""
+    scale = _scale(q, scale)
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
+                                       scale, dropout_p, seed)
+    from . import _ext
+
+    B, H, Tq, Tk, D = _bwd_args("flash_bwd_dkv", q, k, v, do, lse, delta)
+    drop = _dropout_args(dropout_p, seed)
+    lib = _ext.load()
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launch("flash_bwd_dkv", lib.mx_flash_bwd_dkv,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B * H, Tq, Tk, D, ctypes.c_float(scale), int(causal),
+            _DTYPE_CODE[q.dtype], *drop, q.device.index or 0, stream)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash kernel, saving q, k, v, O and the LSE (the seed
+    rides along, so the backward regenerates the mask).  Backward: Δ, then
+    the dq and dk/dv kernels.  The LSE is an output without a gradient:
+    its cotangent belongs to ``flash_attention_lse`` (not ported yet)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
+        out, lse = _flash_forward(q, k, v, causal, scale, dropout_p, seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        ctx.args = (causal, scale, dropout_p, seed)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, dropout_p, seed = ctx.args
+        do = do.contiguous()   # arrives strided from the head transposes
+        delta = _delta(do, out)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, dropout_p,
+                          seed)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
+                               dropout_p, seed)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, causal=False, sm_scale=None, dropout_p=0.0,
+                    seed=0):
+    """Flash attention -> ``(out, lse)``, differentiable in q, k, v.
 
     q: (B, H, Tq, D); k, v: (B, H, Tk, D); out like q; lse (B, H, Tq) fp32.
-    Tensors on the CPU take ``flash_attention_reference``.  CUDA tensors
-    launch the kernel: contiguous float32 or bfloat16, D a multiple of 8
-    and at most 256; anything else raises (``use_flash`` also admits a D
-    that is no multiple of 8, which raises here rather than falling back).
-    ``flash_attention.launches`` counts kernel launches."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        _no_dropout(dropout_p)
-        return flash_attention_reference(q, k, v, causal, sm_scale)
-    return _flash_forward_cuda(q, k, v, bool(causal), _scale(q, sm_scale),
-                               dropout_p)
+    Tensors on the CPU take the plain versions.  CUDA tensors launch the
+    kernels: contiguous float32 or bfloat16, D a multiple of 8 and at most
+    256; anything else raises (``use_flash`` also admits a D that is no
+    multiple of 8, which raises here rather than falling back).
+    ``dropout_p`` drops attention probabilities with the mask of 64-bit
+    ``seed`` (``dropout_keep_mask``).  ``flash_attention.launches`` counts
+    forward kernel launches."""
+    return _FlashAttention.apply(q, k, v, bool(causal), _scale(q, sm_scale),
+                                 float(dropout_p), int(seed))
 
 
 flash_attention.launches = 0
 
 
-def _flash_forward_cuda(q, k, v, causal, scale, dropout_p):
-    from . import _ext
-
-    _no_dropout(dropout_p)
-    if not all(t.device.type == "cuda" for t in (q, k, v)) or \
-            len({t.device for t in (q, k, v)}) != 1:
-        raise MXNetError("flash_attention: q, k, v must all lie on one "
-                         "CUDA device or all on the CPU (got %s)"
-                         % [str(t.device) for t in (q, k, v)])
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
-            v.dtype != q.dtype:
-        raise MXNetError("flash_attention kernel takes float32 or bfloat16 "
-                         "q/k/v of one dtype (got %s)"
-                         % [t.dtype for t in (q, k, v)])
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise MXNetError("flash_attention expects (B, H, T, D) tensors")
-    B, H, Tq, D = q.shape
-    Tk = k.shape[2]
-    if tuple(k.shape) != (B, H, Tk, D) or tuple(v.shape) != (B, H, Tk, D):
-        raise MXNetError("flash_attention: k/v shapes %s/%s do not match q "
-                         "%s" % (tuple(k.shape), tuple(v.shape),
-                                 tuple(q.shape)))
-    if D % 8 or D > 256 or min(B, H, Tq, Tk) < 1:
-        raise MXNetError("flash_attention kernel needs D a multiple of 8 "
-                         "and <= 256 and non-empty tensors (got %s, Tk=%d)"
-                         % (tuple(q.shape), Tk))
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise MXNetError("flash_attention kernel takes contiguous q/k/v")
-    lib = _ext.load()
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.mx_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B * H, Tq, Tk, D, ctypes.c_float(scale),
-        int(causal), _DTYPE_CODE[q.dtype], q.device.index or 0, stream)
-    if err != 0:
-        raise MXNetError("flash_fwd launch failed: CUDA error %d" % err)
-    flash_attention.launches += 1
-    return out, lse
-
-
 def blockwise_attention(q, k, v, causal=False, sm_scale=None, block_k=None,
-                        dropout_p=0.0):
+                        dropout_p=0.0, seed=0):
     """Online-softmax attention over K/V blocks of ``block_k`` keys (plain
-    PyTorch; the port of the JAX ``lax.scan`` version, default 256)."""
-    _no_dropout(dropout_p)
+    PyTorch; the port of the JAX ``lax.scan`` version, default 256).  With
+    dropout, the numerator takes the kernels' mask of ``seed`` and the
+    denominator the undropped mass."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     scale = _scale(q, sm_scale)
@@ -147,6 +425,9 @@ def blockwise_attention(q, k, v, causal=False, sm_scale=None, block_k=None,
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
+        if dropout_p > 0.0:
+            p = p * _drop_factor(seed, dropout_p, B, H, Tq, kblk.shape[2],
+                                 k0, q.device, torch.float32)
         acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
                                                    vblk)
         m = m_new

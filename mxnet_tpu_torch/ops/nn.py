@@ -1,8 +1,9 @@
-"""Neural-net ops of the serving slice: dense, activations, layer norm,
-embedding and multi-head attention.
+"""Neural-net ops of the serving and training slices: dense, activations,
+layer norm, embedding, dropout, log-softmax, gathers and multi-head
+attention.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` (and ``ops/core.py`` for
-``embedding``).  Ops are plain functions on tensors.  What the JAX package
+``embedding``, ``pick`` and ``take_along_axis``).  Ops are plain functions on tensors.  What the JAX package
 leaves to XLA (matrix products, elementwise chains, the dense attention
 branch) is plain PyTorch here; the flash branch runs the hand-written CUDA
 kernel through ``flash_attention``.
@@ -16,7 +17,8 @@ from ..base import MXNetError
 from . import flash_attention as fa
 
 __all__ = ["fully_connected", "activation", "gelu", "layer_norm",
-           "embedding", "multi_head_attention"]
+           "embedding", "dropout", "log_softmax", "pick", "take_along_axis",
+           "multi_head_attention"]
 
 
 def gelu(x, approximate=True):
@@ -69,16 +71,44 @@ def embedding(indices, weight):
     return F.embedding(indices.long(), weight)
 
 
+def dropout(x, p=0.5, generator=None):
+    """Inverted dropout: zero each element with probability ``p`` and scale
+    the rest by 1/(1-p).  The mask is drawn from ``generator`` (on x's
+    device; the port's ``random.generator``).  The caller decides whether
+    it is training: this op always drops."""
+    if p <= 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.bernoulli(torch.full_like(x, keep), generator=generator)
+    return x * mask / keep
+
+
+def log_softmax(x, axis=-1):
+    return torch.log_softmax(x, dim=axis)
+
+
+def pick(x, index, axis=-1, keepdims=False):
+    """x[..., index[...], ...] along ``axis`` (index has x's shape without
+    that axis)."""
+    out = torch.gather(x, axis, index.long().unsqueeze(axis))
+    return out if keepdims else out.squeeze(axis)
+
+
+def take_along_axis(x, indices, axis):
+    return torch.gather(x, axis, indices.long())
+
+
 def multi_head_attention(q, k, v, num_heads=1, mask=None, scale=None,
-                         causal=False, impl="auto", attn_dropout=0.0):
+                         causal=False, impl="auto", attn_dropout=0.0,
+                         dropout_seed=None):
     """Batched SDPA over q, k, v of shape (B, T, H*D).
 
     impl: 'auto' | 'dense' | 'flash' (blockwise) | 'pallas' (the flash
-    kernel; the name is kept from the JAX package, where that path is the
-    Pallas kernel).  'auto' takes the kernel when ``use_flash`` says so."""
-    if attn_dropout > 0.0:
-        raise NotImplementedError(
-            "attention dropout lands with the training slice")
+    kernels; the name is kept from the JAX package, where that path is the
+    Pallas kernels).  'auto' takes the kernels when ``use_flash`` says so,
+    dropout included.  ``attn_dropout`` (with a 64-bit ``dropout_seed``,
+    e.g. ``random.take_key()``) drops attention probabilities after the
+    softmax; every impl uses the kernels' mask (``dropout_keep_mask``)."""
     B, Tq, HD = q.shape
     Tk = k.shape[1]
     D = HD // num_heads
@@ -86,6 +116,10 @@ def multi_head_attention(q, k, v, num_heads=1, mask=None, scale=None,
     kh = k.reshape(B, Tk, num_heads, D).transpose(1, 2)
     vh = v.reshape(B, Tk, num_heads, D).transpose(1, 2)
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    if attn_dropout > 0.0 and dropout_seed is None:
+        raise MXNetError("attn_dropout > 0 requires dropout_seed (draw one "
+                         "with mxnet_tpu_torch.random.take_key())")
+    seed = dropout_seed or 0
     if impl == "auto":
         impl = "pallas" if fa.use_flash(Tq, Tk, D, mask is not None) \
             else "dense"
@@ -96,10 +130,12 @@ def multi_head_attention(q, k, v, num_heads=1, mask=None, scale=None,
                 "use impl='dense' or drop the mask" % impl)
         if impl == "pallas":
             out, _ = fa.flash_attention(qh.contiguous(), kh.contiguous(),
-                                        vh.contiguous(), causal, scale)
+                                        vh.contiguous(), causal, scale,
+                                        dropout_p=attn_dropout, seed=seed)
         else:
             out = fa.blockwise_attention(qh, kh, vh, causal=causal,
-                                         sm_scale=scale)
+                                         sm_scale=scale,
+                                         dropout_p=attn_dropout, seed=seed)
         return out.transpose(1, 2).reshape(B, Tq, HD)
     if impl != "dense":
         raise MXNetError("unknown attention impl %r (have auto, dense, "
@@ -111,5 +147,9 @@ def multi_head_attention(q, k, v, num_heads=1, mask=None, scale=None,
     if mask is not None:
         scores = scores.masked_fill(~mask.bool(), -1e30)
     w = torch.softmax(scores, dim=-1).to(qh.dtype)
+    if attn_dropout > 0.0:
+        keep = fa.dropout_keep_mask(seed, B * num_heads, Tq, Tk,
+                                    attn_dropout, q.device)
+        w = w * keep.reshape(w.shape).to(w.dtype) / (1.0 - attn_dropout)
     out = torch.einsum("bhqk,bhkd->bhqd", w, vh)
     return out.transpose(1, 2).reshape(B, Tq, HD)

@@ -67,6 +67,15 @@ def test_use_flash_parity(seq_q, seq_k, head_dim, has_mask):
 
 
 def test_dropout_is_refused_until_the_training_slice():
+    # CPU dropout is the dense oracle fed the kernels' own mask
+    # (dropout_keep_mask), and the LSE stays undropped
     q, k, v = map(torch.from_numpy, _inputs(128, 32))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa.flash_attention(q, k, v, dropout_p=0.1)
+    p, seed = 0.1, 77
+    out, lse = fa.flash_attention(q, k, v, dropout_p=p, seed=seed)
+    keep = fa.dropout_keep_mask(seed, B * H, 128, 128, p)
+    s = q @ k.transpose(-1, -2) / 32 ** 0.5
+    w = torch.softmax(s, -1) * keep.reshape(s.shape) / (1 - p)
+    np.testing.assert_allclose(out.numpy(), (w @ v).numpy(), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               rtol=0, atol=ATOL)

@@ -96,7 +96,9 @@ def no_reference(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("plain version called for a non-CPU tensor")
 
-    monkeypatch.setattr(fa, "flash_attention_reference", refuse)
+    for name in ("flash_attention_reference", "flash_bwd_dq_reference",
+                 "flash_bwd_dkv_reference"):
+        monkeypatch.setattr(fa, name, refuse)
 
 
 def test_cuda_tensor_without_kernel_library_raises(monkeypatch, tmp_path,
@@ -118,10 +120,43 @@ def test_non_cpu_tensor_never_takes_the_plain_version(no_reference, fault):
     q = torch.zeros(1, 2, 64, 32, device="meta")
     k = torch.zeros(1, 2, 64, 32, device="cpu" if fault == "mixed"
                     else "meta")
-    err = NotImplementedError if fault == "dropout" else MXNetError
-    with pytest.raises(err):
+    with pytest.raises(MXNetError):
         fa.flash_attention(q, k, q, dropout_p=0.1 if fault == "dropout"
-                           else 0.0)
+                           else 0.0, seed=3)
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_backward_kernels_never_take_the_plain_version(no_reference,
+                                                       kernel):
+    q = torch.zeros(1, 2, 64, 32, device="meta")
+    rows = torch.zeros(1, 2, 64, device="meta")
+    with pytest.raises(MXNetError):
+        getattr(fa, kernel)(q, q, q, q, rows, rows, dropout_p=0.1, seed=3)
+
+
+def test_cuda_backward_without_kernel_library_raises(monkeypatch, tmp_path,
+                                                    no_reference):
+    monkeypatch.setattr(_ext, "LIBRARY", tmp_path / "absent.so")
+    monkeypatch.setattr(_ext, "_LIB", None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    rows = _ClaimsCuda()
+    rows.shape = (1, 2, 64)
+    t = _ClaimsCuda()
+    launches = fa.flash_bwd_dq.launches
+    with pytest.raises(MXNetError, match="nvcc not found"):
+        fa.flash_bwd_dq(t, t, t, t, rows, rows)
+    assert fa.flash_bwd_dq.launches == launches
+
+
+def test_initialize_without_ctx_wants_the_card(monkeypatch):
+    _no_card(monkeypatch)
+    blk = nn.Dense(4, flatten=False, in_units=16)
+    with pytest.raises(MXNetError, match=r"ctx=mx\.cpu\(\)"):
+        blk.initialize()
+    blk.initialize(ctx=mx.cpu())
+    assert all(p.device.type == "cpu" and p.requires_grad
+               for p in blk.collect_params().values())
 
 
 def test_cpu_ctx_serves():
