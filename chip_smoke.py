@@ -8,16 +8,21 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
 
 1. device  -- card name and count, and ``nvidia-smi`` name + power limit.
 2. build   -- nvcc time for ``mxnet_tpu_torch/csrc/*.cu`` (sm_90a, one
-   nvcc per source, in parallel).
+   nvcc per source, in parallel) and every kernel instance's registers,
+   stack and spills from ``-Xptxas -v``.
 3. kernels -- the three flash-attention kernels against their plain
    PyTorch versions on the card, over shapes x {f32, bf16} x {causal, not}
    x dropout p in {0, 0.1}: the forward (O, LSE) and the backward (dq, dk,
    dv against ``flash_attention_backward_reference``, within
    1e-4*max(1, max|ref|) in f32 and 2e-2*max(1, max|ref|) in bf16), each
-   with its time, the plain version's, PyTorch's
-   ``F.scaled_dot_product_attention`` (a yardstick only; the port never
-   calls it; for the backward its fwd+bwd minus its fwd) and the card's
-   bound.
+   with its device time (a ``torch.cuda._sleep`` ahead of the window keeps
+   the host's enqueue out of it; the forward also prints its host time a
+   call), the plain version's, PyTorch's ``F.scaled_dot_product_attention``
+   under the fastest backend that accepts the case (``library_backend``; a
+   yardstick only, the port never calls it; for the backward its fwd+bwd
+   minus its fwd) and the card's bound (f32 forward cases also give
+   ``bound_3xtf32_ms``, the bound on the TF32 tensor cores with the three
+   products the kernel does).
 4. serve   -- full-width BERT-base (12 x 768, 12 heads, vocab 30522,
    max_length 512) in f32 with random weights from ``--seed``, served
    through ``serve.Server(...).submit()`` on the card: 32 concurrent
@@ -54,6 +59,11 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12,     # fp32 outside the tensor cores
               "bfloat16": 989e12}   # bf16 tensor cores
+TF32_FLOPS = 495e12                 # TF32 tensor cores (3xTF32: 3 products)
+SLEEP_CYCLES_PER_S = 2.0e9  # above the H100's 1.98 GHz boost clock, so a
+                            # ``torch.cuda._sleep`` lasts at least as asked
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
 TOL_O = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL_LSE = 1e-3
 TOL_SERVE = 1e-3
@@ -85,20 +95,106 @@ def nvidia_smi():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters):
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+def cuda_time(fn, iters):
+    """(device ms, host ms, covered) per call of ``fn`` over ``iters`` calls.
+
+    A ``torch.cuda._sleep`` enqueued ahead of the timed window holds the
+    card while the host enqueues every call, so the CUDA events time the
+    launches back to back and not the host's Python work between them
+    (shape checks, allocation, the ctypes call).  ``covered`` says the
+    sleep outlasted the host's enqueue; the sleep is lengthened and the
+    window retaken once if it did not."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    t0 = time.perf_counter()
+    fn()
+    sleep_ms = 2.0 + 1.5e3 * (time.perf_counter() - t0) * iters
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(int(sleep_ms * 1e-3 * SLEEP_CYCLES_PER_S))
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        covered = host_ms < ev[0].elapsed_time(ev[1])
+        if covered:
+            break
+        sleep_ms = 2.0 * host_ms + 2.0
+    return ev[1].elapsed_time(ev[2]) / iters, host_ms / iters, covered
+
+
+def cuda_ms(fn, iters):
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    return cuda_time(fn, iters)[0]
+
+
+def sdpa_fastest(torch, fn, iters, minus=None):
+    """``fn`` (a call of PyTorch's SDPA) under each backend that accepts
+    the case -> (name, ms) of the fastest, and the names of the backends
+    that refused it (inside ``sdpa_kernel([backend])`` a backend that does
+    not take the inputs raises RuntimeError at the call).  With ``minus``,
+    each backend's time of ``minus`` is taken off its time of ``fn``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    best, refused = None, []
+    for name in SDPA_BACKENDS:
+        with sdpa_kernel([getattr(SDPBackend, name)]):
+            try:
+                fn()
+            except RuntimeError:
+                refused.append(name.lower())
+                continue
+            ms = cuda_ms(fn, iters)
+            if minus is not None:
+                ms -= cuda_ms(minus, iters)
+        if best is None or ms < best[1]:
+            best = (name.lower(), ms)
+    if best is None:
+        fail("no SDPA backend accepted the case")
+    return best[0], best[1], refused
+
+
+def ptxas_report(log):
+    """Registers, stack and spills of every kernel instance from nvcc's
+    ``-Xptxas -v`` output, names demangled with ``cu++filt`` or
+    ``c++filt`` where the machine has one."""
+    import re
+    import shutil
+
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out.append({"function": name})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and out:
+            out[-1].update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    cand = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
+                        "bin", "cu++filt")
+    filt = cand if os.path.exists(cand) else shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(
+            e["function"] for e in out), capture_output=True, text=True,
+            check=True, timeout=60).stdout.splitlines()
+        for e, n in zip(out, names):   # "void ns::kernel<...>(args)"
+            m = re.search(r"(\w+<[^()]*>|\w+)\(", n)
+            e["function"] = m.group(1) if m else n
+    return out
 
 
 def _pairs(Tq, Tk, causal):
@@ -120,6 +216,16 @@ def attention_bound(B, H, Tq, Tk, D, dtype, causal):
     itemsize = 4 if dtype == "float32" else 2
     nbytes = B * H * (2 * Tq * D + 2 * Tk * D) * itemsize + B * H * Tq * 4
     return _bound(nbytes, 4.0 * B * H * D * _pairs(Tq, Tk, causal), dtype)
+
+
+def attention_bound_3xtf32(B, H, Tq, Tk, D, causal):
+    """The fp32 forward's bound on the TF32 tensor cores with the 3xTF32
+    split the kernel uses: the same bytes, three times the products at
+    495 TFLOP/s."""
+    nbytes = B * H * (2 * Tq * D + 2 * Tk * D) * 4 + B * H * Tq * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * 4.0 * B * H * D * _pairs(Tq, Tk, causal) / TF32_FLOPS * 1e3
+    return max(t_bytes, t_ops)
 
 
 def backward_bounds(B, H, Tq, Tk, D, dtype, causal):
@@ -146,9 +252,10 @@ def _rel_err(got, ref):
             / max(1.0, ref.abs().max().item()))
 
 
-def _sdpa_backward_ms(torch, F, q, k, v, do, causal, p, iters):
-    """The backward half of PyTorch's SDPA: fwd+bwd through
-    ``torch.autograd.grad`` minus fwd."""
+def _sdpa_backward(torch, F, q, k, v, do, causal, p, iters):
+    """The backward half of PyTorch's SDPA under its fastest backend:
+    fwd+bwd through ``torch.autograd.grad`` minus fwd -> (backend, ms,
+    refused)."""
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
 
     def fwd():
@@ -158,7 +265,7 @@ def _sdpa_backward_ms(torch, F, q, k, v, do, causal, p, iters):
     def fwd_bwd():
         torch.autograd.grad(fwd(), leaves, do)
 
-    return cuda_ms(fwd_bwd, iters) - cuda_ms(fwd, iters)
+    return sdpa_fastest(torch, fwd_bwd, iters, minus=fwd)
 
 
 def phase_kernels(torch, fa, seed):
@@ -212,17 +319,24 @@ def _fwd_case(torch, F, fa, q, k, v, causal, p, dname, iters):
     err_l = (lse - ref_lse).abs().max().item()
     ok = err_o <= TOL_O[dname] and err_l <= TOL_LSE
     bound, by = attention_bound(B, H, Tq, Tk, D, dname, causal)
+    ms, host_ms, covered = cuda_time(lambda: fa.flash_attention(
+        q, k, v, causal, dropout_p=p, seed=SEED_DROP), iters)
+    backend, lib_ms, refused = sdpa_fastest(
+        torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, dropout_p=p, is_causal=causal), iters)
     case = {
         "shape": [B, H, Tq, Tk, D], "dtype": dname, "causal": causal,
         "dropout_p": p, "max_abs_err_o": err_o, "max_abs_err_lse": err_l,
         "tol_o": TOL_O[dname], "tol_lse": TOL_LSE, "ok": ok,
-        "ms": cuda_ms(lambda: fa.flash_attention(
-            q, k, v, causal, dropout_p=p, seed=SEED_DROP), iters),
+        "ms": ms, "host_ms": host_ms, "sleep_covered": covered,
         "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(
             q, k, v, causal, dropout_p=p, seed=SEED_DROP), iters),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, dropout_p=p, is_causal=causal), iters),
+        "library_ms": lib_ms, "library_backend": backend,
+        "library_refused": refused,
         "bound_ms": bound, "bound_by": by}
+    if dname == "float32":
+        case["bound_3xtf32_ms"] = attention_bound_3xtf32(B, H, Tq, Tk, D,
+                                                         causal)
     if not ok:
         emit({"phase": "kernels", "failed_case": case})
         fail("flash_fwd disagrees with its plain version at %s"
@@ -254,6 +368,8 @@ def _bwd_case(torch, F, fa, q, k, v, do, causal, p, dname, iters):
     tol = 1e-4 if dname == "float32" else 2e-2
     ok = all(e <= tol for e in errs.values())
     bounds = backward_bounds(B, H, Tq, Tk, D, dname, causal)
+    backend, lib_ms, refused = _sdpa_backward(torch, F, q, k, v, do, causal,
+                                              p, iters)
     case = {
         "shape": [B, H, Tq, Tk, D], "dtype": dname, "causal": causal,
         "dropout_p": p, "rel_err": errs, "max_abs_err": abs_errs,
@@ -267,8 +383,8 @@ def _bwd_case(torch, F, fa, q, k, v, do, causal, p, dname, iters):
                                iters),
         "plain_dkv_ms": cuda_ms(lambda: fa.flash_bwd_dkv_reference(*args),
                                 iters),
-        "library_ms": _sdpa_backward_ms(torch, F, q, k, v, do, causal, p,
-                                        iters),
+        "library_ms": lib_ms, "library_backend": backend,
+        "library_refused": refused,
         "bound_ms": bounds["bwd"][0], "bound_by": bounds["bwd"][1],
         "dq_bound_ms": bounds["dq"][0], "dq_bound_by": bounds["dq"][1],
         "dkv_bound_ms": bounds["dkv"][0], "dkv_bound_by": bounds["dkv"][1]}
@@ -541,7 +657,8 @@ def _kernel_entry(name, launches, case, ms, plain_ms, bound, max_abs_err):
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs_err, "ms": case[ms],
             "plain_ms": case[plain_ms], "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": case["library_ms"]}
+            "bound_by": bound[1], "library_ms": case["library_ms"],
+            "library_backend": case["library_backend"]}
 
 
 def main():
@@ -574,8 +691,7 @@ def main():
     emit({"phase": "build", "nvcc_s": time.perf_counter() - t0,
           "sources": [str(s.relative_to(_ext.LIBRARY.parents[2]))
                       for s in _ext.SOURCES],
-          "ptxas": [ln.strip() for ln in _ext.build_log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "ptxas": ptxas_report(_ext.build_log)})
 
     fwd_cases, bwd_cases = phase_kernels(torch, fa, args.seed)
     serve_launches = phase_serve(torch, mx, fa, args.seed, smi)
@@ -597,6 +713,7 @@ def main():
         max(c["max_abs_err_o"] for c in served))]
     entries[0]["launches_by_path"] = {
         "serve": serve_launches, "train": train_launches["flash_attention"]}
+    entries[0]["bound_3xtf32_ms"] = fwd["bound_3xtf32_ms"]
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
         entries.append(_kernel_entry(

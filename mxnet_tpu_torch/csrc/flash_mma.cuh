@@ -1,0 +1,121 @@
+// Warp-level tensor-core and asynchronous-copy helpers for the flash kernels
+// (sm_80+ instructions, compiled for sm_90a): cp.async global->shared copies,
+// ldmatrix, mma.sync in bf16 (m16n8k16) and in TF32 (m16n8k8), the 3xTF32
+// split that gives fp32 accuracy on the TF32 tensor cores, and reductions
+// over the four threads of a quad (the threads that share an accumulator
+// row).
+//
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k*"), with
+// g = lane / 4 and t = lane % 4:
+//   accumulator 16x8 (both):  c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
+//   TF32 A 16x8:  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
+//   TF32 B 8x8:   b0 (k=t, n=g)  b1 (k=t+4, n=g)
+//   bf16 A 16x16: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
+//   bf16 B 16x8:  b0 (k=2t..2t+1, n=g)  b1 (k=2t+8..2t+9, n=g)
+// (a bf16 register holds two elements, the lower column in the low half).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace mxflash {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global->shared copy that bypasses L1.  src_bytes < 16 fills the
+// rest of the 16 bytes with zeros (0: all zeros; src must still be valid).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until every group this thread committed has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+// and register i receives its fragment (row g, columns 2t, 2t+1), or with
+// .trans the fragment of its transpose (rows 2t, 2t+1 of column g).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a b, m16n8k16, bf16 operands, fp32 accumulator.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b, m16n8k8, TF32 operands, fp32 accumulator.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// fp32 -> TF32 rounded to nearest, ties away from zero: for finite x the
+// bits of cvt.rna.tf32.f32, computed on the integer pipe (an add and a
+// mask) rather than the conversion unit, which the split below would
+// otherwise keep busy.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), so that
+// hi*hi + hi*lo + lo*hi carries about 21 mantissa bits of the fp32 product.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// 3xTF32: d += a b to about fp32 accuracy; the small products go first.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_hi,
+                                           const uint32_t* a_lo,
+                                           const uint32_t* b_hi,
+                                           const uint32_t* b_lo) {
+  mma_tf32(d, a_lo, b_hi);
+  mma_tf32(d, a_hi, b_lo);
+  mma_tf32(d, a_hi, b_hi);
+}
+
+// Two floats as a bf16x2 register: lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+}  // namespace mxflash

@@ -20,7 +20,7 @@ from pathlib import Path
 
 from ..base import MXNetError
 
-__all__ = ["SOURCES", "LIBRARY", "build", "load"]
+__all__ = ["SOURCES", "LIBRARY", "bind", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
@@ -89,6 +89,23 @@ def build(force=False):
         return LIBRARY
 
 
+def bind(lib):
+    """Declare the C entry points' signatures on a loaded ``ctypes``
+    library (whichever of them it exports); returns ``lib``."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # dropout flag, seed, keep threshold, 1 / keep
+    drop = [ci, ctypes.c_uint64, ctypes.c_uint32, cf]
+    sigs = {"mx_flash_fwd": [vp] * 5 + [ci] * 4 + [cf, ci, ci],
+            "mx_flash_bwd_dq": [vp] * 7 + [ci] * 4 + [cf, ci, ci],
+            "mx_flash_bwd_dkv": [vp] * 8 + [ci] * 4 + [cf, ci, ci]}
+    for name, args in sigs.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = args + drop + [ci, vp]
+            fn.restype = ci
+    return lib
+
+
 def load():
     """The loaded kernel library (built first when needed)."""
     global _LIB
@@ -97,18 +114,5 @@ def load():
     path = build()
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(path))
-            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            # dropout, seed, keep threshold, 1 / keep
-            drop = [ci, ctypes.c_uint64, ctypes.c_uint32, cf]
-            lib.mx_flash_fwd.argtypes = [vp] * 5 + [ci] * 4 + [cf, ci, ci] \
-                + drop + [ci, vp]
-            lib.mx_flash_bwd_dq.argtypes = [vp] * 7 + [ci] * 4 + [cf, ci, ci] \
-                + drop + [ci, vp]
-            lib.mx_flash_bwd_dkv.argtypes = [vp] * 8 + [ci] * 4 \
-                + [cf, ci, ci] + drop + [ci, vp]
-            for fn in (lib.mx_flash_fwd, lib.mx_flash_bwd_dq,
-                       lib.mx_flash_bwd_dkv):
-                fn.restype = ci
-            _LIB = lib
+            _LIB = bind(ctypes.CDLL(str(path)))
     return _LIB
