@@ -49,6 +49,12 @@ VARIANTS = {
     # fp32 in 64-row blocks of 4 warps, as bf16
     "f32_4warps": [("flash_fwd.cu", "constexpr int kW = kF32 ? 8 : 4;",
                     "constexpr int kW = 4;")],
+    # bf16 in 128-row blocks of 8 warps, two blocks a SM
+    "bf16_8warps": [("flash_fwd.cu", "constexpr int kW = kF32 ? 8 : 4;",
+                     "constexpr int kW = 8;"),
+                    ("flash_fwd.cu", "__launch_bounds__(kWarps * 32)",
+                     "__launch_bounds__(kWarps * 32, "
+                     "std::is_same<T, float>::value ? 1 : 2)")],
 }
 
 

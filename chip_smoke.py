@@ -22,7 +22,8 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    yardstick only, the port never calls it; for the backward its fwd+bwd
    minus its fwd) and the card's bound (f32 forward cases also give
    ``bound_3xtf32_ms``, the bound on the TF32 tensor cores with the three
-   products the kernel does).
+   products the kernel does).  A contiguous view off a 16-byte boundary
+   is refused by the forward's wrapper and by its C entry point.
 4. serve   -- full-width BERT-base (12 x 768, 12 heads, vocab 30522,
    max_length 512) in f32 with random weights from ``--seed``, served
    through ``serve.Server(...).submit()`` on the card: 32 concurrent
@@ -46,6 +47,7 @@ or without the package beside it, it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -303,7 +305,33 @@ def phase_kernels(torch, fa, seed):
     emit({"phase": "kernels", "kernel": "flash_fwd", "cases": fwd_cases})
     emit({"phase": "kernels", "kernel": "flash_bwd_dq+flash_bwd_dkv",
           "cases": bwd_cases})
+    _misaligned_refused(torch, fa)
     return fwd_cases, bwd_cases
+
+
+def _misaligned_refused(torch, fa):
+    """A contiguous view 4 bytes past a 16-byte boundary: the wrapper and
+    the C entry point both refuse it, and the card stays usable."""
+    from mxnet_tpu_torch.ops import _ext
+
+    bad = torch.zeros(2 * 64 * 64 + 1, device="cuda")[1:].view(1, 2, 64, 64)
+    try:
+        fa.flash_attention(bad, bad, bad)
+    except fa.MXNetError:
+        pass
+    else:
+        fail("flash_attention took a misaligned input")
+    out = torch.empty_like(bad)
+    lse = torch.empty(1, 2, 64, device="cuda")
+    err = _ext.load().mx_flash_fwd(
+        bad.data_ptr(), bad.data_ptr(), bad.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), 2, 64, 64, 64, ctypes.c_float(0.125), 0, 0,
+        *fa._dropout_args(0.0, 0), 0, torch.cuda.current_stream().cuda_stream)
+    if err == 0:
+        fail("mx_flash_fwd launched on a misaligned input")
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "misaligned_input_refused": True,
+          "entry_point_error": err})
 
 
 def _fwd_case(torch, F, fa, q, k, v, causal, p, dname, iters):

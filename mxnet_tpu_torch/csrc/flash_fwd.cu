@@ -412,6 +412,11 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
                             void* stream) {
   if (D <= 0 || D > 256 || D % 8 != 0 || bh <= 0 || Tq <= 0 || Tk <= 0)
     return (int)cudaErrorInvalidValue;
+  // rows are D * sizeof(T) bytes apart, a multiple of 16: the 16-byte
+  // cp.async copies (and the paired stores of O) then need only aligned bases
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) & 15)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

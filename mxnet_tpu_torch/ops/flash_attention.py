@@ -269,6 +269,12 @@ def _flash_forward(q, k, v, causal, scale, dropout_p, seed):
     Tk = k.shape[2]
     _check_cuda("flash_attention", (q, k, v),
                 ((B, H, Tq, D), (B, H, Tk, D), (B, H, Tk, D)))
+    # the kernel copies rows in 16-byte cp.async chunks; a misaligned
+    # address would fault the context instead of raising
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise MXNetError("flash_attention kernel needs q, k and v to start "
+                         "on a 16-byte boundary (addresses mod 16: %s)"
+                         % [t.data_ptr() % 16 for t in (q, k, v)])
     drop = _dropout_args(dropout_p, seed)
     lib = _ext.load()
     out = torch.empty_like(q)

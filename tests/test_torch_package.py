@@ -83,6 +83,10 @@ class _ClaimsCuda:
     device = torch.device("cuda", 0)
     dtype = torch.float32
     shape = (1, 2, 64, 32)
+    ptr = 256
+
+    def data_ptr(self):
+        return self.ptr
 
     def dim(self):
         return 4
@@ -112,6 +116,23 @@ def test_cuda_tensor_without_kernel_library_raises(monkeypatch, tmp_path,
     t = _ClaimsCuda()
     with pytest.raises(MXNetError, match="nvcc not found"):
         fa.flash_attention(t, t, t)
+    assert fa.flash_attention.launches == launches
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["q", "k", "v"])
+def test_misaligned_input_is_refused_before_any_launch(monkeypatch,
+                                                       no_reference, which):
+    # a contiguous view 4 bytes past an allocation's start: the forward's
+    # 16-byte copies would fault the card's context on it
+    def no_load():
+        raise AssertionError("kernel library loaded for a misaligned input")
+
+    monkeypatch.setattr(_ext, "load", no_load)
+    qkv = [_ClaimsCuda() for _ in range(3)]
+    qkv[which].ptr = 256 + 4
+    launches = fa.flash_attention.launches
+    with pytest.raises(MXNetError, match="16-byte boundary"):
+        fa.flash_attention(*qkv)
     assert fa.flash_attention.launches == launches
 
 
