@@ -91,7 +91,7 @@ def build(force=False):
 
 def bind(lib):
     """Declare the C entry points' signatures on a loaded ``ctypes``
-    library (whichever of them it exports); returns ``lib``."""
+    library; returns ``lib``."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # dropout flag, seed, keep threshold, 1 / keep
     drop = [ci, ctypes.c_uint64, ctypes.c_uint32, cf]
@@ -99,10 +99,9 @@ def bind(lib):
             "mx_flash_bwd_dq": [vp] * 7 + [ci] * 4 + [cf, ci, ci],
             "mx_flash_bwd_dkv": [vp] * 8 + [ci] * 4 + [cf, ci, ci]}
     for name, args in sigs.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes = args + drop + [ci, vp]
-            fn.restype = ci
+        fn = getattr(lib, name)
+        fn.argtypes = args + drop + [ci, vp]
+        fn.restype = ci
     return lib
 
 

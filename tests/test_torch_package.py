@@ -56,7 +56,7 @@ _IMPORT = re.compile(r"^\s*(?:from|import)\s+[^#\n]*"
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT) for p in PKG.rglob("*.py")]
-    + [Path("chip_smoke.py"), Path("chip_fwd_variants.py")]), ids=str)
+    + [Path("chip_smoke.py")]), ids=str)
 def test_source_imports_neither_jax_nor_mxnet_tpu(path):
     assert _IMPORT.findall((ROOT / path).read_text()) == []
 
@@ -204,18 +204,6 @@ def test_ext_bind_declares_every_entry_point():
     assert [len(getattr(lib, n).argtypes) for n in
             ("mx_flash_fwd", "mx_flash_bwd_dq", "mx_flash_bwd_dkv")] \
         == [18, 20, 21]
-
-
-def test_fwd_variants_patch_the_committed_sources():
-    # every variant's passage still exists in the kernel sources, so the
-    # chip script times what it says it times
-    sys.path.insert(0, str(ROOT))
-    import chip_fwd_variants
-
-    srcs = chip_fwd_variants.variant_sources()
-    assert set(srcs) == {"committed"} | set(chip_fwd_variants.VARIANTS)
-    for name in chip_fwd_variants.VARIANTS:
-        assert srcs[name] != srcs["committed"]
 
 
 def test_ptxas_report_reads_registers_and_spills():
