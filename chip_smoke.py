@@ -20,10 +20,12 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    call), the plain version's, PyTorch's ``F.scaled_dot_product_attention``
    under the fastest backend that accepts the case (``library_backend``; a
    yardstick only, the port never calls it; for the backward its fwd+bwd
-   minus its fwd) and the card's bound (f32 forward cases also give
-   ``bound_3xtf32_ms``, the bound on the TF32 tensor cores with the three
-   products the kernel does).  A contiguous view off a 16-byte boundary
-   is refused by the forward's wrapper and by its C entry point.
+   minus its fwd) and the card's bound (f32 cases also give the bound on
+   the TF32 tensor cores with the three products of 3xTF32 the kernels do:
+   ``bound_3xtf32_ms`` for the forward, ``dq_bound_3xtf32_ms`` and
+   ``dkv_bound_3xtf32_ms`` for the backward).  A contiguous view off a
+   16-byte boundary is refused by the three kernels' wrappers and C entry
+   points.
 4. serve   -- full-width BERT-base (12 x 768, 12 heads, vocab 30522,
    max_length 512) in f32 with random weights from ``--seed``, served
    through ``serve.Server(...).submit()`` on the card: 32 concurrent
@@ -220,32 +222,44 @@ def attention_bound(B, H, Tq, Tk, D, dtype, causal):
     return _bound(nbytes, 4.0 * B * H * D * _pairs(Tq, Tk, causal), dtype)
 
 
-def attention_bound_3xtf32(B, H, Tq, Tk, D, causal):
-    """The fp32 forward's bound on the TF32 tensor cores with the 3xTF32
-    split the kernel uses: the same bytes, three times the products at
+def _bound_3xtf32(nbytes, ops):
+    """An fp32 function's bound on the TF32 tensor cores with the 3xTF32
+    split the kernels use: the same bytes, three times the products at
     495 TFLOP/s."""
+    return max(nbytes / HBM_BYTES_PER_S * 1e3, 3 * ops / TF32_FLOPS * 1e3)
+
+
+def attention_bound_3xtf32(B, H, Tq, Tk, D, causal):
+    """The fp32 forward's bound at 3xTF32 (bytes as ``attention_bound``)."""
     nbytes = B * H * (2 * Tq * D + 2 * Tk * D) * 4 + B * H * Tq * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * 4.0 * B * H * D * _pairs(Tq, Tk, causal) / TF32_FLOPS * 1e3
-    return max(t_bytes, t_ops)
+    return _bound_3xtf32(nbytes, 4.0 * B * H * D * _pairs(Tq, Tk, causal))
 
 
-def backward_bounds(B, H, Tq, Tk, D, dtype, causal):
-    """{"bwd", "dq", "dkv"}: (ms, by).  The whole backward reads Q, K, V,
-    O, dO, LSE and delta once and writes dQ, dK, dV once, and does 10*D
-    operations per visible pair (recomputing S, then dP, dV, dK, dQ).  The
-    dq function alone reads Q, K, V, dO, LSE, delta and writes dQ (6*D:
-    S, dP, dQ); the dk/dv function writes dK, dV (8*D: S, dP, dV, dK)."""
+def _backward_work(B, H, Tq, Tk, D, dtype, causal):
+    """{"bwd", "dq", "dkv"}: (bytes, operations).  The whole backward
+    reads Q, K, V, O, dO, LSE and delta once and writes dQ, dK, dV once,
+    and does 10*D operations per visible pair (recomputing S, then dP, dV,
+    dK, dQ).  The dq function alone reads Q, K, V, dO, LSE, delta and
+    writes dQ (6*D: S, dP, dQ); the dk/dv function writes dK, dV (8*D: S,
+    dP, dV, dK)."""
     itemsize = 4 if dtype == "float32" else 2
     bh, pairs, rows = B * H, _pairs(Tq, Tk, causal), 2 * B * H * Tq * 4
     tq, tk = Tq * D * itemsize, Tk * D * itemsize
-    return {
-        "bwd": _bound(bh * (4 * tq + 4 * tk) + rows, 10.0 * bh * D * pairs,
-                      dtype),
-        "dq": _bound(bh * (3 * tq + 2 * tk) + rows, 6.0 * bh * D * pairs,
-                     dtype),
-        "dkv": _bound(bh * (2 * tq + 4 * tk) + rows, 8.0 * bh * D * pairs,
-                      dtype)}
+    return {"bwd": (bh * (4 * tq + 4 * tk) + rows, 10.0 * bh * D * pairs),
+            "dq": (bh * (3 * tq + 2 * tk) + rows, 6.0 * bh * D * pairs),
+            "dkv": (bh * (2 * tq + 4 * tk) + rows, 8.0 * bh * D * pairs)}
+
+
+def backward_bounds(B, H, Tq, Tk, D, dtype, causal):
+    """{"bwd", "dq", "dkv"}: (ms, by) of ``_backward_work``."""
+    return {name: _bound(nbytes, ops, dtype) for name, (nbytes, ops)
+            in _backward_work(B, H, Tq, Tk, D, dtype, causal).items()}
+
+
+def backward_bounds_3xtf32(B, H, Tq, Tk, D, causal):
+    """{"dq", "dkv"}: the fp32 backward kernels' bounds at 3xTF32."""
+    work = _backward_work(B, H, Tq, Tk, D, "float32", causal)
+    return {name: _bound_3xtf32(*work[name]) for name in ("dq", "dkv")}
 
 
 def _rel_err(got, ref):
@@ -310,28 +324,45 @@ def phase_kernels(torch, fa, seed):
 
 
 def _misaligned_refused(torch, fa):
-    """A contiguous view 4 bytes past a 16-byte boundary: the wrapper and
-    the C entry point both refuse it, and the card stays usable."""
+    """A contiguous view 4 bytes past a 16-byte boundary: the forward's,
+    the dq and the dk/dv kernels' wrappers and C entry points all refuse
+    it, and the card stays usable."""
     from mxnet_tpu_torch.ops import _ext
 
     bad = torch.zeros(2 * 64 * 64 + 1, device="cuda")[1:].view(1, 2, 64, 64)
-    try:
-        fa.flash_attention(bad, bad, bad)
-    except fa.MXNetError:
-        pass
-    else:
-        fail("flash_attention took a misaligned input")
-    out = torch.empty_like(bad)
-    lse = torch.empty(1, 2, 64, device="cuda")
-    err = _ext.load().mx_flash_fwd(
-        bad.data_ptr(), bad.data_ptr(), bad.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), 2, 64, 64, 64, ctypes.c_float(0.125), 0, 0,
-        *fa._dropout_args(0.0, 0), 0, torch.cuda.current_stream().cuda_stream)
-    if err == 0:
-        fail("mx_flash_fwd launched on a misaligned input")
+    good = torch.zeros(1, 2, 64, 64, device="cuda")
+    rows = torch.zeros(1, 2, 64, device="cuda")
+    calls = {"flash_attention": lambda: fa.flash_attention(bad, bad, bad),
+             "flash_bwd_dq": lambda: fa.flash_bwd_dq(
+                 good, good, good, bad, rows, rows),
+             "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(
+                 bad, good, good, good, rows, rows)}
+    for name, call in calls.items():
+        try:
+            call()
+        except fa.MXNetError:
+            continue
+        fail("%s took a misaligned input" % name)
+    lib = _ext.load()
+    p = [t.data_ptr() for t in (bad, good, rows)]
+    tail = [ctypes.c_float(0.125), 0, 0, *fa._dropout_args(0.0, 0), 0,
+            torch.cuda.current_stream().cuda_stream]
+    errs = {"mx_flash_fwd": lib.mx_flash_fwd(
+                p[0], p[0], p[0], p[1], p[2], 2, 64, 64, 64, *tail),
+            "mx_flash_bwd_dq": lib.mx_flash_bwd_dq(
+                p[1], p[1], p[1], p[0], p[2], p[2], p[1], 2, 64, 64, 64,
+                *tail),
+            "mx_flash_bwd_dkv": lib.mx_flash_bwd_dkv(
+                p[0], p[1], p[1], p[1], p[2], p[2], p[1], p[1], 2, 64, 64,
+                64, *tail)}
+    for name, err in errs.items():
+        if err == 0:
+            fail("%s launched on a misaligned input" % name)
     torch.cuda.synchronize()
-    emit({"phase": "kernels", "misaligned_input_refused": True,
-          "entry_point_error": err})
+    good.add_(1.0)   # the context still runs kernels
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "misaligned_input_refused": sorted(calls),
+          "entry_point_errors": errs})
 
 
 def _fwd_case(torch, F, fa, q, k, v, causal, p, dname, iters):
@@ -416,6 +447,10 @@ def _bwd_case(torch, F, fa, q, k, v, do, causal, p, dname, iters):
         "bound_ms": bounds["bwd"][0], "bound_by": bounds["bwd"][1],
         "dq_bound_ms": bounds["dq"][0], "dq_bound_by": bounds["dq"][1],
         "dkv_bound_ms": bounds["dkv"][0], "dkv_bound_by": bounds["dkv"][1]}
+    if dname == "float32":
+        for name, ms in backward_bounds_3xtf32(B, H, Tq, Tk, D,
+                                               causal).items():
+            case[name + "_bound_3xtf32_ms"] = ms
     if not ok:
         emit({"phase": "kernels", "failed_case": case})
         fail("flash backward disagrees with its plain version at %s"
@@ -749,6 +784,7 @@ def main():
             "plain_%s_ms" % short,
             (bwd[short + "_bound_ms"], bwd[short + "_bound_by"]),
             max(bwd["max_abs_err"][o] for o in outs)))
+        entries[-1]["bound_3xtf32_ms"] = bwd[short + "_bound_3xtf32_ms"]
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,6 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// fp32 <-> input-type conversion, warp reductions, and the attention-dropout
-// mask.
+// conversion from fp32 to the input type, the mask value, and the
+// attention-dropout mask.
 //
 // The dropout mask replaces mxnet_tpu/ops/pallas_attention.py:_tile_keep_mask,
 // which seeds the TPU's generator per (seed, bh, q-block, k-block) tile.  Here
@@ -24,14 +24,9 @@
 
 namespace mxflash {
 
-constexpr int kWarps = 8;         // every flash kernel runs 8 warps
 constexpr float kNegInf = -1e30f; // the TPU kernels' mask value
 constexpr uint32_t kGolden = 0x9e3779b9u;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
@@ -39,21 +34,6 @@ template <> __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
 // ---- dropout mask ---------------------------------------------------------

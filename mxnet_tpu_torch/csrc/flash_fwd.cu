@@ -79,13 +79,6 @@ struct Smem {
   static constexpr size_t kBytes = (size_t)(kQ + 4 * kKV) * sizeof(T);
 };
 
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // kD: head-dim bucket (D <= kD, a multiple of 8); kBlockN keys a tile;
 // kWarps: warps a block, 16 query rows each; kDropout: attention-probability
 // dropout (a separate instance, so the inference kernel's instructions are

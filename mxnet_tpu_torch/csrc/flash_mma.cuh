@@ -1,9 +1,9 @@
 // Warp-level tensor-core and asynchronous-copy helpers for the flash kernels
-// (sm_80+ instructions, compiled for sm_90a): cp.async global->shared copies,
-// ldmatrix, mma.sync in bf16 (m16n8k16) and in TF32 (m16n8k8), the 3xTF32
-// split that gives fp32 accuracy on the TF32 tensor cores, and reductions
-// over the four threads of a quad (the threads that share an accumulator
-// row).
+// (sm_80+ instructions, compiled for sm_90a): cp.async global->shared copies
+// of 16 and 4 bytes, ldmatrix, mma.sync in bf16 (m16n8k16) and in TF32
+// (m16n8k8), the 3xTF32 split that gives fp32 accuracy on the TF32 tensor
+// cores, paired output stores, and reductions over the four threads of a
+// quad (the threads that share an accumulator row).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k*"), with
 // g = lane / 4 and t = lane % 4:
@@ -35,6 +35,16 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// 4-byte global->shared copy (through L1: the .cg form takes 16 bytes
+// only), for rows that need not start on a 16-byte boundary.  src_bytes 0
+// writes a zero.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 // Wait until every group this thread committed has landed.
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -107,6 +117,14 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_hi,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two adjacent outputs from fp32, in the output type.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -231,6 +231,15 @@ def _check_cuda(name, ts, shapes):
         raise MXNetError("%s kernel takes contiguous inputs" % name)
 
 
+def _check_aligned(name, what, ts):
+    """The kernels copy rows in 16-byte cp.async chunks: a view off a
+    16-byte boundary would fault the card's context instead of raising."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise MXNetError("%s kernel needs %s to start on a 16-byte boundary "
+                         "(addresses mod 16: %s)"
+                         % (name, what, [t.data_ptr() % 16 for t in ts]))
+
+
 def _check_rows(name, ts, B, H, Tq):
     for t in ts:
         if t.device.type != "cuda" or t.dtype != torch.float32 or \
@@ -269,12 +278,7 @@ def _flash_forward(q, k, v, causal, scale, dropout_p, seed):
     Tk = k.shape[2]
     _check_cuda("flash_attention", (q, k, v),
                 ((B, H, Tq, D), (B, H, Tk, D), (B, H, Tk, D)))
-    # the kernel copies rows in 16-byte cp.async chunks; a misaligned
-    # address would fault the context instead of raising
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise MXNetError("flash_attention kernel needs q, k and v to start "
-                         "on a 16-byte boundary (addresses mod 16: %s)"
-                         % [t.data_ptr() % 16 for t in (q, k, v)])
+    _check_aligned("flash_attention", "q, k and v", (q, k, v))
     drop = _dropout_args(dropout_p, seed)
     lib = _ext.load()
     out = torch.empty_like(q)
@@ -295,6 +299,7 @@ def _bwd_args(name, q, k, v, do, lse, delta):
     _check_cuda(name, (q, k, v, do),
                 ((B, H, Tq, D), (B, H, Tk, D), (B, H, Tk, D),
                  (B, H, Tq, D)))
+    _check_aligned(name, "q, k, v and dO", (q, k, v, do))
     _check_rows(name, (lse, delta), B, H, Tq)
     return B, H, Tq, Tk, D
 

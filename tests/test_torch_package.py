@@ -136,6 +136,26 @@ def test_misaligned_input_is_refused_before_any_launch(monkeypatch,
     assert fa.flash_attention.launches == launches
 
 
+@pytest.mark.parametrize("which", [0, 1, 2, 3], ids=["q", "k", "v", "dO"])
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_misaligned_backward_input_is_refused_before_any_launch(
+        monkeypatch, no_reference, kernel, which):
+    # the backward kernels copy q, k, v and dO rows in 16-byte chunks too
+    def no_load():
+        raise AssertionError("kernel library loaded for a misaligned input")
+
+    monkeypatch.setattr(_ext, "load", no_load)
+    ts = [_ClaimsCuda() for _ in range(4)]
+    ts[which].ptr = 256 + 4
+    rows = _ClaimsCuda()
+    rows.shape = (1, 2, 64)
+    fn = getattr(fa, kernel)
+    launches = fn.launches
+    with pytest.raises(MXNetError, match="16-byte boundary"):
+        fn(*ts, rows, rows)
+    assert fn.launches == launches
+
+
 @pytest.mark.parametrize("fault", ["meta", "mixed", "dropout"])
 def test_non_cpu_tensor_never_takes_the_plain_version(no_reference, fault):
     q = torch.zeros(1, 2, 64, 32, device="meta")
