@@ -62,13 +62,17 @@ import numpy as np
 # H100 SXM published peaks (dense), the rates ``bound_ms`` divides by
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12,     # fp32 outside the tensor cores
-              "bfloat16": 989e12}   # bf16 tensor cores
+              "bfloat16": 989e12,   # bf16 tensor cores
+              "float16": 989e12}    # fp16 tensor cores
 TF32_FLOPS = 495e12                 # TF32 tensor cores (3xTF32: 3 products)
 SLEEP_CYCLES_PER_S = 2.0e9  # above the H100's 1.98 GHz boost clock, so a
                             # ``torch.cuda._sleep`` lasts at least as asked
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
                  "MATH")
-TOL_O = {"float32": 1e-4, "bfloat16": 2e-2}
+# kernel against plain version: O (absolute) and dq/dk/dv (x max(1,
+# max|ref|)).  fp16 keeps 11 significant bits to bf16's 8: its gate is
+# 10x its rounding of values near 1 (4.9e-4), a quarter of bf16's.
+TOL_O = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
 TOL_LSE = 1e-3
 TOL_SERVE = 1e-3
 TOL_GRAD = 1e-3      # card vs CPU parameter gradients, x max(1, max|g|)
@@ -288,19 +292,25 @@ def phase_kernels(torch, fa, seed):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    # the serving and training shapes, then ragged ones and the head
-    # dims that take the other tiles (D=40: 2 columns a lane; D=256: the
-    # 32-row tiles of the backward)
-    shapes = [(8, 12, 512, 512, 64), (4, 12, 512, 512, 64),
-              (2, 12, 512, 512, 64), (1, 12, 512, 512, 64),
+    # the serving and training shapes (B=16: the bf16 recipe's), then
+    # ragged ones and the head dims that take the other tiles (D=40: 2
+    # columns a lane; D=256: the 32-row tiles of the backward; D=36: no
+    # multiple of 8, padded by the wrappers)
+    shapes = [(8, 12, 512, 512, 64), (16, 12, 512, 512, 64),
+              (4, 12, 512, 512, 64), (2, 12, 512, 512, 64),
+              (1, 12, 512, 512, 64),
               (2, 4, 200, 200, 64), (1, 2, 384, 512, 128),
-              (1, 3, 100, 100, 40), (1, 2, 130, 70, 256)]
+              (1, 3, 100, 100, 40), (1, 2, 130, 70, 256),
+              (2, 12, 512, 512, 36)]
     fwd_cases, bwd_cases = [], []
     for B, H, Tq, Tk, D in shapes:
         serve_shape = (H, Tq, Tk, D) == (12, 512, 512, 64)
-        for dname in ("float32", "bfloat16"):
+        for dname in ("float32", "bfloat16", "float16"):
+            if B == 16 and dname != "bfloat16":
+                continue  # B=16: the bf16 training step's shape only
             for causal in (False, True):
-                if serve_shape and B != 8 and (dname != "float32" or causal):
+                if serve_shape and B not in (8, 16) and \
+                        (dname != "float32" or causal):
                     continue  # the other serving batches: f32, not causal
                 dt = getattr(torch, dname)
                 q, k, v = (torch.randn(B, H, T, D, device="cuda",
@@ -310,7 +320,7 @@ def phase_kernels(torch, fa, seed):
                                  dtype=dt)
                 iters = 20 if B * H * Tq * Tk > 1 << 22 else 50
                 for p in (0.0, DROPOUT_P):
-                    if serve_shape and B != 8 and p:
+                    if serve_shape and B not in (8, 16) and p:
                         continue
                     fwd_cases.append(_fwd_case(torch, F, fa, q, k, v, causal,
                                                p, dname, iters))
@@ -319,8 +329,78 @@ def phase_kernels(torch, fa, seed):
     emit({"phase": "kernels", "kernel": "flash_fwd", "cases": fwd_cases})
     emit({"phase": "kernels", "kernel": "flash_bwd_dq+flash_bwd_dkv",
           "cases": bwd_cases})
+    emit({"phase": "kernels", "kernel": "flash_attention_lse",
+          "cases": [_lse_grad_case(torch, fa, gen, shape, dname)
+                    for shape in ((2, 12, 512, 512, 64),
+                                  (1, 3, 200, 200, 36))
+                    for dname in ("float32", "bfloat16", "float16")]})
+    _auto_routes(torch, fa)
     _misaligned_refused(torch, fa)
     return fwd_cases, bwd_cases
+
+
+def _auto_routes(torch, fa):
+    """``multi_head_attention(impl='auto')`` with float16 or a head dim
+    that is no multiple of 8 (T=512, so ``use_flash`` holds) launches the
+    three kernels and agrees, forward and backward, with the dense path
+    in f32 on the same inputs (the dtype's gate x max(1, max|ref|))."""
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = []
+    for dname, D in (("float16", 64), ("float32", 36), ("bfloat16", 36),
+                     ("float16", 36)):
+        dt = getattr(torch, dname)
+        q, k, v, do = (torch.randn(2, 512, 4 * D, device="cuda", dtype=dt,
+                                   generator=gen) for _ in range(4))
+        counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+        before = [c.launches for c in counters]
+        res = []
+        for impl, cast in (("auto", dt), ("dense", torch.float32)):
+            leaves = [t.detach().to(cast).requires_grad_()
+                      for t in (q, k, v)]
+            o = ops_nn.multi_head_attention(*leaves, num_heads=4, impl=impl)
+            o.backward(do.to(cast))
+            res.append([o.detach()] + [t.grad for t in leaves])
+        torch.cuda.synchronize()
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        errs = [_rel_err(g, r) for g, r in zip(*res)]
+        case = {"dtype": dname, "D": D, "launched": launched,
+                "rel_err": errs, "tol": TOL_O[dname]}
+        out.append(case)
+        if launched != [1, 1, 1] or max(errs) > TOL_O[dname]:
+            emit({"phase": "kernels", "failed_case": case})
+            fail("impl='auto' at %s D=%d did not run the kernels right"
+                 % (dname, D))
+    emit({"phase": "kernels", "auto_routes": out})
+
+
+def _lse_grad_case(torch, fa, gen, shape, dname):
+    """The LSE's gradient: d(out.sum() + lse.sum()) through
+    ``flash_attention_lse`` (the kernels, with Δ − dlse) against autograd
+    through the dense plain version, causal, within the dtype's gate x
+    max(1, max|ref|)."""
+    B, H, Tq, Tk, D = shape
+    dt = getattr(torch, dname)
+    qkv = [torch.randn(B, H, T, D, device="cuda", generator=gen, dtype=dt)
+           for T in (Tq, Tk, Tk)]
+    grads = []
+    for fn in (fa.flash_attention_lse, fa.flash_attention_reference):
+        leaves = [t.clone().requires_grad_() for t in qkv]
+        out, lse = fn(*leaves, True)
+        (out.float().sum() + lse.sum()).backward()
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    errs = {n: _rel_err(g, r) for n, g, r in zip(("dq", "dk", "dv"),
+                                                   *grads)}
+    case = {"shape": list(shape), "dtype": dname, "causal": True,
+            "rel_err": errs, "tol": TOL_O[dname],
+            "ok": all(e <= TOL_O[dname] for e in errs.values())}
+    if not case["ok"]:
+        emit({"phase": "kernels", "failed_case": case})
+        fail("the LSE gradient disagrees with its plain version at %s %s"
+             % (shape, dname))
+    return case
 
 
 def _misaligned_refused(torch, fa):
@@ -368,8 +448,8 @@ def _misaligned_refused(torch, fa):
 def _fwd_case(torch, F, fa, q, k, v, causal, p, dname, iters):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    out, lse = fa.flash_attention(q, k, v, causal, dropout_p=p,
-                                  seed=SEED_DROP)
+    out, lse = fa._flash_forward(q, k, v, causal, fa._scale(q, None), p,
+                                 SEED_DROP)
     torch.cuda.synchronize()
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal,
                                                     dropout_p=p,
@@ -396,6 +476,8 @@ def _fwd_case(torch, F, fa, q, k, v, causal, p, dname, iters):
     if dname == "float32":
         case["bound_3xtf32_ms"] = attention_bound_3xtf32(B, H, Tq, Tk, D,
                                                          causal)
+    if D % 8:   # the wrapper's zero-padding of q, k, v to the next 8
+        case["pad_ms"] = cuda_ms(lambda: fa._pad_head_dim(q, k, v), iters)
     if not ok:
         emit({"phase": "kernels", "failed_case": case})
         fail("flash_fwd disagrees with its plain version at %s"
@@ -406,8 +488,8 @@ def _fwd_case(torch, F, fa, q, k, v, causal, p, dname, iters):
 def _bwd_case(torch, F, fa, q, k, v, do, causal, p, dname, iters):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    out, lse = fa.flash_attention(q, k, v, causal, dropout_p=p,
-                                  seed=SEED_DROP)
+    out, lse = fa._flash_forward(q, k, v, causal, fa._scale(q, None), p,
+                                 SEED_DROP)
     delta = fa._delta(do, out)
     args = (q, k, v, do, lse, delta, causal, None, p, SEED_DROP)
 
@@ -424,7 +506,7 @@ def _bwd_case(torch, F, fa, q, k, v, do, causal, p, dname, iters):
     errs = {n: _rel_err(g, r) for n, g, r in zip(names, (dq, dk, dv), ref)}
     abs_errs = {n: (g.float() - r.float()).abs().max().item()
                 for n, g, r in zip(names, (dq, dk, dv), ref)}
-    tol = 1e-4 if dname == "float32" else 2e-2
+    tol = TOL_O[dname]
     ok = all(e <= tol for e in errs.values())
     bounds = backward_bounds(B, H, Tq, Tk, D, dname, causal)
     backend, lib_ms, refused = _sdpa_backward(torch, F, q, k, v, do, causal,
@@ -451,6 +533,9 @@ def _bwd_case(torch, F, fa, q, k, v, do, causal, p, dname, iters):
         for name, ms in backward_bounds_3xtf32(B, H, Tq, Tk, D,
                                                causal).items():
             case[name + "_bound_3xtf32_ms"] = ms
+    if D % 8:   # each backward kernel's wrapper pads q, k, v and dO
+        case["pad_ms"] = 2 * cuda_ms(lambda: fa._pad_head_dim(q, k, v, do),
+                                     iters)
     if not ok:
         emit({"phase": "kernels", "failed_case": case})
         fail("flash backward disagrees with its plain version at %s"
@@ -659,7 +744,8 @@ def phase_train(torch, mx, fa, seed, smi):
     q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
                    for _ in range(4))
     with torch.no_grad():
-        out, lse = fa.flash_attention(q, k, v, dropout_p=DROPOUT_P, seed=1)
+        out, lse = fa._flash_forward(q, k, v, False, fa._scale(q, None),
+                                     DROPOUT_P, 1)
         delta = fa._delta(do, out)
         args = (q, k, v, do, lse, delta, False, None, DROPOUT_P, 1)
         kern_ms = 12 * (cuda_ms(lambda: fa.flash_attention(
@@ -714,14 +800,278 @@ def _train_grad_parity(torch, mx, bert, net, host, vocab, T):
     return worst
 
 
-def _kernel_entry(name, launches, case, ms, plain_ms, bound, max_abs_err):
+def bert_train_flops_per_step(batch, seq, n_mask, layers=12, units=768,
+                              ffn=3072, vocab=30522):
+    """BERT pretraining flops a step, the JAX package's own count
+    (``bench.py`` ``bert_train_flops_per_step``): multiply-adds x 2, the
+    forward x 3 for forward, backward and weight gradients."""
+    c, ff = units, ffn
+    per_tok = layers * (8 * c * c + 4 * seq * c + 4 * c * ff)
+    # MLM transform + vocab decoder run on the masked slots only
+    per_masked = 2 * c * c + 2 * c * vocab
+    fwd = per_tok * batch * seq + per_masked * batch * n_mask
+    return 3 * fwd
+
+
+def _pretrain_loss(outs, masked_labels, nsp_labels):
+    """The bf16 recipe's loss (``bench.py`` ``pretrain_loss``): masked-LM
+    and NSP cross entropy, in f32."""
+    import torch
+
+    mlm, nsp = outs
+    logp = torch.log_softmax(mlm.float(), dim=-1)
+    ll = torch.gather(logp, -1, masked_labels.long()[..., None])[..., 0]
+    nlogp = torch.log_softmax(nsp.float(), dim=-1)
+    nll = torch.gather(nlogp, -1, nsp_labels.long()[:, None])[..., 0]
+    return -ll.mean() - nll.mean()
+
+
+_GEMM_NAMES = ("gemm", "cutlass", "xmma", "nvjet", "cublas", "wgmma",
+               "s16816", "sm90_", "sm80_", "splitk")
+
+
+def _kernel_class(name):
+    low = name.lower()
+    for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+              "flash_bwd_dkv_kernel"):
+        if k in name:
+            return k.replace("_kernel", "")
+    if any(g in low for g in _GEMM_NAMES):
+        return "gemm"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "foreach_update"
+    return "other"
+
+
+def profile_split(torch, fn, steps):
+    """Device time of ``steps`` calls of ``fn`` (each ending in a
+    synchronize) under ``torch.profiler`` tracing the card only, split by
+    kernel class (GEMMs, each flash kernel, the foreach update, the rest),
+    and the device's idle share: 1 - the union of device activity over
+    the calls' wall time (host clock).  Tracing the host too would stretch
+    the wall time with the profiler's own work.  None where the profiler
+    sees no device activity."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = 0.0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in
+                 ("kernel", "gpu_memcpy", "gpu_memset"))
+    out = {"device_events": len(dev), "wall_ms": wall * 1e3 / steps}
+    if not dev:
+        return dict(out, split_ms=None, idle_share=None)
+    split, other = {}, {}
+    for t0, t1, name in dev:
+        cls = _kernel_class(name)
+        split[cls] = split.get(cls, 0.0) + (t1 - t0) / 1e3 / steps
+        if cls == "other":
+            other[name] = other.get(name, 0.0) + (t1 - t0) / 1e3 / steps
+    busy, end = 0.0, dev[0][0]
+    for t0, t1, _ in dev:          # the union of the device intervals
+        t0 = max(t0, end)
+        if t1 > t0:
+            busy += t1 - t0
+            end = t1
+    busy_ms = busy / 1e3 / steps
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
+    return dict(out, split_ms=split, device_busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / out["wall_ms"],
+                kernels_per_step=len(dev) / steps,
+                top_other_ms=[[n[:90], ms] for n, ms in top])
+
+
+def pretrain_step(mx, bert, seed, **cfg):
+    """The bf16 recipe's block (``bench.py`` ``PretrainStep``): BERT-base
+    pretraining (``cfg`` overrides) called with ``valid_length=None`` and
+    the masked positions, on the card with ``bert_params`` weights."""
+    class PretrainStep(mx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.model = bert.bert_12_768_12(pretraining=True, **cfg)
+
+        def forward(self, tokens, types, positions):
+            return self.model(tokens, types, valid_length=None,
+                              masked_positions=positions)
+
+    net = PretrainStep()
+    net.initialize()                    # no ctx: the card
+    mx.convert.load_jax_params(net, bert_params(net, seed))
+    return net
+
+
+def phase_train_bf16(torch, mx, fa, seed, smi):
+    """The JAX package's BERT recipe (``bench.py`` ``_bench_bert``) through
+    the port's ``parallel.FusedTrainer`` in bf16 at full width."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    B, T, vocab, warm, steps, prof_steps = 16, 512, 30522, 3, 10, 2
+    M = max(1, int(T * 0.15))
+    H, D = 12, 64
+
+    t0 = time.perf_counter()
+    net = pretrain_step(mx, bert, seed, vocab_size=vocab, max_length=T,
+                        dropout=DROPOUT_P)
+    trainer = mx.parallel.FusedTrainer(
+        net, loss_fn=_pretrain_loss, optimizer="adam",
+        optimizer_params={"learning_rate": 1e-4}, dtype="bfloat16")
+    rng = np.random.default_rng(seed + 3)
+    host_x = (rng.integers(0, vocab, (B, T)), rng.integers(0, 2, (B, T)),
+              np.sort(rng.choice(T, (B, M)), axis=1))
+    host_y = (rng.integers(0, vocab, (B, M)), rng.integers(0, 2, B))
+    x = tuple(torch.from_numpy(v).cuda() for v in host_x)
+    y = tuple(torch.from_numpy(v).cuda() for v in host_y)
+    t_build = time.perf_counter() - t0
+    mx.random.seed(seed)
+
+    # the first warm-up step, with the dtype each kernel wrapper checks
+    # before its launch
+    seen = {}
+    check = fa._check_cuda
+
+    def spy(name, ts, shapes):
+        seen.setdefault(name, set()).add(str(ts[0].dtype))
+        return check(name, ts, shapes)
+
+    names = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")
+    fa._check_cuda = spy
+    try:
+        losses = [trainer.step(x, y).item()]
+    finally:
+        fa._check_cuda = check
+    if seen != {n: {"torch.bfloat16"} for n in names}:
+        fail("the bf16 step handed the kernels %s" % seen)
+    for _ in range(warm - 1):
+        losses.append(trainer.step(x, y).item())
+
+    counters = [getattr(fa, n) for n in names]
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(trainer.step(x, y).item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+
+    if not all(np.isfinite(losses)):
+        fail("nonfinite bf16 training loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        fail("bf16 training loss did not fall: %s" % losses)
+    for name, n in launches.items():
+        if n != 12 * steps:
+            fail("%s launched %d times in %d bf16 steps (want 12 per step)"
+                 % (name, n, steps))
+    masters = {p.dtype for p in net.collect_params().values()}
+    if masters != {torch.float32}:
+        fail("master weights are not float32: %s" % masters)
+
+    med = float(np.median(step_ms))
+    flops = bert_train_flops_per_step(B, T, M)
+    split = profile_split(torch, lambda: trainer.step(x, y), prof_steps)
+    # the update alone, on one step's gradients (this moves the weights
+    # five more updates; every check above is done)
+    _, grads = trainer._loss_and_grads(x, y)
+    params = trainer._masters()
+    update_ms = cuda_ms(lambda: trainer._opt_update(
+        trainer._step_count, params, grads, trainer._opt_state, 1e-4), 5)
+    n_params = sum(p.numel() for p in params)
+    # the 36 launches of a step, timed alone at the step's shapes in bf16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+    with torch.no_grad():
+        out, lse = fa._flash_forward(q, k, v, False, fa._scale(q, None),
+                                     DROPOUT_P, 1)
+        delta = fa._delta(do, out)
+        args = (q, k, v, do, lse, delta, False, None, DROPOUT_P, 1)
+        kern_ms = 12 * (cuda_ms(lambda: fa.flash_attention(
+            q, k, v, dropout_p=DROPOUT_P, seed=1), 20)
+            + cuda_ms(lambda: fa.flash_bwd_dq(*args), 20)
+            + cuda_ms(lambda: fa.flash_bwd_dkv(*args), 20))
+    fp16_losses = _fused_fp16_steps(torch, mx, bert, seed)
+    emit({"phase": "train_bf16", "model": "bert_12_768_12",
+          "head": "BERTForPretraining", "trainer": "parallel.FusedTrainer",
+          "dtype": "bfloat16", "batch": B, "seq_len": T,
+          "masked_positions": M, "dropout": DROPOUT_P, "optimizer": "adam",
+          "lr": 1e-4, "warm_up_steps": warm, "steps": steps,
+          "losses": losses, "launches": launches,
+          "kernel_dtypes": {n: sorted(v) for n, v in seen.items()},
+          "step_ms": step_ms, "step_ms_median": med,
+          "tokens_per_s": B * T / (med / 1e3),
+          "flops_per_step": flops,
+          "mfu": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"],
+          "update_ms": update_ms, "update_params": n_params,
+          "update_bound_ms": 7 * 4 * n_params / HBM_BYTES_PER_S * 1e3,
+          "kernels_ms_per_step": kern_ms, "kernels_share": kern_ms / med,
+          "profile": split,
+          # the unprofiled median step against the profiled device time
+          "idle_share_at_median": (None if split.get("device_busy_ms") is None
+                                   else 1.0 - split["device_busy_ms"] / med),
+          "max_memory_allocated_bytes": peak,
+          "fp16_2_layer_losses": fp16_losses,
+          "model_build_s": t_build, "card": smi})
+    return launches
+
+
+def _fused_fp16_steps(torch, mx, bert, seed):
+    """``FusedTrainer(dtype='float16')`` runs on the card: three steps of
+    a 2-layer BERT-base-wide model at T=512 (its dense layers, as in the
+    JAX package, promote to f32, so attention runs in f32); the losses are
+    finite and fall."""
+    net = pretrain_step(mx, bert, seed, vocab_size=30522, num_layers=2,
+                        max_length=512, dropout=0.0)
+    trainer = mx.parallel.FusedTrainer(
+        net, loss_fn=_pretrain_loss, optimizer="adam",
+        optimizer_params={"learning_rate": 1e-4}, dtype="float16")
+    rng = np.random.default_rng(seed + 4)
+    x = tuple(torch.from_numpy(v).cuda() for v in (
+        rng.integers(0, 30522, (2, 512)), rng.integers(0, 2, (2, 512)),
+        np.sort(rng.choice(512, (2, 76)), 1)))
+    y = tuple(torch.from_numpy(v).cuda() for v in (
+        rng.integers(0, 30522, (2, 76)), rng.integers(0, 2, 2)))
+    losses = [trainer.step(x, y).item() for _ in range(3)]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail("FusedTrainer(dtype='float16') losses: %s" % losses)
+    return losses
+
+
+def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
+    """One kernel route's summary from its case: ``bound_key`` None for
+    the forward's bound (``bound_ms``), else "dq"/"dkv"; ``errs`` the
+    case's error key (forward) or output names (backward)."""
     source, replaces = KERNELS[name]
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max_abs_err, "ms": case[ms],
-            "plain_ms": case[plain_ms], "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": case["library_ms"],
-            "library_backend": case["library_backend"]}
+    prefix = "" if bound_key is None else bound_key + "_"
+    if isinstance(errs, str):
+        err = case[errs]
+    else:
+        err = max(case["max_abs_err"][o] for o in errs)
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "dtype": case["dtype"], "shape": case["shape"],
+             "dropout_p": case["dropout_p"], "max_abs_err": err,
+             "ms": case[ms], "plain_ms": case[plain_ms],
+             "bound_ms": case[prefix + "bound_ms"],
+             "bound_by": case[prefix + "bound_by"],
+             "library_ms": case["library_ms"],
+             "library_backend": case["library_backend"]}
+    if prefix + "bound_3xtf32_ms" in case:
+        entry["bound_3xtf32_ms"] = case[prefix + "bound_3xtf32_ms"]
+    return entry
 
 
 def main():
@@ -759,32 +1109,47 @@ def main():
     fwd_cases, bwd_cases = phase_kernels(torch, fa, args.seed)
     serve_launches = phase_serve(torch, mx, fa, args.seed, smi)
     train_launches = phase_train(torch, mx, fa, args.seed, smi)
+    bf16_launches = phase_train_bf16(torch, mx, fa, args.seed, smi)
 
-    # the main paths' shape, (8, 12, 512, 512, 64) f32, not causal: the
-    # forward as served (no dropout), the backward as trained (p = 0.1)
-    def main_case(cases, p):
-        return next(c for c in cases if c["shape"] == [8, 12, 512, 512, 64]
-                    and c["dtype"] == "float32" and not c["causal"]
+    # each route's numbers at its main path's shape, not causal: f32 at
+    # (8, 12, 512, 512, 64), the forward as served (no dropout), the
+    # backward as trained (p = 0.1); bf16 at the bf16 recipe's B=16 with
+    # p = 0.1; fp16 (no main path: FusedTrainer's fp16 mode attends in f32,
+    # as the JAX package does) as f32
+    def case(cases, B, dname, p):
+        return next(c for c in cases if c["shape"] == [B, 12, 512, 512, 64]
+                    and c["dtype"] == dname and not c["causal"]
                     and c["dropout_p"] == p)
 
-    fwd, bwd = main_case(fwd_cases, 0.0), main_case(bwd_cases, DROPOUT_P)
-    served = [c for c in fwd_cases if c["shape"][1:] == [12, 512, 512, 64]
-              and c["dtype"] == "float32" and not c["causal"]]
-    entries = [_kernel_entry(
-        "flash_fwd", serve_launches + train_launches["flash_attention"], fwd,
-        "ms", "plain_ms", (fwd["bound_ms"], fwd["bound_by"]),
-        max(c["max_abs_err_o"] for c in served))]
+    route_cases = {"float32": (8, 0.0), "bfloat16": (16, DROPOUT_P),
+                   "float16": (8, 0.0)}
+    fwd_launches = {"float32": serve_launches
+                    + train_launches["flash_attention"],
+                    "bfloat16": bf16_launches["flash_attention"],
+                    "float16": 0}
+    routes = {dname: _kernel_entry(
+        "flash_fwd", fwd_launches[dname], case(fwd_cases, B, dname, p),
+        "ms", "plain_ms", None, "max_abs_err_o")
+        for dname, (B, p) in route_cases.items()}
+    entries = [dict(routes["float32"], routes=routes)]
+    entries[0]["launches"] = sum(fwd_launches.values())
     entries[0]["launches_by_path"] = {
-        "serve": serve_launches, "train": train_launches["flash_attention"]}
-    entries[0]["bound_3xtf32_ms"] = fwd["bound_3xtf32_ms"]
+        "serve": serve_launches, "train": train_launches["flash_attention"],
+        "train_bf16": bf16_launches["flash_attention"]}
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
-        entries.append(_kernel_entry(
-            kname, train_launches[kname], bwd, short + "_ms",
-            "plain_%s_ms" % short,
-            (bwd[short + "_bound_ms"], bwd[short + "_bound_by"]),
-            max(bwd["max_abs_err"][o] for o in outs)))
-        entries[-1]["bound_3xtf32_ms"] = bwd[short + "_bound_3xtf32_ms"]
+        launches = {"float32": train_launches[kname],
+                    "bfloat16": bf16_launches[kname], "float16": 0}
+        routes = {dname: _kernel_entry(
+            kname, launches[dname],
+            case(bwd_cases, B, dname, DROPOUT_P), short + "_ms",
+            "plain_%s_ms" % short, short, outs)
+            for dname, (B, _) in route_cases.items()}
+        entries.append(dict(routes["float32"], routes=routes))
+        entries[-1]["launches"] = sum(launches.values())
+        entries[-1]["launches_by_path"] = {
+            "train": train_launches[kname],
+            "train_bf16": bf16_launches[kname]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,7 +2,8 @@
 
 This package sits beside ``mxnet_tpu/`` (the JAX reference) and ports it
 slice by slice.  It serves BERT-base through ``serve.Server`` and trains it
-through ``autograd.record()``, ``backward()`` and ``gluon.Trainer``; every
+through ``autograd.record()``, ``backward()`` and ``gluon.Trainer``, or in
+bf16 through ``parallel.FusedTrainer``; every
 attention call on those paths runs hand-written CUDA flash-attention
 kernels (``csrc/flash_fwd.cu``, and ``csrc/flash_bwd.cu`` for the
 gradients).
@@ -23,7 +24,9 @@ Ground rules:
   they raise.  A CUDA tensor handed to a kernel wrapper launches the kernel
   or raises; only a CPU tensor takes the kernel's plain PyTorch version.
 """
-from . import (autograd, base, context, convert, gluon, initializer,  # noqa: F401
-               ops, optimizer, random, serve, telemetry, trace)
+from . import (autograd, base, context, contrib, convert, gluon,  # noqa: F401
+               initializer, ops, optimizer, parallel, random, serve,
+               telemetry, trace)
+from .optimizer import lr_scheduler  # noqa: F401  (mx.lr_scheduler)
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, current_context, gpu  # noqa: F401

@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a) on the tensor cores, fp32 and
-// bf16 inputs: the dq kernel and the dk/dv kernel.
+// Flash-attention backward for Hopper (sm_90a) on the tensor cores, fp32,
+// bf16 and fp16 inputs: the dq kernel and the dk/dv kernel.
 //
 // Replaces mxnet_tpu/ops/pallas_attention.py:_bwd_dq_kernel and
 // _bwd_dkv_kernel (driven by _flash_backward).  Both recompute the attention
@@ -32,8 +32,8 @@
 //    delta, stream through a two-stage cp.async ring from the causal start
 //    `lo` (pallas_attention.py:357).  Each step works in the transposed
 //    (key x query) layout: S^T = K Q^T, P^T = exp(S^T - lse[col]), dP^T =
-//    V dO^T, dS^T = P^T (m dP^T - delta[col]), dV += (P^T m) dO and dK +=
-//    dS^T Q.  LSE and delta are indexed by the accumulator's column, so a
+//    V dO^T, dS^T = P^T (m dP^T - delta[col]), dV += (P^T keep) dO (the
+//    1 / (1 - p) of m applied to dV at the end) and dK += dS^T Q.  LSE and delta are indexed by the accumulator's column, so a
 //    thread reads them for its columns 2t, 2t+1 from shared memory; the
 //    dropout row key belongs to the query, so a thread hashes it once a tile
 //    for each of its columns.  At D = 256 the two accumulators (256 floats a
@@ -48,8 +48,9 @@
 //  - Products: S and dP are the forward's Q K^T (A from the warp's 16 rows,
 //    B from a tile read row-wise: mma_abt); dV, dK and dQ are its P V (the
 //    accumulator becomes the A fragment, B is read down the tile's rows:
-//    mma_pb).  bf16: m16n8k16 with ldmatrix (ldmatrix.trans for mma_pb), P m
-//    and dS rounded to bf16 as they are packed.  fp32: 3xTF32 on m16n8k8
+//    mma_pb).  bf16 and fp16: m16n8k16 with ldmatrix (ldmatrix.trans for
+//    mma_pb), P keep and dS rounded to the input type as they are packed.
+//    fp32: 3xTF32 on m16n8k8
 //    (1xTF32 misses the 1e-4 gate), with the forward's relabelling inside
 //    each 8-wide slab (physical column 2t is k = t, 2t+1 is k = t+4) so the
 //    accumulator feeds the A fragment with no shuffle.
@@ -154,8 +155,8 @@ __device__ __forceinline__ void mma_abt(float (*s)[4], const T* sA,
         uint32_t b[4];
         ldmatrix_x4(b, sB + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * kLd +
                            ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * n2], a, b);
-        mma_bf16(s[2 * n2 + 1], a, b + 2);
+        mma16<T>(s[2 * n2], a, b);
+        mma16<T>(s[2 * n2 + 1], a, b + 2);
       }
     }
   }
@@ -191,18 +192,18 @@ __device__ __forceinline__ void mma_pb(float (*acc)[4], const float (*p)[4],
   } else {
 #pragma unroll
     for (int kk = 0; kk < kKT / 2; ++kk) {
-      const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                             pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                             pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                             pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+      const uint32_t a[4] = {pack2<T>(p[2 * kk][0], p[2 * kk][1]),
+                             pack2<T>(p[2 * kk][2], p[2 * kk][3]),
+                             pack2<T>(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                             pack2<T>(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
       for (int d2 = 0; d2 < kDT / 2; ++d2) {
         uint32_t b[4];
         ldmatrix_x4_trans(
             b, sB + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
                    d2 * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * d2], a, b);
-        mma_bf16(acc[2 * d2 + 1], a, b + 2);
+        mma16<T>(acc[2 * d2], a, b);
+        mma16<T>(acc[2 * d2 + 1], a, b + 2);
       }
     }
   }
@@ -340,7 +341,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
       zero_acc<kNT>(dp);
       mma_abt<T, kD, kNT>(dp, sV + m0 * kLd, tO, lane);  // dP^T = V dO^T
-      // P^T m into s, dS^T into dp
+      // P^T keep into s, dS^T into dp
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
         const float2 d2 =
@@ -351,17 +352,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           float gd = dp[nt][e];
           if (kDropout) {
             const bool kept = (keep >> (4 * nt + e)) & 1u;
-            s[nt][e] = kept ? p * drop.inv_keep : 0.f;
+            s[nt][e] = kept ? p : 0.f;  // 1 / (1 - p): on dV at the end
             gd = kept ? gd * drop.inv_keep : 0.f;
           }
           dp[nt][e] = p * (gd - (e & 1 ? d2.y : d2.x));
         }
       }
-      mma_pb<T, kD, kNT, kDT>(acc_v, s, tO + c0, lane);   // dV += P^T m dO
+      mma_pb<T, kD, kNT, kDT>(acc_v, s, tO + c0, lane);   // dV += P^T k dO
       mma_pb<T, kD, kNT, kDT>(acc_k, dp, tQ + c0, lane);  // dK += dS^T Q
     }
     cp_async_wait_all();  // (no tile at all: the K/V copies)
 
+    const float vscale = kDropout ? drop.inv_keep : 1.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = h ? key_b : key_a;
@@ -374,7 +376,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (col < D) {
           store2(krow + col, acc_k[dt][2 * h] * scale,
                  acc_k[dt][2 * h + 1] * scale);
-          store2(vrow + col, acc_v[dt][2 * h], acc_v[dt][2 * h + 1]);
+          store2(vrow + col, acc_v[dt][2 * h] * vscale,
+                 acc_v[dt][2 * h + 1] * vscale);
         }
       }
     }
@@ -557,8 +560,8 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
 //   fp32 D <= 64: 64 and 8 warps for both (139 KB each at D = 64);
 //   fp32 D = 128: dq 64, dk/dv 16, 4 warps (203 / 101 KB);
 //   fp32 D = 256: 16, 4 warps (200 KB each);
-//   bf16: dq 64 to D = 128 and 32 at D = 256; dk/dv 64 to D = 64 and 16
-//   beyond, where the dK and dV accumulators take 128 registers; 4 warps.
+//   bf16, fp16: dq 64 to D = 128 and 32 at D = 256; dk/dv 64 to D = 64
+//   and 16 beyond, where the dK and dV accumulators take 128 registers; 4 warps.
 template <typename T, bool kDkv, bool kDropout>
 cudaError_t dispatch(const Args& a, cudaStream_t stream) {
   constexpr bool kF32 = std::is_same<T, float>::value;
@@ -595,6 +598,9 @@ int run(const Args& a, int dtype, int dropout, int device, void* stream) {
   else if (dtype == 1)
     err = dropout ? dispatch<__nv_bfloat16, kDkv, true>(a, s)
                   : dispatch<__nv_bfloat16, kDkv, false>(a, s);
+  else if (dtype == 2)
+    err = dropout ? dispatch<__half, kDkv, true>(a, s)
+                  : dispatch<__half, kDkv, false>(a, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;
@@ -603,8 +609,8 @@ int run(const Args& a, int dtype, int dropout, int device, void* stream) {
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  q/dout/dq: contiguous
-// (B*H, Tq, D); k/v/dk/dv: (B*H, Tk, D), all of dtype 0 = float32 or
-// 1 = bfloat16, starting on a 16-byte boundary; lse, delta: (B*H, Tq)
+// (B*H, Tq, D); k/v/dk/dv: (B*H, Tk, D), all of dtype 0 = float32,
+// 1 = bfloat16 or 2 = float16, starting on a 16-byte boundary; lse, delta: (B*H, Tq)
 // float32.  dropout != 0 regenerates the forward's mask from (seed,
 // thresh) and scales kept terms by inv_keep.  Each launches on `stream` of
 // `device` and returns cudaGetLastError() (0 on success).

@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a) on the tensor cores, fp32 and
-// bf16 inputs.
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores, fp32,
+// bf16 and fp16 inputs.
 //
 // Replaces mxnet_tpu/ops/pallas_attention.py:_flash_kernel (the Pallas TPU
 // forward kernel driven by _flash_forward).  Computes, per (batch*head):
@@ -10,7 +10,9 @@
 // stream past.  With dropout p (training), O = (softmax(s) * keep / (1-p)) V:
 // the keep bits come from the hash of flash_common.cuh at each element's
 // absolute (row, column), the denominator and the LSE stay undropped, and
-// the backward kernels (flash_bwd.cu) regenerate the same bits.
+// the backward kernels (flash_bwd.cu) regenerate the same bits.  P * keep
+// enters the product and 1 / (1-p) scales O once at the end, so a 16-bit
+// P is not rounded after the scaling.
 //
 // Bounds on an H100 SXM at the BERT-base serving shape B=8, H=12, T=512,
 // D=64: the math is 4*B*H*T^2*D = 6.44 GFLOP; reading Q/K/V and writing O
@@ -34,10 +36,10 @@
 //    Tk are zero-filled through the copy's src-size, rows past Tq
 //    likewise; the host pads nothing.  Row strides D+4 floats / D+8 bf16
 //    spread a warp's fragment loads over all banks.
-//  - bf16: S = Q K^T and O += P V by mma m16n8k16 with Q, K fragments from
-//    ldmatrix and V's from ldmatrix.trans; P is rounded to bf16 and packed
-//    straight from the S accumulator into the A fragment (the two layouts
-//    line up).  The scale is applied to S in fp32 after the product.
+//  - bf16 and fp16 (one code path, T picks the MMA): S = Q K^T and O += P V
+//    by mma m16n8k16 with Q, K fragments from ldmatrix and V's from
+//    ldmatrix.trans; P is rounded to T and packed straight from the S
+//    accumulator into the A fragment (the two layouts line up).  The scale is applied to S in fp32 after the product.
 //  - fp32: 3xTF32, mma m16n8k8 with every operand split into hi + lo TF32
 //    parts and hi*hi + hi*lo + lo*hi summed (1xTF32 misses the 1e-4 gate).
 //    Every warp splits the K/V elements it reads (an integer add and mask
@@ -221,8 +223,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           uint32_t b[4];
           ldmatrix_x4(b, tK + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * kLd +
                              ks * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * n2], a, b);
-          mma_bf16(s[2 * n2 + 1], a, b + 2);
+          mma16<T>(s[2 * n2], a, b);
+          mma16<T>(s[2 * n2 + 1], a, b + 2);
         }
       }
     }
@@ -261,10 +263,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float p = exp2f(s[nt][e] - (e < 2 ? mn_a : mn_b));
         if (e < 2) sum_a += p;
         else sum_b += p;
-        if (kDropout) {
+        if (kDropout) {  // 1 / (1 - p) is applied to O at the end
           const int col = k0 + nt * 8 + 2 * t + (e & 1);
-          p = drop_keep(e < 2 ? key_a : key_b, col, drop.thresh)
-                  ? p * drop.inv_keep : 0.f;
+          if (!drop_keep(e < 2 ? key_a : key_b, col, drop.thresh)) p = 0.f;
         }
         s[nt][e] = p;
       }
@@ -302,31 +303,33 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     } else {
 #pragma unroll
       for (int kk = 0; kk < kNT / 2; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const uint32_t a[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                               pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                               pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
         for (int d2 = 0; d2 < kDT / 2; ++d2) {
           uint32_t b[4];
           ldmatrix_x4_trans(
               b, tV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
                      d2 * 16 + (lane >> 4) * 8);
-          mma_bf16(acc[2 * d2], a, b);
-          mma_bf16(acc[2 * d2 + 1], a, b + 2);
+          mma16<T>(acc[2 * d2], a, b);
+          mma16<T>(acc[2 * d2 + 1], a, b + 2);
         }
       }
     }
   }
 
-  // O = acc / l in the input type; LSE = m ln 2 + log l (natural log)
+  // O = acc / l (with dropout acc / (1 - p) / l) in the input type;
+  // LSE = m ln 2 + log l (natural log)
   l_a = quad_sum(l_a);
   l_b = quad_sum(l_b);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = h ? row_b : row_a;
     if (row >= Tq) continue;
-    const float lc = fmaxf(h ? l_b : l_a, 1e-30f), inv = 1.f / lc;
+    const float lc = fmaxf(h ? l_b : l_a, 1e-30f);
+    const float inv = (kDropout ? drop.inv_keep : 1.f) / lc;
     T* orow = o + ((size_t)bh * Tq + row) * D;
 #pragma unroll
     for (int dt = 0; dt < kDT; ++dt) {
@@ -358,8 +361,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // Head-dim buckets.  fp32 runs 128-row blocks (8 warps: each K/V tile
 // read from L2 serves twice the rows) except at D > 128, where it takes
-// 64-row blocks and 32-key tiles to fit shared memory; bf16 runs 64-row
-// blocks (4 warps), which keep more blocks resident.
+// 64-row blocks and 32-key tiles to fit shared memory; bf16 and fp16 run
+// 64-row blocks (4 warps), which keep more blocks resident.
 template <typename T, bool kDropout>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      float* lse, int bh, int Tq, int Tk, int D, float scale,
@@ -393,7 +396,7 @@ cudaError_t dispatch_dropout(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  q/k/v/o: contiguous (B*H, T, D)
-// of dtype 0 = float32 or 1 = bfloat16; lse: (B*H, Tq) float32.  dropout != 0
+// of dtype 0 = float32, 1 = bfloat16 or 2 = float16; lse: (B*H, Tq) float32.  dropout != 0
 // drops attention probabilities with the mask of flash_common.cuh (seed,
 // keep threshold, 1 / (1 - p)).  Launches on `stream` of `device` and
 // returns cudaGetLastError() (0 on success).
@@ -421,6 +424,9 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
   else if (dtype == 1)
     err = dispatch_dropout<__nv_bfloat16>(q, k, v, o, l, bh, Tq, Tk, D, scale,
                                           causal, dropout, drop, s);
+  else if (dtype == 2)
+    err = dispatch_dropout<__half>(q, k, v, o, l, bh, Tq, Tk, D, scale,
+                                   causal, dropout, drop, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

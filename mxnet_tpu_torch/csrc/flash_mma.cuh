@@ -1,7 +1,7 @@
 // Warp-level tensor-core and asynchronous-copy helpers for the flash kernels
 // (sm_80+ instructions, compiled for sm_90a): cp.async global->shared copies
-// of 16 and 4 bytes, ldmatrix, mma.sync in bf16 (m16n8k16) and in TF32
-// (m16n8k8), the 3xTF32 split that gives fp32 accuracy on the TF32 tensor
+// of 16 and 4 bytes, ldmatrix, mma.sync in bf16 and fp16 (m16n8k16) and in
+// TF32 (m16n8k8), the 3xTF32 split that gives fp32 accuracy on the TF32 tensor
 // cores, paired output stores, and reductions over the four threads of a
 // quad (the threads that share an accumulator row).
 //
@@ -10,13 +10,17 @@
 //   accumulator 16x8 (both):  c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
 //   TF32 A 16x8:  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
 //   TF32 B 8x8:   b0 (k=t, n=g)  b1 (k=t+4, n=g)
-//   bf16 A 16x16: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
-//   bf16 B 16x8:  b0 (k=2t..2t+1, n=g)  b1 (k=2t+8..2t+9, n=g)
-// (a bf16 register holds two elements, the lower column in the low half).
+//   16-bit A 16x16: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
+//   16-bit B 16x8:  b0 (k=2t..2t+1, n=g)  b1 (k=2t+8..2t+9, n=g)
+// (a bf16 or fp16 register holds two elements, the lower column in the low
+// half; the two types share every layout).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mxflash {
 
@@ -77,6 +81,24 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d += a b, m16n8k16, fp16 operands, fp32 accumulator.
+__device__ __forceinline__ void mma_f16(float* d, const uint32_t* a,
+                                        const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The m16n8k16 product of a 16-bit input type T (bf16 or fp16).
+template <typename T>
+__device__ __forceinline__ void mma16(float* d, const uint32_t* a,
+                                      const uint32_t* b) {
+  if constexpr (std::is_same<T, __half>::value) mma_f16(d, a, b);
+  else mma_bf16(d, a, b);
+}
+
 // d += a b, m16n8k8, TF32 operands, fp32 accumulator.
 __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
                                          const uint32_t* b) {
@@ -113,10 +135,17 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_hi,
   mma_tf32(d, a_hi, b_hi);
 }
 
-// Two floats as a bf16x2 register: lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// Two floats as a bf16x2 or half2 register (rounded to nearest): lo in the
+// low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
 // Two adjacent outputs from fp32, in the output type.
@@ -125,6 +154,9 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -101,7 +101,7 @@ class BERTForPretraining(HybridBlock):
         h = self.mlm_ln(self.mlm_transform(h))
         if self._tie:
             emb = self.bert.word_embed.weight   # (V, C)
-            mlm_scores = (h.reshape(-1, h.shape[-1]) @ emb.t()).reshape(
+            mlm_scores = F.dot(h.reshape(-1, h.shape[-1]), emb.t()).reshape(
                 *h.shape[:-1], self._vocab_size)
         else:
             mlm_scores = self.mlm_decoder(h)

@@ -4,12 +4,15 @@ their plain PyTorch versions.
 Counterpart of ``mxnet_tpu/ops/pallas_attention.py``.  Layout is
 (B, H, T, D) as there.
 
-- ``flash_attention``        -- the entry point: a ``torch.autograd.Function``
-                                (in place of the JAX ``custom_vjp``) whose
-                                forward is ``csrc/flash_fwd.cu`` and whose
-                                backward is Δ = rowsum(dO∘O) followed by
-                                ``flash_bwd_dq`` and ``flash_bwd_dkv``
-                                (``csrc/flash_bwd.cu``).
+- ``flash_attention``        -- the entry point -> ``out``: a
+                                ``torch.autograd.Function`` (in place of the
+                                JAX ``custom_vjp``) whose forward is
+                                ``csrc/flash_fwd.cu`` and whose backward is
+                                Δ = rowsum(dO∘O) followed by ``flash_bwd_dq``
+                                and ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``).
+- ``flash_attention_lse``    -- ``(out, lse)`` with the LSE differentiable
+                                (no dropout): its cotangent folds into the
+                                same kernels as Δ − dlse.
 - ``flash_bwd_dq``,
   ``flash_bwd_dkv``          -- the backward kernels' wrappers.
 - ``*_reference``            -- the plain versions, dense in fp32 (fp64 for
@@ -19,7 +22,12 @@ Counterpart of ``mxnet_tpu/ops/pallas_attention.py``.  Layout is
                                 online-softmax scan (``impl='flash'``).
 
 Every wrapper takes its plain version for tensors on the CPU only; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises.  The kernels take float32, bfloat16
+and float16 and any head dim D <= 256: a D that is no multiple of 8 is
+zero-padded to the next one for the launch (the kernels copy rows in
+16-byte chunks) and the outputs are sliced back.  The padding is exact:
+zero columns add nothing to q.k, to Δ or to the LSE, and the scale comes
+from the true D.
 
 Attention dropout (``dropout_p`` > 0) drops probabilities after the
 softmax, as the TPU kernels do: the softmax denominator and the LSE keep the
@@ -37,7 +45,8 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["flash_attention", "flash_attention_reference",
+__all__ = ["flash_attention", "flash_attention_lse",
+           "flash_attention_reference",
            "flash_attention_backward_reference", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "dropout_keep_mask",
@@ -45,7 +54,7 @@ __all__ = ["flash_attention", "flash_attention_reference",
 
 _NEG_INF = -1e30
 DEFAULT_BLOCKWISE_K = 256
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # ---- the dropout mask (the hash of csrc/flash_common.cuh) -----------------
 _MASK32 = 0xFFFFFFFF
@@ -205,27 +214,37 @@ def _on_cpu(*ts):
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _check_cuda(name, ts, shapes):
-    """Checks every kernel wrapper makes before it launches: one CUDA
-    device, float32/bfloat16 of one dtype, (B, H, T, D) with D a multiple
-    of 8 and at most 256, contiguous."""
+def _check_device(name, ts):
     if not all(t.device.type == "cuda" for t in ts) or \
             len({t.device for t in ts}) != 1:
         raise MXNetError("%s: inputs must all lie on one CUDA device or all "
                          "on the CPU (got %s)"
                          % (name, [str(t.device) for t in ts]))
+
+
+def _stream(t):
+    """The current stream of ``t``'s card, as the C entry points take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(name, ts, shapes):
+    """Checks every kernel wrapper makes before it launches: one CUDA
+    device, float32/bfloat16/float16 of one dtype, (B, H, T, D) with D at
+    most 256, contiguous."""
+    _check_device(name, ts)
     dtype = ts[0].dtype
     if dtype not in _DTYPE_CODE or any(t.dtype != dtype for t in ts):
-        raise MXNetError("%s kernel takes float32 or bfloat16 inputs of one "
-                         "dtype (got %s)" % (name, [t.dtype for t in ts]))
+        raise MXNetError("%s kernel takes float32, bfloat16 or float16 "
+                         "inputs of one dtype (got %s)"
+                         % (name, [t.dtype for t in ts]))
     for t, want in zip(ts, shapes):
         if t.dim() != 4 or tuple(t.shape) != want:
             raise MXNetError("%s: shape %s, expected %s"
                              % (name, tuple(t.shape), want))
     B, H, Tq, D = shapes[0]
-    if D % 8 or D > 256 or min(B, H, Tq, shapes[1][2]) < 1:
-        raise MXNetError("%s kernel needs D a multiple of 8 and <= 256 and "
-                         "non-empty tensors (got %s, Tk=%d)"
+    if D > 256 or min(B, H, Tq, D, shapes[1][2]) < 1:
+        raise MXNetError("%s kernel needs 1 <= D <= 256 and non-empty "
+                         "tensors (got %s, Tk=%d)"
                          % (name, shapes[0], shapes[1][2]))
     if not all(t.is_contiguous() for t in ts):
         raise MXNetError("%s kernel takes contiguous inputs" % name)
@@ -241,8 +260,9 @@ def _check_aligned(name, what, ts):
 
 
 def _check_rows(name, ts, B, H, Tq):
+    _check_device(name, ts)
     for t in ts:
-        if t.device.type != "cuda" or t.dtype != torch.float32 or \
+        if t.dtype != torch.float32 or \
                 tuple(t.shape) != (B, H, Tq) or not t.is_contiguous():
             raise MXNetError("%s: lse/delta must be contiguous float32 "
                              "(B, H, Tq) on the card (got %s %s %s)"
@@ -265,6 +285,21 @@ def _launch(name, fn, *args):
         raise MXNetError("%s launch failed: CUDA error %d" % (name, err))
 
 
+def _pad_head_dim(*ts):
+    """Zero-pad the last dim of each tensor to the next multiple of 8, the
+    width the kernels' 16-byte row copies need; unchanged when it is one."""
+    D = ts[0].shape[-1]
+    pad = -D % 8
+    if not pad:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
+
+
+def _unpad(t, D):
+    """The first D columns of a kernel output, as a contiguous tensor."""
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
+
+
 def _flash_forward(q, k, v, causal, scale, dropout_p, seed):
     """Forward wrapper: plain version on the CPU, the kernel on the card."""
     if _on_cpu(q, k, v):
@@ -278,30 +313,34 @@ def _flash_forward(q, k, v, causal, scale, dropout_p, seed):
     Tk = k.shape[2]
     _check_cuda("flash_attention", (q, k, v),
                 ((B, H, Tq, D), (B, H, Tk, D), (B, H, Tk, D)))
+    q, k, v = _pad_head_dim(q, k, v)
     _check_aligned("flash_attention", "q, k and v", (q, k, v))
     drop = _dropout_args(dropout_p, seed)
     lib = _ext.load()
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _stream(q)
     _launch("flash_fwd", lib.mx_flash_fwd,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B * H, Tq, Tk, D, ctypes.c_float(scale),
-            int(causal), _DTYPE_CODE[q.dtype], *drop, q.device.index or 0,
-            stream)
+            lse.data_ptr(), B * H, Tq, Tk, q.shape[-1],
+            ctypes.c_float(scale), int(causal), _DTYPE_CODE[q.dtype], *drop,
+            q.device.index or 0, stream)
     flash_attention.launches += 1
-    return out, lse
+    return _unpad(out, D), lse
 
 
 def _bwd_args(name, q, k, v, do, lse, delta):
+    """Checks, then the head-dim padding: -> (q, k, v, do) as launched and
+    (B, H, Tq, Tk, D) with D the true head dim."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     _check_cuda(name, (q, k, v, do),
                 ((B, H, Tq, D), (B, H, Tk, D), (B, H, Tk, D),
                  (B, H, Tq, D)))
-    _check_aligned(name, "q, k, v and dO", (q, k, v, do))
     _check_rows(name, (lse, delta), B, H, Tq)
-    return B, H, Tq, Tk, D
+    q, k, v, do = _pad_head_dim(q, k, v, do)
+    _check_aligned(name, "q, k, v and dO", (q, k, v, do))
+    return (q, k, v, do), (B, H, Tq, Tk, D)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, scale=None,
@@ -316,18 +355,19 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, scale=None,
                                       scale, dropout_p, seed)
     from . import _ext
 
-    B, H, Tq, Tk, D = _bwd_args("flash_bwd_dq", q, k, v, do, lse, delta)
+    (q, k, v, do), (B, H, Tq, Tk, D) = _bwd_args("flash_bwd_dq", q, k, v,
+                                                 do, lse, delta)
     drop = _dropout_args(dropout_p, seed)
     lib = _ext.load()
     dq = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _stream(q)
     _launch("flash_bwd_dq", lib.mx_flash_bwd_dq,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B * H, Tq, Tk,
-            D, ctypes.c_float(scale), int(causal), _DTYPE_CODE[q.dtype],
-            *drop, q.device.index or 0, stream)
+            q.shape[-1], ctypes.c_float(scale), int(causal),
+            _DTYPE_CODE[q.dtype], *drop, q.device.index or 0, stream)
     flash_bwd_dq.launches += 1
-    return dq
+    return _unpad(dq, D)
 
 
 flash_bwd_dq.launches = 0
@@ -345,60 +385,83 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
                                        scale, dropout_p, seed)
     from . import _ext
 
-    B, H, Tq, Tk, D = _bwd_args("flash_bwd_dkv", q, k, v, do, lse, delta)
+    (q, k, v, do), (B, H, Tq, Tk, D) = _bwd_args("flash_bwd_dkv", q, k, v,
+                                                 do, lse, delta)
     drop = _dropout_args(dropout_p, seed)
     lib = _ext.load()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _stream(q)
     _launch("flash_bwd_dkv", lib.mx_flash_bwd_dkv,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B * H, Tq, Tk, D, ctypes.c_float(scale), int(causal),
+            B * H, Tq, Tk, q.shape[-1], ctypes.c_float(scale), int(causal),
             _DTYPE_CODE[q.dtype], *drop, q.device.index or 0, stream)
     flash_bwd_dkv.launches += 1
-    return dk, dv
+    return _unpad(dk, D), _unpad(dv, D)
 
 
 flash_bwd_dkv.launches = 0
 
 
+def _flash_backward(ctx, do, dlse=None):
+    """(dq, dk, dv) from a forward's saved tensors: Δ = rowsum(dO∘O), less
+    the LSE's cotangent where the LSE is an output (the reference's fold:
+    ds = p·(dp − Δ) and ∂lse/∂s = p), then the dq and dk/dv kernels."""
+    q, k, v, out, lse = ctx.saved_tensors
+    causal, scale, dropout_p, seed = ctx.args
+    do = do.contiguous()   # arrives strided from the head transposes
+    delta = _delta(do, out)
+    if dlse is not None:
+        delta = delta - dlse.to(delta.dtype)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, dropout_p,
+                      seed)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
+                           dropout_p, seed)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward: the flash kernel, saving q, k, v, O and the LSE (the seed
-    rides along, so the backward regenerates the mask).  Backward: Δ, then
-    the dq and dk/dv kernels.  The LSE is an output without a gradient:
-    its cotangent belongs to ``flash_attention_lse`` (not ported yet)."""
+    """Forward: the flash kernel -> O, saving q, k, v, O and the LSE (the
+    seed rides along, so the backward regenerates the mask).  Backward: Δ,
+    then the dq and dk/dv kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
         out, lse = _flash_forward(q, k, v, causal, scale, dropout_p, seed)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mark_non_differentiable(lse)
         ctx.args = (causal, scale, dropout_p, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        return _flash_backward(ctx, do) + (None,) * 4
+
+
+class _FlashAttentionLSE(torch.autograd.Function):
+    """As ``_FlashAttention`` without dropout, returning (O, LSE) with the
+    LSE's cotangent folded into Δ."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = _flash_forward(q, k, v, causal, scale, 0.0, 0)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, 0.0, 0)
         return out, lse
 
     @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        causal, scale, dropout_p, seed = ctx.args
-        do = do.contiguous()   # arrives strided from the head transposes
-        delta = _delta(do, out)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, dropout_p,
-                          seed)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
-                               dropout_p, seed)
-        return dq, dk, dv, None, None, None, None
+    def backward(ctx, do, dlse):
+        return _flash_backward(ctx, do, dlse) + (None,) * 2
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, dropout_p=0.0,
                     seed=0):
-    """Flash attention -> ``(out, lse)``, differentiable in q, k, v.
+    """Flash attention -> ``out``, differentiable in q, k, v.
 
-    q: (B, H, Tq, D); k, v: (B, H, Tk, D); out like q; lse (B, H, Tq) fp32.
-    Tensors on the CPU take the plain versions.  CUDA tensors launch the
-    kernels: contiguous float32 or bfloat16, D a multiple of 8 and at most
-    256; anything else raises (``use_flash`` also admits a D that is no
-    multiple of 8, which raises here rather than falling back).
+    q: (B, H, Tq, D); k, v: (B, H, Tk, D); out like q.  Tensors on the CPU
+    take the plain versions.  CUDA tensors launch the kernels: contiguous
+    float32, bfloat16 or float16 with D <= 256 (a D that is no multiple of
+    8 is zero-padded for the launch); anything else raises.
     ``dropout_p`` drops attention probabilities with the mask of 64-bit
     ``seed`` (``dropout_keep_mask``).  ``flash_attention.launches`` counts
     forward kernel launches."""
@@ -407,6 +470,16 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, dropout_p=0.0,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_lse(q, k, v, causal=False, sm_scale=None):
+    """Flash attention -> ``(out, lse)``, both differentiable: ``lse``
+    (B, H, Tq) fp32 is log sum_k exp(scale * q.k), and its cotangent
+    folds into the backward as Δ − dlse (the kernels are
+    ``flash_attention``'s).  No dropout, as in the JAX package, where it
+    merges partial results of ring attention."""
+    return _FlashAttentionLSE.apply(q, k, v, bool(causal),
+                                    _scale(q, sm_scale))
 
 
 def blockwise_attention(q, k, v, causal=False, sm_scale=None, block_k=None,

@@ -3,7 +3,7 @@ layer norm, embedding, dropout, log-softmax, gathers and multi-head
 attention.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` (and ``ops/core.py`` for
-``embedding``, ``pick`` and ``take_along_axis``).  Ops are plain functions on tensors.  What the JAX package
+``embedding``, ``dot``, ``pick`` and ``take_along_axis``).  Ops are plain functions on tensors.  What the JAX package
 leaves to XLA (matrix products, elementwise chains, the dense attention
 branch) is plain PyTorch here; the flash branch runs the hand-written CUDA
 kernel through ``flash_attention``.
@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from ..base import MXNetError
 from . import flash_attention as fa
 
-__all__ = ["fully_connected", "activation", "gelu", "layer_norm",
+__all__ = ["fully_connected", "dot", "activation", "gelu", "layer_norm",
            "embedding", "dropout", "log_softmax", "pick", "take_along_axis",
            "multi_head_attention"]
 
@@ -49,12 +49,43 @@ def activation(x, act_type="relu"):
     return fn(x)
 
 
+def _amp_pair(x, weight):
+    """Mixed-precision alignment, as in the JAX package: when exactly one
+    side is bf16 (the trainer casts weights, normalisation keeps f32), the
+    product runs in bf16 with fp32 accumulation."""
+    if x.dtype != weight.dtype and torch.bfloat16 in (x.dtype, weight.dtype):
+        return x.to(torch.bfloat16), weight.to(torch.bfloat16)
+    return x, weight
+
+
+def _promote(*ts):
+    """Cast to the common type, as JAX's ``dot_general`` promotes mixed
+    operands (float32 x float16 -> float32) where ``F.linear`` would
+    raise."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
 def fully_connected(x, weight, bias=None, num_hidden=None, flatten=True,
                     no_bias=False):
-    """y = x @ W^T + b, weight layout (out, in)."""
+    """y = x @ W^T + b, weight layout (out, in).  Mixed dtypes follow the
+    JAX op: one bf16 side takes both to bf16, others promote; the bias
+    takes the product's dtype."""
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
-    return F.linear(x, weight, None if no_bias else bias)
+    x, weight = _promote(*_amp_pair(x, weight))
+    if bias is None or no_bias:
+        return F.linear(x, weight)
+    return F.linear(x, weight, bias.to(x.dtype))
+
+
+def dot(lhs, rhs):
+    """lhs @ rhs (the last axis of lhs with the first of rhs) in the
+    promoted dtype of the two, as the JAX ``dot`` op returns it."""
+    lhs, rhs = _promote(lhs, rhs)
+    return lhs @ rhs
 
 
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
@@ -129,9 +160,9 @@ def multi_head_attention(q, k, v, num_heads=1, mask=None, scale=None,
                 "impl=%r does not support an arbitrary mask (only causal=); "
                 "use impl='dense' or drop the mask" % impl)
         if impl == "pallas":
-            out, _ = fa.flash_attention(qh.contiguous(), kh.contiguous(),
-                                        vh.contiguous(), causal, scale,
-                                        dropout_p=attn_dropout, seed=seed)
+            out = fa.flash_attention(qh.contiguous(), kh.contiguous(),
+                                     vh.contiguous(), causal, scale,
+                                     dropout_p=attn_dropout, seed=seed)
         else:
             out = fa.blockwise_attention(qh, kh, vh, causal=causal,
                                          sm_scale=scale,

@@ -1,0 +1,285 @@
+"""Fused training on one card: ``FusedTrainer``.
+
+Counterpart of ``mxnet_tpu/parallel/__init__.py``'s ``FusedTrainer``,
+``make_train_step`` and their helpers, on one device.  The JAX package
+compiles forward, backward and update into one XLA program over a mesh;
+here a step is eager PyTorch: the forward and the loss under
+``autograd.record()``, ``torch.autograd.grad`` for the gradients, and one
+multi-tensor update (``parallel.optim``, ``torch._foreach_*``) over all the
+trainable parameters.
+
+Mixed precision (``dtype='bfloat16'`` or ``'float16'``): the block's own
+float32 ``Parameter``s are the master weights.  Each step makes compute
+copies in ``dtype`` of every float32 parameter except the normalisation
+ones (``contrib.amp.FP32_PARAM_SUFFIXES``), casts the floating inputs
+alike, and runs the block through ``torch.func.functional_call`` on the
+copies; the gradients reach the masters through the casts, and the update
+runs in f32.  Where a product meets operands of two dtypes, ``ops.nn``
+follows the JAX package's rules (a bf16 side takes both to bf16; f32 x
+fp16 promotes to f32), so in bf16 every dense layer and the attention run
+in bf16 while the residual stream stays f32, and in fp16 they run in f32
+on fp16-rounded weights, as in the JAX package.
+
+Not ported (they raise): ``mesh=`` and ``zero=`` (multi-device training),
+``save_checkpoint``/``load_checkpoint``, ``PipelineTrainer`` and
+``moe_apply``.  The JAX package's fault-injection site in ``step`` is
+dropped with the rest of ``resilience``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import autograd
+from ..base import MXNetError
+from ..contrib.amp import keeps_fp32
+from .optim import make_optimizer
+
+__all__ = ["FusedTrainer", "make_train_step", "make_optimizer",
+           "PipelineTrainer", "moe_apply"]
+
+_DTYPES = {None: None, "float32": None, "fp32": None,
+           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           torch.bfloat16: torch.bfloat16,
+           "float16": torch.float16, "fp16": torch.float16,
+           torch.float16: torch.float16}
+
+
+def _not_ported(what):
+    return MXNetError("parallel: %s is not ported" % what)
+
+
+class FusedTrainer:
+    """One-call training steps on one card.
+
+    Usage::
+
+        trainer = parallel.FusedTrainer(
+            net, loss_fn=loss, optimizer="adam",
+            optimizer_params={"learning_rate": 1e-4}, dtype="bfloat16")
+        loss = trainer.step(x, y)      # x, y: a tensor or a tuple of them
+
+    ``loss_fn(outputs, *labels)`` receives every output of the block as a
+    list and every label; without one, ``loss`` names a built-in loss
+    (``'softmax_ce'``, ``'l2'`` or a callable ``loss(output, label)``) on
+    the first output.  The step's loss is the mean of what the loss
+    returns.  The parameters update in place on their device."""
+
+    def __init__(self, block, loss=None, optimizer="sgd",
+                 optimizer_params=None, mesh=None, loss_fn=None,
+                 batch_axes=("dp",), dtype=None, grad_accum=1, zero=False):
+        if mesh is not None or zero:
+            raise _not_ported("multi-device training (mesh=, zero=)")
+        try:
+            self._dtype = _DTYPES[dtype]
+        except (KeyError, TypeError):
+            raise MXNetError("unsupported FusedTrainer dtype %r"
+                             % (dtype,)) from None
+        if grad_accum < 1:
+            raise MXNetError("grad_accum must be >= 1, got %r" % grad_accum)
+        self._block = block
+        self._grad_accum = int(grad_accum)
+        optimizer_params = dict(optimizer_params or {})
+        self._lr, self._lr_scheduler = _pop_lr_schedule(optimizer_params)
+        self._opt_init, self._opt_update = make_optimizer(
+            optimizer, learning_rate=self._lr, **optimizer_params)
+        self._user_loss = loss_fn is not None
+        self._loss_fn = loss_fn or _make_loss(loss)
+        self._named = None        # {name: Parameter}, set at the first step
+        self._opt_state = None
+        self._pending_state = None
+        self._step_count = 0
+
+    # -- set-up -------------------------------------------------------------
+    def _setup(self):
+        named = self._block.collect_params()
+        self._named = named
+        self._trainable = [n for n, p in named.items()
+                           if p.grad_req != "null"]
+        self._cast = {n for n, p in named.items()
+                      if self._dtype is not None
+                      and p.dtype == torch.float32 and not keeps_fp32(n)}
+        with torch.no_grad():
+            self._opt_state = self._opt_init(self._masters())
+        if self._pending_state is not None:
+            state, self._pending_state = self._pending_state, None
+            self._apply_state(state)
+
+    def _masters(self):
+        return [self._named[n] for n in self._trainable]
+
+    def _device(self):
+        return next(iter(self._named.values())).device
+
+    # -- one step -----------------------------------------------------------
+    def _forward_loss(self, xs, ys):
+        """The mean loss of one (micro)batch, recorded for autograd."""
+        with autograd.record():
+            if self._dtype is None:
+                outs = self._block(*xs)
+            else:
+                dt = self._dtype
+                copies = {n: (p.to(dt) if n in self._cast else p)
+                          for n, p in self._named.items()}
+                xs = tuple(x.to(dt) if x.is_floating_point() else x
+                           for x in xs)
+                outs = torch.func.functional_call(self._block, copies, xs)
+            outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+            if self._user_loss:
+                loss = self._loss_fn(outs, *ys)
+            else:
+                if len(ys) > 1:
+                    raise MXNetError(
+                        "built-in losses take ONE label array; pass a "
+                        "custom loss_fn(outputs, *labels) for multi-label "
+                        "training (got %d label arrays)" % len(ys))
+                loss = self._loss_fn(outs[0], ys[0])
+            return loss.mean()
+
+    def _loss_and_grads(self, xs, ys):
+        masters = self._masters()
+        loss = self._forward_loss(xs, ys)
+        grads = torch.autograd.grad(loss, masters, allow_unused=True)
+        # a parameter the loss does not reach: a zero gradient, as JAX's
+        return loss.detach(), [g if g is not None else torch.zeros_like(p)
+                               for g, p in zip(grads, masters)]
+
+    def step(self, x, y):
+        """One training step: forward, loss, gradients (over
+        ``grad_accum`` microbatches) and the update.  ``x``/``y`` may each
+        be one tensor (or array) or a tuple; every leading dim is the
+        batch.  Returns the loss, a 0-d tensor."""
+        if self._named is None:
+            self._setup()
+        device = self._device()
+
+        def as_tensor(v):
+            return torch.as_tensor(v, device=device)
+
+        xs = tuple(map(as_tensor, x)) if isinstance(x, (tuple, list)) \
+            else (as_tensor(x),)
+        ys = tuple(map(as_tensor, y)) if isinstance(y, (tuple, list)) \
+            else (as_tensor(y),)
+        k = self._grad_accum
+        if k == 1:
+            loss, grads = self._loss_and_grads(xs, ys)
+        else:
+            n = xs[0].shape[0]
+            if n % k:
+                raise MXNetError("batch size %d not divisible by "
+                                 "grad_accum=%d" % (n, k))
+            mb = n // k
+            loss, grads = 0.0, None
+            for i in range(k):
+                part = slice(i * mb, (i + 1) * mb)
+                li, gi = self._loss_and_grads(
+                    tuple(v[part] for v in xs), tuple(v[part] for v in ys))
+                loss = loss + li
+                if grads is None:
+                    grads = gi
+                else:
+                    torch._foreach_add_(grads, gi)
+            loss = loss / k
+            torch._foreach_div_(grads, float(k))
+        # the reference's update count starts at 1 (optimizer.py:100)
+        lr = (self._lr_scheduler(self._step_count + 1)
+              if self._lr_scheduler is not None else self._lr)
+        self._opt_update(self._step_count, self._masters(), grads,
+                         self._opt_state, lr)
+        self._step_count += 1
+        return loss
+
+    # -- state --------------------------------------------------------------
+    def sync_block(self):
+        """Write the trained weights back into the block.  The block's own
+        parameters are the master weights here, updated in place each
+        step, so there is nothing to write."""
+
+    @property
+    def params(self):
+        """{name: tensor} of the block's weights (None before the first
+        step, as in the JAX package)."""
+        if self._named is None:
+            return None
+        return {n: p.detach() for n, p in self._named.items()}
+
+    def state_dict(self):
+        """Parameters, optimizer state and step count, copied in memory
+        (None before the first step)."""
+        if self._named is None:
+            return None
+        return {"params": {n: p.detach().clone()
+                           for n, p in self._named.items()},
+                "opt_state": {k: [t.clone() for t in v]
+                              for k, v in self._opt_state.items()},
+                "step": self._step_count}
+
+    def load_state_dict(self, state):
+        """Restore a ``state_dict``.  Before the first step the state is
+        kept and applied once the trainer is set up, so the set-up's fresh
+        optimizer state does not overwrite it."""
+        if self._named is None:
+            self._pending_state = state
+            return
+        self._apply_state(state)
+
+    def _apply_state(self, state):
+        with torch.no_grad():
+            for n, v in state["params"].items():
+                self._named[n].copy_(v)
+            for k, ts in state["opt_state"].items():
+                for dst, src in zip(self._opt_state[k], ts):
+                    dst.copy_(src)
+        self._step_count = int(state["step"])
+
+    def save_checkpoint(self, root, step=None, block=True, manager=None,
+                        **manager_kwargs):
+        raise _not_ported("FusedTrainer.save_checkpoint (mx.checkpoint)")
+
+    def load_checkpoint(self, root, step=None, manager=None):
+        raise _not_ported("FusedTrainer.load_checkpoint (mx.checkpoint)")
+
+
+def _pop_lr_schedule(optimizer_params):
+    """(lr, scheduler) out of ``optimizer_params``.  As in the reference
+    optimizer (optimizer.py:65), an explicit ``learning_rate`` re-bases the
+    scheduler; a defaulted one leaves the scheduler's own base_lr."""
+    explicit = "learning_rate" in optimizer_params
+    lr = optimizer_params.pop("learning_rate", 0.01)
+    scheduler = optimizer_params.pop("lr_scheduler", None)
+    if scheduler is not None and explicit and hasattr(scheduler, "base_lr"):
+        scheduler.base_lr = lr
+    return lr, scheduler
+
+
+def _make_loss(loss):
+    """A built-in loss ``fn(pred, label)`` per example, computed in f32
+    whatever the compute dtype."""
+    if loss in (None, "softmax_ce", "softmax_cross_entropy"):
+        def fn(pred, label):
+            logp = torch.log_softmax(pred.float(), dim=-1)
+            return -torch.gather(logp, -1,
+                                 label.long().unsqueeze(-1)).squeeze(-1)
+
+        return fn
+    if loss == "l2":
+        return lambda pred, label: 0.5 * torch.square(pred.float()
+                                                      - label.float())
+    if callable(loss):
+        return loss
+    raise MXNetError("unknown fused loss %r" % (loss,))
+
+
+def make_train_step(block, loss="softmax_ce", optimizer="sgd",
+                    optimizer_params=None, mesh=None, **kwargs):
+    return FusedTrainer(block, loss=loss, optimizer=optimizer,
+                        optimizer_params=optimizer_params, mesh=mesh,
+                        **kwargs)
+
+
+def PipelineTrainer(*args, **kwargs):  # noqa: N802 (the JAX class's name)
+    raise _not_ported("PipelineTrainer (pipeline parallelism)")
+
+
+def moe_apply(*args, **kwargs):
+    raise _not_ported("moe_apply (expert parallelism)")
+

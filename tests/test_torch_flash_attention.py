@@ -35,9 +35,12 @@ def test_flash_attention_matches_pallas(T, causal, D):
         jq, jk, jv, causal=causal, block_q=64, block_k=64)
 
     launches = fa.flash_attention.launches
-    out, lse = fa.flash_attention(*map(torch.from_numpy, (q, k, v)), causal)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, causal)
+    out_lse, lse = fa.flash_attention_lse(tq, tk, tv, causal)
     assert fa.flash_attention.launches == launches  # CPU: no kernel launch
     assert out.dtype == torch.float32 and lse.shape == (B, H, T)
+    torch.testing.assert_close(out_lse, out, rtol=0, atol=0)
     np.testing.assert_allclose(out.numpy(), np.asarray(want_out), rtol=0,
                                atol=ATOL)
     np.testing.assert_allclose(out.numpy(), np.asarray(want_out_lse),
@@ -71,7 +74,8 @@ def test_dropout_is_refused_until_the_training_slice():
     # (dropout_keep_mask), and the LSE stays undropped
     q, k, v = map(torch.from_numpy, _inputs(128, 32))
     p, seed = 0.1, 77
-    out, lse = fa.flash_attention(q, k, v, dropout_p=p, seed=seed)
+    out = fa.flash_attention(q, k, v, dropout_p=p, seed=seed)
+    _, lse = fa.flash_attention_reference(q, k, v, dropout_p=p, seed=seed)
     keep = fa.dropout_keep_mask(seed, B * H, 128, 128, p)
     s = q @ k.transpose(-1, -2) / 32 ** 0.5
     w = torch.softmax(s, -1) * keep.reshape(s.shape) / (1 - p)

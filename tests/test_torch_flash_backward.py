@@ -51,7 +51,7 @@ def test_backward_matches_pallas(T, causal, D):
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
     launches = (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
                 fa.flash_bwd_dkv.launches)
-    fa.flash_attention(*leaves, causal)[0].backward(tdo)
+    fa.flash_attention(*leaves, causal).backward(tdo)
     assert (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
             fa.flash_bwd_dkv.launches) == launches   # CPU: no kernel
     for leaf, ref in zip(leaves, plain):
@@ -67,7 +67,7 @@ def test_dropout_gradcheck(causal):
 
     def f(a, b, c):
         return fa.flash_attention(a, b, c, causal, dropout_p=0.3,
-                                  seed=987654321)[0]
+                                  seed=987654321)
 
     assert torch.autograd.gradcheck(f, (q, k, v), eps=1e-6, atol=1e-6)
 
@@ -88,10 +88,12 @@ def test_dropout_output_equals_dense_oracle(causal):
     q, k, v = map(torch.from_numpy, _inputs(200, 32, seed=5, n=3))
     seed, p = 2 ** 40 + 7, 0.2
     want = _dense_dropout(q, k, v, causal, p, seed)
-    out, lse = fa.flash_attention(q, k, v, causal, dropout_p=p, seed=seed)
+    out = fa.flash_attention(q, k, v, causal, dropout_p=p, seed=seed)
     torch.testing.assert_close(out, want, rtol=0, atol=ATOL)
     # the LSE stays undropped
-    _, lse0 = fa.flash_attention(q, k, v, causal)
+    _, lse = fa.flash_attention_reference(q, k, v, causal, dropout_p=p,
+                                          seed=seed)
+    _, lse0 = fa.flash_attention_lse(q, k, v, causal)
     torch.testing.assert_close(lse, lse0, rtol=0, atol=0)
     # the mask does not depend on the tile size: blockwise at two block
     # sizes takes the same mask as the dense oracle
@@ -131,8 +133,8 @@ def test_dropout_mask_is_deterministic_and_seeded():
             assert not torch.equal(masks[i], masks[j])
     # and the outputs differ with the mask
     q, k, v = map(torch.from_numpy, _inputs(128, 32, n=3))
-    o1 = fa.flash_attention(q, k, v, dropout_p=0.3, seed=1)[0]
-    o2 = fa.flash_attention(q, k, v, dropout_p=0.3, seed=2)[0]
+    o1 = fa.flash_attention(q, k, v, dropout_p=0.3, seed=1)
+    o2 = fa.flash_attention(q, k, v, dropout_p=0.3, seed=2)
     assert not torch.allclose(o1, o2)
 
 
@@ -171,3 +173,85 @@ def test_mask_hash_matches_reference_values():
     got = fa._keep_bits(seed, torch.tensor([bh]), torch.tensor([row]),
                         torch.tensor([col]))
     assert int(got) == want
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_lse_gradient_matches_pallas(causal):
+    """``flash_attention_lse``'s LSE carries its gradient: a loss of
+    out.sum() + lse.sum() against ``jax.grad`` of the same loss through
+    the JAX package's ``flash_attention_lse`` (its Δ − dlse fold), fp32,
+    atol 1e-5."""
+    q, k, v = _inputs(200, 32, seed=11, n=3)
+
+    def loss(a, b, c):
+        out, lse = pa.flash_attention_lse(a, b, c, causal=causal,
+                                          block_q=64, block_k=64)
+        return out.sum() + lse.sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    out, lse = fa.flash_attention_lse(*leaves, causal)
+    (out.sum() + lse.sum()).backward()
+    for leaf, ref in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref),
+                                   rtol=0, atol=ATOL)
+    # the LSE term is really there: without it the gradient differs
+    plain = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*plain, causal).sum().backward()
+    assert not torch.allclose(plain[0].grad, leaves[0].grad, atol=1e-3)
+
+
+@pytest.mark.parametrize("D", [36, 100])
+def test_head_dim_padding_is_exact(D):
+    """The wrappers' zero-padding of D to a multiple of 8 (what the
+    kernels get for a ragged D): the plain versions on the padded inputs,
+    with the scale of the true D and sliced back, against the plain
+    versions on the unpadded ones, fp32, within 1e-6 x max(1, max|ref|)
+    (the padded rows are summed in another order)."""
+    q, k, v, do = map(torch.from_numpy, _inputs(130, D, seed=D))
+    scale = 1.0 / D ** 0.5
+    pq, pk, pv, pdo = fa._pad_head_dim(q, k, v, do)
+    assert pq.shape[-1] == D + (-D % 8) and not pq[..., D:].any()
+    out, lse = fa.flash_attention_reference(q, k, v, True)
+    pout, plse = fa.flash_attention_reference(pq, pk, pv, True, scale)
+    def close(got, ref):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-6 * max(
+            1.0, ref.abs().max().item()))
+
+    close(fa._unpad(pout, D), out)
+    close(plse, lse)
+    assert not pout[..., D:].any()
+    delta = fa._delta(do, out)
+    close(fa._delta(pdo, pout), delta)
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, do,
+                                                 True, None, 0.1, 5)
+    dq = fa.flash_bwd_dq_reference(pq, pk, pv, pdo, plse, delta, True,
+                                   scale, 0.1, 5)
+    dk, dv = fa.flash_bwd_dkv_reference(pq, pk, pv, pdo, plse, delta, True,
+                                        scale, 0.1, 5)
+    for got, ref in zip((dq, dk, dv), want):
+        close(fa._unpad(got, D), ref)
+
+
+def test_fp16_ragged_head_dim_matches_pallas():
+    """float16 at D=36: the port's flash attention (its plain versions on
+    the CPU) against the Pallas kernels in interpret mode, forward and
+    ``jax.vjp``.  Both compute in fp32 from the same fp16 inputs and round
+    their outputs to fp16 (2^-11 relative): out within 2e-3, dq/dk/dv
+    within 2e-3 x max(1, max|ref|)."""
+    q, k, v, do = _inputs(200, 36, seed=36, dtype=np.float16)
+    out, vjp = jax.vjp(lambda a, b, c: pa.flash_attention(
+        a, b, c, causal=True, block_q=64, block_k=64),
+        *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    assert out.dtype == jnp.float16
+    leaves = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    got = fa.flash_attention(*leaves, True)
+    assert got.dtype == torch.float16
+    got.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(out, np.float32), rtol=0, atol=2e-3)
+    for leaf, ref in zip(leaves, want):
+        ref = np.asarray(ref, np.float32)
+        np.testing.assert_allclose(leaf.grad.float().numpy(), ref, rtol=0,
+                                   atol=2e-3 * max(1.0, np.abs(ref).max()))

@@ -68,7 +68,8 @@ def emulate_forward(q, k, v, route, causal=False, keep=None, p=0.0,
     """The kernel's forward on fp32 numpy (BH, T, D) arrays -> (O, LSE):
     64-key tiles, scale applied to S in fp32 after the product, top-left
     causal mask, online softmax in exp2 with an undropped denominator,
-    dropout ``keep`` (bool (BH, Tq, Tk)) on P before P·V."""
+    dropout ``keep`` (bool (BH, Tq, Tk)) on P before P·V and 1 / (1 - p)
+    on O at the end."""
     BH, Tq, D = q.shape
     Tk = k.shape[1]
     scale_log2 = np.float32(1.0 / np.sqrt(D)) * LOG2E
@@ -87,12 +88,12 @@ def emulate_forward(q, k, v, route, causal=False, keep=None, p=0.0,
         corr = np.exp2(m - m_new)
         l = l * corr + pt.sum(-1)
         if keep is not None:
-            pt = np.where(keep[:, :, k0:k0 + block_k],
-                          pt * np.float32(1.0 / (1.0 - p)), np.float32(0))
+            pt = np.where(keep[:, :, k0:k0 + block_k], pt, np.float32(0))
         acc = acc * corr[..., None] + product(pt, vb, route)
         m = m_new
     l = np.maximum(l, np.float32(1e-30))
-    return acc / l[..., None], m * LN2 + np.log(l)
+    inv = np.float32(1.0 / (1.0 - p)) if keep is not None else np.float32(1)
+    return acc * (inv / l)[..., None], m * LN2 + np.log(l)
 
 
 def emulate_backward(q, k, v, do, lse, delta, route, causal=False,
@@ -102,9 +103,10 @@ def emulate_backward(q, k, v, do, lse, delta, route, causal=False,
 
     dq kernel: 64-key tiles of S = Q·Kᵀ and dP = dO·Vᵀ, P = exp2(S·scale·
     log2(e) − lse·log2(e)), dS = P∘(m·dP − Δ), dQ += dS·K, scaled at the
-    end.  dk/dv kernel: 64-query tiles of the same terms, dV += (P∘m)ᵀ·dO
-    and dK += dSᵀ·Q, dK scaled at the end.  ``keep`` (bool (BH, Tq, Tk))
-    is the dropout mask, m = keep / (1 - p)."""
+    end.  dk/dv kernel: 64-query tiles of the same terms, dV += (P∘keep)ᵀ
+    ·dO, scaled by 1 / (1 - p) at the end, and dK += dSᵀ·Q, dK scaled at
+    the end.  ``keep`` (bool (BH, Tq, Tk)) is the dropout mask, m = keep /
+    (1 - p)."""
     BH, Tq, D = q.shape
     Tk = k.shape[1]
     scale = np.float32(1.0 / np.sqrt(D))
@@ -113,18 +115,19 @@ def emulate_backward(q, k, v, do, lse, delta, route, causal=False,
     inv = np.float32(1.0 / (1.0 - p))
 
     def terms(r0, r1, c0, c1):
-        """(P∘m, dS) of queries r0:r1 against keys c0:c1."""
+        """(P∘keep, dS) of queries r0:r1 against keys c0:c1."""
         s = product(q[:, r0:r1], k[:, c0:c1].transpose(0, 2, 1), route)
         if causal:
             above = np.arange(c0, c1)[None, :] > np.arange(r0, r1)[:, None]
             s = np.where(above, NEG_INF, s)
         pt = np.exp2(s * (scale * LOG2E) - lse2[:, r0:r1])
         dp = product(do[:, r0:r1], v[:, c0:c1].transpose(0, 2, 1), route)
-        pm = pt
+        pk = pt
         if keep is not None:
-            m = np.where(keep[:, r0:r1, c0:c1], inv, np.float32(0))
-            pm, dp = pt * m, dp * m
-        return pm, pt * (dp - dl[:, r0:r1])
+            kept = keep[:, r0:r1, c0:c1]
+            pk = np.where(kept, pt, np.float32(0))
+            dp = np.where(kept, dp * inv, np.float32(0))
+        return pk, pt * (dp - dl[:, r0:r1])
 
     dq = np.zeros_like(q)
     for c0 in range(0, Tk, block):
@@ -133,10 +136,10 @@ def emulate_backward(q, k, v, do, lse, delta, route, causal=False,
     dk, dv = np.zeros_like(k), np.zeros_like(v)
     for r0 in range(0, Tq, block):
         r1 = min(r0 + block, Tq)
-        pm, ds = terms(r0, r1, 0, Tk)
-        dv += product(pm.transpose(0, 2, 1), do[:, r0:r1], route)
+        pk, ds = terms(r0, r1, 0, Tk)
+        dv += product(pk.transpose(0, 2, 1), do[:, r0:r1], route)
         dk += product(ds.transpose(0, 2, 1), q[:, r0:r1], route)
-    return dq * scale, dk * scale, dv
+    return dq * scale, dk * scale, dv * (inv if keep is not None else 1)
 
 
 def backward64(q, k, v, do, causal=False):

@@ -6,6 +6,7 @@
   there is none; a tensor that is not on the CPU never reaches a kernel's
   plain version.
 """
+import ctypes
 import json
 import os
 import re
@@ -22,6 +23,7 @@ from mxnet_tpu_torch import MXNetError, serve, trace
 from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.ops import _ext
 from mxnet_tpu_torch.ops import flash_attention as fa
+from mxnet_tpu_torch.ops import nn as ops_nn
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "mxnet_tpu_torch"
@@ -134,6 +136,104 @@ def test_misaligned_input_is_refused_before_any_launch(monkeypatch,
     with pytest.raises(MXNetError, match="16-byte boundary"):
         fa.flash_attention(*qkv)
     assert fa.flash_attention.launches == launches
+
+
+_DTYPE_OF_CODE = {0: torch.float32, 1: torch.bfloat16, 2: torch.float16}
+
+
+def _host_view(ptr, shape, dtype):
+    """The memory at a data pointer as a writable tensor (CPU memory)."""
+    n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    buf = (ctypes.c_char * n).from_address(ptr)
+    return torch.frombuffer(buf, dtype=dtype).reshape(shape)
+
+
+class _HostKernels:
+    """Stands in for the kernel library: each entry point reads its inputs
+    through the pointers it is given (CPU memory here), runs the plain
+    version at the head dim it was launched with, writes its outputs and
+    records the launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _in(self, ptrs, bh, Tq, Tk, D, code, tk_rows):
+        dt = _DTYPE_OF_CODE[code]
+        return [_host_view(p, (1, bh, Tk if k else Tq, D), dt)
+                for p, k in zip(ptrs, tk_rows)]
+
+    def mx_flash_fwd(self, q, k, v, o, lse, bh, Tq, Tk, D, scale, causal,
+                     code, *rest):
+        self.calls.append(("fwd", D, code))
+        q, k, v, o = self._in((q, k, v, o), bh, Tq, Tk, D, code,
+                              (0, 1, 1, 0))
+        out, l = fa.flash_attention_reference(q, k, v, causal, scale.value)
+        o.copy_(out)
+        _host_view(lse, (1, bh, Tq), torch.float32).copy_(l)
+        return 0
+
+    def _bwd(self, name, ptrs, outs, bh, Tq, Tk, D, scale, causal, code):
+        self.calls.append((name, D, code))
+        q, k, v, do = self._in(ptrs[:4], bh, Tq, Tk, D, code, (0, 1, 1, 0))
+        lse, delta = (_host_view(p, (1, bh, Tq), torch.float32)
+                      for p in ptrs[4:])
+        ref = getattr(fa, name + "_reference")(q, k, v, do, lse, delta,
+                                               causal, scale.value)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for dst, r, k_rows in zip(outs, ref, (name == "flash_bwd_dkv",) * 2):
+            self._in((dst,), bh, Tq, Tk, D, code, (k_rows,))[0].copy_(r)
+        return 0
+
+    def mx_flash_bwd_dq(self, q, k, v, do, lse, delta, dq, bh, Tq, Tk, D,
+                        scale, causal, code, *rest):
+        return self._bwd("flash_bwd_dq", (q, k, v, do, lse, delta), (dq,),
+                         bh, Tq, Tk, D, scale, causal, code)
+
+    def mx_flash_bwd_dkv(self, q, k, v, do, lse, delta, dk, dv, bh, Tq, Tk,
+                         D, scale, causal, code, *rest):
+        return self._bwd("flash_bwd_dkv", (q, k, v, do, lse, delta),
+                         (dk, dv), bh, Tq, Tk, D, scale, causal, code)
+
+
+@pytest.mark.parametrize("dtype,D", [("float16", 32), ("float32", 36),
+                                     ("float16", 36), ("bfloat16", 100)])
+def test_fp16_and_ragged_head_dim_reach_the_kernel(monkeypatch, dtype, D):
+    """What ``impl='auto'`` sends to the kernels beyond f32/bf16 at D % 8
+    == 0 (float16, or a D that is no multiple of 8, as the JAX package's
+    ``use_flash`` admits) launches them and gives the result: the wrapper
+    zero-pads D to the next multiple of 8, passes dtype code 2 for float16,
+    and slices the outputs back.  The kernel library is stood in for by
+    the plain versions on host memory (``_HostKernels``), with the CUDA-only
+    checks and the stream lookup lifted; the result must match the dense
+    attention within 1e-5 (f32) or 2e-3 / 2e-2 (fp16 / bf16 rounding of
+    values below 1, plus the input's own rounding)."""
+    lib = _HostKernels()
+    monkeypatch.setattr(_ext, "load", lambda: lib)
+    monkeypatch.setattr(fa, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(fa, "_check_device", lambda name, ts: None)
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    dt = getattr(torch, dtype)
+    rs = np.random.RandomState(D)
+    Bn, T, Hn = 1, 256, 2
+    q, k, v, do = (torch.from_numpy(rs.randn(Bn, T, Hn * D)
+                                    .astype(np.float32)).to(dt)
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops_nn.multi_head_attention(*leaves, num_heads=Hn, impl="auto")
+    out.backward(do)
+    code = {"float32": 0, "bfloat16": 1, "float16": 2}[dtype]
+    padded = D + (-D % 8)
+    assert lib.calls == [("fwd", padded, code), ("flash_bwd_dq", padded, code),
+                         ("flash_bwd_dkv", padded, code)]
+    dense = [t.clone().float().requires_grad_() for t in (q, k, v)]
+    want = ops_nn.multi_head_attention(*dense, num_heads=Hn, impl="dense")
+    want.backward(do.float())
+    tol = {"float32": 1e-5, "float16": 2e-3, "bfloat16": 2e-2}[dtype]
+    assert out.dtype == dt and out.shape == want.shape
+    for got, ref in zip([out] + [t.grad for t in leaves],
+                        [want] + [t.grad for t in dense]):
+        torch.testing.assert_close(got.float(), ref.detach(), rtol=0,
+                                   atol=tol * max(1.0, ref.abs().max().item()))
 
 
 @pytest.mark.parametrize("which", [0, 1, 2, 3], ids=["q", "k", "v", "dO"])
