@@ -40,6 +40,31 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    forward, dq and dk/dv kernels each launch exactly 12 x 10 times; one
    step's parameter gradients at B=1 with dropout off match the same model
    on the CPU within 1e-3*max(1, max|g|).
+6. train_bf16 -- the JAX package's BERT recipe (``bench.py``
+   ``_bench_bert``): full-width BERT-base pretraining through
+   ``parallel.FusedTrainer(dtype='bfloat16')`` with Adam at lr 1e-4, B=16,
+   T=512, dropout 0.1: 3 warm-up and 10 timed steps.  The three kernels
+   see bf16 and launch exactly 12 x 10 times, the loss falls, the masters
+   stay float32; prints tokens/s, MFU, the foreach update's device time
+   against its bytes bound, a ``torch.profiler`` split of two steps with
+   the device's idle share, peak memory, and three fp16 steps of a
+   2-layer model.
+7. train_resnet -- the JAX package's ResNet recipe (``bench.py``
+   ``_bench_resnet``): full-width ResNet-50 v1 (1000 classes, 3x224x224)
+   through ``parallel.FusedTrainer(dtype='bfloat16')`` with SGD at lr 0.05
+   and momentum 0.9, B=128, one synthetic batch: 3 warm-up and 20 timed
+   steps.  Every loss is finite and the last below the first, the
+   running means and variances move and stay finite, the flash kernels
+   launch 0 times; prints img/s, the step median and range, the first
+   (cuDNN tuning) step, MFU from the FLOPs counted off the port's conv
+   and dense shapes (7.72 GFLOP an image forward, x3 for training) against
+   989 TFLOP/s, peak memory, the SGD update's device time against its
+   bytes bound, a ``torch.profiler`` split of two steps (conv forward,
+   conv backward, batch norm, element-wise, foreach update, the rest) with
+   the idle share, the step in NCHW and in channels-last memory format,
+   the fp32 recipe (TF32 off, 3 + 10 steps), and one fp32 step's
+   gradients and new running statistics at B=2 against the same model on
+   the CPU within 1e-3*max(1, max|g|).
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -843,11 +868,12 @@ def _kernel_class(name):
     return "other"
 
 
-def profile_split(torch, fn, steps):
+def profile_split(torch, fn, steps, classify=_kernel_class):
     """Device time of ``steps`` calls of ``fn`` (each ending in a
     synchronize) under ``torch.profiler`` tracing the card only, split by
-    kernel class (GEMMs, each flash kernel, the foreach update, the rest),
-    and the device's idle share: 1 - the union of device activity over
+    kernel class (``classify``: by default GEMMs, each flash kernel, the
+    foreach update, the rest; the largest kernels of the catch-all and
+    element-wise classes by name), and the device's idle share: 1 - the union of device activity over
     the calls' wall time (host clock).  Tracing the host too would stretch
     the wall time with the profiler's own work.  None where the profiler
     sees no device activity."""
@@ -874,9 +900,9 @@ def profile_split(torch, fn, steps):
         return dict(out, split_ms=None, idle_share=None)
     split, other = {}, {}
     for t0, t1, name in dev:
-        cls = _kernel_class(name)
+        cls = classify(name)
         split[cls] = split.get(cls, 0.0) + (t1 - t0) / 1e3 / steps
-        if cls == "other":
+        if cls in ("other", "rest", "elementwise"):
             other[name] = other.get(name, 0.0) + (t1 - t0) / 1e3 / steps
     busy, end = 0.0, dev[0][0]
     for t0, t1, _ in dev:          # the union of the device intervals
@@ -1050,6 +1076,255 @@ def _fused_fp16_steps(torch, mx, bert, seed):
     return losses
 
 
+def _resnet_kernel_class(name):
+    """The ResNet step's kernel classes: cuDNN's conv forward (fprop) and
+    backward (dgrad, wgrad), batch norm, the foreach update, element-wise
+    kernels, and the rest (the dense layer's GEMM, reductions, layout
+    transforms)."""
+    low = name.lower()
+    if "dgrad" in low or "wgrad" in low or ("conv" in low and "bwd" in low):
+        return "conv_backward"
+    if "fprop" in low or "conv" in low or "implicit" in low:
+        return "conv_forward"
+    if "batch_norm" in low or "bn_fw" in low or "bn_bw" in low:
+        return "batch_norm"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "foreach_update"
+    if "elementwise" in low:
+        return "elementwise"
+    return "rest"
+
+
+def resnet_params(block, seed):
+    """ResNet init from numpy: He-normal conv weights, a normal(0, 0.01)
+    dense weight, zero biases and beta, running mean 0, running variance
+    and gamma 1, except the gamma of each bottleneck's last BatchNorm: 0,
+    so every block starts as its shortcut (Goyal et al. 2017) and the
+    recipe's lr 0.05 does not blow the residual stream up in the first
+    steps."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in block.collect_params().items():
+        shape = tuple(p.shape)
+        leaf = name.rsplit(".", 1)[-1]
+        if name.endswith("body.7.gamma"):
+            out[name] = np.zeros(shape, np.float32)
+        elif leaf in ("gamma", "running_var"):
+            out[name] = np.ones(shape, np.float32)
+        elif leaf in ("beta", "bias", "running_mean"):
+            out[name] = np.zeros(shape, np.float32)
+        else:
+            std = (0.01 if len(shape) == 2
+                   else np.sqrt(2.0 / np.prod(shape[1:])))
+            out[name] = rng.standard_normal(shape, dtype=np.float32) * std
+    return out
+
+
+def resnet_fwd_counts(torch, mx, net, hw, device):
+    """(forward FLOPs, BatchNorm input elements) of one hw x hw image: 2 x
+    the multiply-adds of every conv and dense layer, and the elements
+    every BatchNorm normalises, read off the shapes each layer sees."""
+    from mxnet_tpu_torch.gluon.nn.basic_layers import BatchNorm, Dense
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
+
+    flops, bn = [0], [0]
+
+    def mac_hook(mod, inputs, out):
+        flops[0] += 2 * out.numel() * int(np.prod(mod.weight.shape[1:]))
+
+    def bn_hook(mod, inputs, out):
+        bn[0] += out.numel()
+
+    hooks = [m.register_forward_hook(bn_hook if isinstance(m, BatchNorm)
+                                     else mac_hook)
+             for m in net.modules() if isinstance(m, (_Conv, Dense,
+                                                      BatchNorm))]
+    try:
+        with mx.autograd.pause():
+            net(torch.zeros(1, 3, hw, hw, device=device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return flops[0], bn[0]
+
+
+def _resnet50(torch, mx, vision, seed, ctx=None):
+    """Full ResNet-50 v1 built with deferred shapes, initialized on ``ctx``
+    (the card by default), shaped by one 32x32 probe outside autograd, and
+    given ``resnet_params`` weights by name."""
+    net = vision.resnet50_v1()
+    net.initialize(ctx=ctx)
+    with mx.autograd.pause():
+        net(torch.zeros(1, 3, 32, 32, device=mx.context.device_of(ctx)))
+    mx.convert.load_jax_params(net, resnet_params(net, seed))
+    return net
+
+
+def _timed_steps(torch, trainer, x, y, warm, steps):
+    """(first step ms, warm-up losses, timed losses, step ms): each step
+    on the host clock, ending in the loss's ``.item()``."""
+    def one():
+        t0 = time.perf_counter()
+        loss = trainer.step(x, y).item()
+        return loss, (time.perf_counter() - t0) * 1e3
+
+    first_loss, first_ms = one()
+    warm_losses = [first_loss] + [one()[0] for _ in range(warm - 1)]
+    timed = [one() for _ in range(steps)]
+    return first_ms, warm_losses, [l for l, _ in timed], [ms for _, ms in timed]
+
+
+def phase_train_resnet(torch, mx, fa, seed, smi):
+    """The JAX package's ResNet recipe (``bench.py`` ``_bench_resnet``):
+    full-width ResNet-50 v1 through ``parallel.FusedTrainer`` in bf16 at
+    B=128, then the fp32 recipe, the NCHW / channels-last comparison, and
+    one fp32 step at B=2 against the CPU."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    B, hw, classes, warm, steps, prof_steps = 128, 224, 1000, 3, 20, 2
+    opt = {"learning_rate": 0.05, "momentum": 0.9}
+    t0 = time.perf_counter()
+    net = _resnet50(torch, mx, vision, seed)
+    flops_img, bn_img = resnet_fwd_counts(torch, mx, net, hw, "cuda")
+    flops = 3 * flops_img * B
+    rng = np.random.default_rng(seed + 5)
+    x = torch.from_numpy(rng.random((B, 3, hw, hw), np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, classes, B)).cuda()
+    trainer = mx.parallel.FusedTrainer(
+        net, loss="softmax_ce", optimizer="sgd", optimizer_params=opt,
+        dtype="bfloat16")
+    t_build = time.perf_counter() - t0
+
+    counters = [getattr(fa, n) for n in ("flash_attention", "flash_bwd_dq",
+                                         "flash_bwd_dkv")]
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first_ms, losses, timed, step_ms = _timed_steps(
+        torch, trainer, x, y, warm, steps)
+    losses += timed
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail("nonfinite ResNet-50 bf16 loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        fail("ResNet-50 bf16 loss did not fall: %s" % losses)
+    if any(launches.values()):
+        fail("the ResNet step launched flash kernels: %s" % launches)
+    params = net.collect_params()
+    means = [p for n, p in params.items() if n.endswith("running_mean")]
+    variances = [p for n, p in params.items() if n.endswith("running_var")]
+    moved_mean = float(min(m.abs().max() for m in means))
+    moved_var = float(min((v - 1).abs().max() for v in variances))
+    if not (moved_mean > 0 and moved_var > 0 and all(
+            torch.isfinite(t).all() for t in means + variances)):
+        fail("running statistics did not move or are not finite")
+    masters = {p.dtype for p in params.values()}
+    if masters != {torch.float32}:
+        fail("master weights are not float32: %s" % masters)
+
+    med = float(np.median(step_ms))
+    split = profile_split(torch, lambda: trainer.step(x, y), prof_steps,
+                          _resnet_kernel_class)
+    _, grads = trainer._loss_and_grads((x,), (y,))
+    masters = trainer._masters()
+    update_ms = cuda_ms(lambda: trainer._opt_update(
+        trainer._step_count, masters, grads, trainer._opt_state, 0.05), 5)
+    n_params = sum(p.numel() for p in masters)
+
+    # the two memory formats of the conv path, in one process: each
+    # format's first step (cuDNN tunes its algorithms there) apart
+    layouts, adopted = {}, ops_nn._CUDA_CONV_FORMAT
+    for name, fmt in (("nchw", None), ("channels_last", torch.channels_last),
+                      ("nchw_again", None)):
+        ops_nn._CUDA_CONV_FORMAT = fmt
+        try:
+            f_ms, _, l_timed, l_ms = _timed_steps(torch, trainer, x, y, 3, 10)
+        finally:
+            ops_nn._CUDA_CONV_FORMAT = adopted
+        layouts[name] = {"first_step_ms": f_ms, "step_ms": l_ms,
+                         "step_ms_median": float(np.median(l_ms)),
+                         "img_per_s": B / (float(np.median(l_ms)) / 1e3),
+                         "losses_finite": bool(np.all(np.isfinite(l_timed)))}
+    del trainer, grads, masters
+    torch.cuda.empty_cache()
+
+    # the fp32 recipe (bench.py:1375), TF32 off as the other fp32 phases
+    net32 = _resnet50(torch, mx, vision, seed)
+    tr32 = mx.parallel.FusedTrainer(net32, loss="softmax_ce",
+                                    optimizer="sgd", optimizer_params=opt)
+    f32_first, f32_warm, f32_timed, f32_ms = _timed_steps(
+        torch, tr32, x, y, 3, 10)
+    f32_losses = f32_warm + f32_timed
+    if not (all(np.isfinite(f32_losses)) and f32_losses[-1] < f32_losses[0]):
+        fail("ResNet-50 fp32 losses: %s" % f32_losses)
+    del tr32, net32
+    torch.cuda.empty_cache()
+    grad_err = _resnet_grad_parity(torch, mx, vision, seed, x, y)
+
+    emit({"phase": "train_resnet", "model": "resnet50_v1",
+          "trainer": "parallel.FusedTrainer", "dtype": "bfloat16",
+          "batch": B, "image": [3, hw, hw], "classes": classes,
+          "optimizer": "sgd", "lr": 0.05, "momentum": 0.9,
+          "warm_up_steps": warm, "steps": steps, "losses": losses,
+          "launches": launches, "first_step_ms": first_ms,
+          "step_ms": step_ms, "step_ms_median": med,
+          "step_ms_range": [min(step_ms), max(step_ms)],
+          "img_per_s": B / (med / 1e3),
+          "fwd_flops_per_image": flops_img, "flops_per_step": flops,
+          "mfu": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"],
+          "update_ms": update_ms, "update_params": n_params,
+          "update_bound_ms": 5 * 4 * n_params / HBM_BYTES_PER_S * 1e3,
+          "profile": split,
+          # BatchNorm forward and backward in bf16: x read and y written,
+          # then x and dy read and dx written, once each
+          "batch_norm_bytes_bound_ms": 5 * 2 * bn_img * B
+          / HBM_BYTES_PER_S * 1e3,
+          "idle_share_at_median": (None if split.get("device_busy_ms") is None
+                                   else 1.0 - split["device_busy_ms"] / med),
+          "max_memory_allocated_bytes": peak,
+          "running_stats_moved": {"min_max_abs_mean": moved_mean,
+                                  "min_max_abs_var_minus_1": moved_var},
+          "conv_memory_format": layouts,
+          "fp32": {"batch": B, "first_step_ms": f32_first, "step_ms": f32_ms,
+                   "step_ms_median": float(np.median(f32_ms)),
+                   "img_per_s": B / (float(np.median(f32_ms)) / 1e3),
+                   "losses": f32_losses},
+          "b2_fp32_grad_max_rel_err": grad_err,
+          "model_build_s": t_build, "card": smi})
+    return launches
+
+
+def _resnet_grad_parity(torch, mx, vision, seed, x, y):
+    """One fp32 step's master gradients and new running statistics at B=2
+    on the card against the same model on the CPU, within
+    TOL_GRAD * max(1, max|g|); returns the largest error so scaled."""
+    out = {}
+    for ctx in (None, mx.cpu()):
+        net = _resnet50(torch, mx, vision, seed, ctx)
+        tr = mx.parallel.FusedTrainer(net, loss="softmax_ce",
+                                      optimizer="sgd")
+        dev = net.collect_params()["output.weight"].device
+        xs, ys = (x[:2].to(dev),), (y[:2].to(dev),)
+        tr._setup(xs)
+        _, grads = tr._loss_and_grads(xs, ys)
+        vals = dict(zip(tr._trainable, grads))
+        vals.update({n: p for n, p in net.collect_params().items()
+                     if "running_" in n})
+        out["card" if ctx is None else "cpu"] = {
+            n: v.detach().double().cpu() for n, v in vals.items()}
+    worst = 0.0
+    for name, ref in out["cpu"].items():
+        err = float((out["card"][name] - ref).abs().max()) / max(
+            1.0, float(ref.abs().max()))
+        worst = max(worst, err)
+        if err > TOL_GRAD:
+            fail("B=2 fp32 %s: card vs CPU %.3g" % (name, err))
+    return worst
+
+
 def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
     """One kernel route's summary from its case: ``bound_key`` None for
     the forward's bound (``bound_ms``), else "dq"/"dkv"; ``errs`` the
@@ -1110,6 +1385,7 @@ def main():
     serve_launches = phase_serve(torch, mx, fa, args.seed, smi)
     train_launches = phase_train(torch, mx, fa, args.seed, smi)
     bf16_launches = phase_train_bf16(torch, mx, fa, args.seed, smi)
+    resnet_launches = phase_train_resnet(torch, mx, fa, args.seed, smi)
 
     # each route's numbers at its main path's shape, not causal: f32 at
     # (8, 12, 512, 512, 64), the forward as served (no dropout), the
@@ -1135,7 +1411,8 @@ def main():
     entries[0]["launches"] = sum(fwd_launches.values())
     entries[0]["launches_by_path"] = {
         "serve": serve_launches, "train": train_launches["flash_attention"],
-        "train_bf16": bf16_launches["flash_attention"]}
+        "train_bf16": bf16_launches["flash_attention"],
+        "train_resnet": resnet_launches["flash_attention"]}
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
         launches = {"float32": train_launches[kname],
@@ -1149,7 +1426,8 @@ def main():
         entries[-1]["launches"] = sum(launches.values())
         entries[-1]["launches_by_path"] = {
             "train": train_launches[kname],
-            "train_bf16": bf16_launches[kname]}
+            "train_bf16": bf16_launches[kname],
+            "train_resnet": resnet_launches[kname]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

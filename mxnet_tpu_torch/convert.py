@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError
+from .gluon.parameter import _compatible
 
 __all__ = ["load_jax_params"]
 
@@ -20,8 +21,9 @@ def load_jax_params(block, params):
 
     Strict: every parameter of ``block`` must be named in ``params``, no
     name may be left over, and every shape must match; otherwise it raises
-    ``MXNetError`` and changes nothing.  Values keep each parameter's
-    dtype and device."""
+    ``MXNetError`` and changes nothing.  A parameter whose shape is still
+    deferred (a 0 in it) takes the array's shape where the known sizes
+    agree.  Values keep each parameter's dtype and device."""
     own = block.collect_params()
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
@@ -31,10 +33,12 @@ def load_jax_params(block, params):
     arrays = {}
     for name, p in own.items():
         a = np.array(params[name])  # a writable copy
-        if tuple(a.shape) != tuple(p.shape):
+        want = tuple(p.shape)
+        if not (_compatible(want, a.shape) if p._needs_shape()
+                else tuple(a.shape) == want):
             raise MXNetError("load_jax_params: %s has shape %s, the block "
                              "expects %s" % (name, tuple(a.shape),
-                                             tuple(p.shape)))
+                                             want))
         arrays[name] = a
     for name, p in own.items():
         p.set_data(torch.from_numpy(arrays[name]))

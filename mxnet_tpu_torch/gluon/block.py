@@ -39,13 +39,17 @@ class Block(nn.Module):
         """Place every parameter on ``ctx`` (default the card; raises
         without one unless ``ctx=mx.cpu()``) and fill those not yet
         initialized or set: a parameter's own ``init`` first, else
-        ``init``, else ``initializer.Uniform()``."""
+        ``init``, else ``initializer.Uniform()``.  The initializer sees
+        the parameter's own name (``weight``, ``running_var``), as in the
+        JAX package.  A parameter of deferred shape is filled at the
+        block's first call."""
         from .. import initializer
 
         default = init or initializer.Uniform()
         for name, param in self.collect_params().items():
             param.initialize(ctx=ctx, default_init=default,
-                             force_reinit=force_reinit, name=name)
+                             force_reinit=force_reinit,
+                             name=name.rsplit(".", 1)[-1])
 
     def zero_grad(self, set_to_none=False):
         """Zero every parameter's gradient in place (Gluon semantics;

@@ -1,2 +1,2 @@
-"""Model zoo of the port."""
-from . import bert  # noqa: F401
+"""Model zoo of the port: BERT and the vision ResNets."""
+from . import bert, vision  # noqa: F401

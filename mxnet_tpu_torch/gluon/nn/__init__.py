@@ -1,3 +1,4 @@
 """Gluon layers of the port."""
 from .basic_layers import *  # noqa: F401,F403
+from .conv_layers import *  # noqa: F401,F403
 from .transformer import *  # noqa: F401,F403

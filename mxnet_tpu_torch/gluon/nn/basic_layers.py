@@ -1,15 +1,19 @@
-"""Basic layers: Dense, Dropout, LayerNorm, Embedding and
+"""Basic layers: Dense, Dropout, BatchNorm (and SyncBatchNorm,
+BatchNormReLU), LayerNorm, Embedding, Flatten, Activation and
 HybridSequential.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``.  Parameter names
-and layouts match (Dense weight (units, in_units), LayerNorm gamma/beta,
-Embedding weight (input_dim, output_dim)).  Shapes are static: ``in_units``
-and ``in_channels`` must be given, as every layer of BERT gives them.
-Parameters are trainable ``gluon.Parameter``s, created zero-filled
-(LayerNorm gamma one) on the CPU; ``Block.initialize`` moves and fills them,
-or weights come in through ``convert.load_jax_params``.
+and layouts match (Dense weight (units, in_units), BatchNorm gamma, beta,
+running_mean and running_var, LayerNorm gamma/beta, Embedding weight
+(input_dim, output_dim)).  Parameters are ``gluon.Parameter``s, created
+zero-filled (LayerNorm gamma one) on the CPU; ``Block.initialize`` moves
+and fills them, or weights come in through ``convert.load_jax_params``.
+A size left 0 (``in_units``, ``in_channels``) is deferred: the layer's
+first call infers it from the input (``_Resolving``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -20,22 +24,30 @@ from ...ops import nn as F
 from ..block import HybridBlock
 from ..parameter import Parameter
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "LayerNorm", "Embedding"]
+__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "SyncBatchNorm", "BatchNormReLU", "LayerNorm", "Embedding",
+           "Flatten", "Activation"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
-def _param(shape, dtype="float32", fill=0.0):
+def _param(shape, dtype="float32", fill=0.0, init=None, grad_req="write"):
     return Parameter(torch.full(tuple(shape), fill, dtype=_DTYPES[dtype]),
-                     grad_req="write")
+                     grad_req=grad_req, init=init)
 
 
-def _static(n, what, layer):
-    if not n:
-        raise MXNetError("%s needs %s: deferred shape inference is not "
-                         "ported" % (layer, what))
-    return int(n)
+class _Resolving(HybridBlock):
+    """Leaf layer with parameters of deferred shape: the first call gives
+    them the shapes ``infer_shape`` reads off the input, and fills them
+    with the initializers ``initialize`` recorded."""
+
+    def _resolve(self, *args):
+        if any(0 in p.shape for p in self.parameters(recurse=False)):
+            self.infer_shape(*args)
+
+    def infer_shape(self, *args):
+        raise NotImplementedError
 
 
 class HybridSequential(HybridBlock):
@@ -58,20 +70,28 @@ class HybridSequential(HybridBlock):
         return iter(self._modules.values())
 
 
-class Dense(HybridBlock):
+class Dense(_Resolving):
     """Fully-connected layer, weight layout (units, in_units)."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
-                 dtype="float32", in_units=0, **kwargs):
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, **kwargs):
         super().__init__()
         self._units = units
         self._flatten = flatten
         self._activation = activation
-        in_units = _static(in_units, "in_units", "Dense")
-        self.weight = _param((units, in_units), dtype)
-        self.bias = _param((units,), dtype) if use_bias else None
+        self.weight = _param((units, in_units), dtype,
+                             init=weight_initializer)
+        self.bias = (_param((units,), dtype, init=bias_initializer)
+                     if use_bias else None)
+
+    def infer_shape(self, x, *args):
+        in_units = (math.prod(x.shape[1:]) if self._flatten
+                    else x.shape[-1])
+        self.weight._finish_deferred_init((self._units, in_units))
 
     def forward(self, x):
+        self._resolve(x)
         out = F.fully_connected(x, self.weight, self.bias,
                                 num_hidden=self._units,
                                 flatten=self._flatten,
@@ -97,16 +117,95 @@ class Dropout(HybridBlock):
         return F.dropout(x, self._rate, _random.generator(x.device))
 
 
-class LayerNorm(HybridBlock):
-    def __init__(self, axis=-1, epsilon=1e-5, in_channels=0, **kwargs):
+class BatchNorm(_Resolving):
+    """Batch normalisation over ``axis`` (channels).  ``running_mean`` and
+    ``running_var`` are parameters with ``grad_req='null'``; a call in
+    training mode (``autograd.is_training()``, and not
+    ``use_global_stats``) normalises with the batch's statistics and
+    writes the updated running ones back in place, outside autograd
+    (``ops.nn.batch_norm``).  ``center=False`` / ``scale=False`` freeze
+    beta / gamma, and ``scale=False`` normalises with gamma fixed at
+    one."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__()
+        self._axis = axis
+        self._momentum = momentum
+        self._eps = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        shape = (in_channels,)
+        self.gamma = _param(shape, fill=1.0, init=gamma_initializer,
+                            grad_req="write" if scale else "null")
+        self.beta = _param(shape, init=beta_initializer,
+                           grad_req="write" if center else "null")
+        self.running_mean = _param(shape, init=running_mean_initializer,
+                                   grad_req="null")
+        self.running_var = _param(shape, fill=1.0,
+                                  init=running_variance_initializer,
+                                  grad_req="null")
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean,
+                  self.running_var):
+            p._finish_deferred_init((c,))
+
+    def forward(self, x):
+        self._resolve(x)
+        training = autograd.is_training() and not self._use_global_stats
+        out, new_mean, new_var = F.batch_norm(
+            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            eps=self._eps, momentum=self._momentum,
+            fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis,
+            training=training)
+        if training:
+            with torch.no_grad():
+                self.running_mean.copy_(new_mean)
+                self.running_var.copy_(new_var)
+        return out
+
+
+class SyncBatchNorm(BatchNorm):
+    """Cross-device batch norm; on one device it is ``BatchNorm``."""
+
+    def __init__(self, in_channels=0, num_devices=None, **kwargs):
+        super().__init__(in_channels=in_channels, **kwargs)
+
+
+class BatchNormReLU(BatchNorm):
+    """``BatchNorm`` followed by ReLU."""
+
+    def forward(self, x):
+        return torch.relu(super().forward(x))
+
+
+class LayerNorm(_Resolving):
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
         super().__init__()
         self._axis = axis
         self._eps = epsilon
-        c = _static(in_channels, "in_channels", "LayerNorm")
-        self.gamma = _param((c,), fill=1.0)
-        self.beta = _param((c,))
+        self.gamma = _param((in_channels,), fill=1.0,
+                            init=gamma_initializer,
+                            grad_req="write" if scale else "null")
+        self.beta = _param((in_channels,), init=beta_initializer,
+                           grad_req="write" if center else "null")
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma._finish_deferred_init((c,))
+        self.beta._finish_deferred_init((c,))
 
     def forward(self, x):
+        self._resolve(x)
         return F.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                             eps=self._eps)
 
@@ -118,3 +217,22 @@ class Embedding(HybridBlock):
 
     def forward(self, x):
         return F.embedding(x, self.weight)
+
+
+class Flatten(HybridBlock):
+    """(N, ...) -> (N, prod(...))."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
+class Activation(HybridBlock):
+    def __init__(self, activation, **kwargs):
+        super().__init__()
+        self._act_type = activation
+
+    def forward(self, x):
+        return F.activation(x, act_type=self._act_type)
+
+    def __repr__(self):
+        return "Activation(%s)" % self._act_type

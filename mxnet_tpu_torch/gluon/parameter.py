@@ -1,4 +1,4 @@
-"""Gluon Parameter over ``torch.nn.Parameter``.
+"""Gluon Parameter over ``torch.nn.Parameter``, with deferred shapes.
 
 Counterpart of ``mxnet_tpu/gluon/parameter.py``.  A ``Parameter`` is a
 ``torch.nn.Parameter`` that carries Gluon's attributes: ``grad_req``
@@ -11,6 +11,14 @@ tensor's own fields carry those names: the data is the parameter itself
 gradient is ``p.grad`` (``p.grad()`` there).  ``grad_req='write'`` means
 the gradient of one backward replaces the last one: ``Trainer.step``
 clears it after applying it (``'add'`` keeps it).
+
+Deferred shapes: a parameter whose shape holds a 0 (``Dense(units,
+in_units=0)`` has weight shape ``(units, 0)``) has no values yet.
+``initialize`` records the initializer and moves it to its device; the
+layer's first call infers the shape from its input and fills it
+(``_finish_deferred_init``), and ``set_data`` gives it the shape of the
+array it receives.  Before either, a deferred parameter is an empty tensor
+of its partial shape.
 """
 from __future__ import annotations
 
@@ -19,9 +27,19 @@ import torch
 from ..base import MXNetError
 from ..context import device_of
 
-__all__ = ["Parameter"]
+__all__ = ["Parameter", "DeferredInitializationError"]
 
 _GRAD_REQS = ("write", "add", "null")
+
+
+class DeferredInitializationError(MXNetError):
+    """A parameter is used before its shape is known."""
+
+
+def _compatible(partial, shape):
+    """Whether ``shape`` completes ``partial`` (a 0 there is unknown)."""
+    return len(partial) == len(shape) and all(
+        s in (0, n) for s, n in zip(partial, shape))
 
 
 class Parameter(torch.nn.Parameter):
@@ -38,6 +56,7 @@ class Parameter(torch.nn.Parameter):
         self.wd_mult = wd_mult
         self.init = init
         self._initialized = False   # zeros from the constructor until set
+        self._deferred = None       # (init, default_init, name) until shaped
         return self
 
     def __init__(self, *args, **kwargs):  # all set in __new__
@@ -57,34 +76,78 @@ class Parameter(torch.nn.Parameter):
         if req == "null":
             self.grad = None
 
+    def _needs_shape(self):
+        return 0 in self.shape
+
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False, name="weight"):
         """Move to ``device_of(ctx)`` (the card unless ``ctx=mx.cpu()``)
         and, unless already initialized or set, fill with ``init``, else
         this parameter's own ``init``, else ``default_init``
         (``initializer.Uniform()``); ``name`` picks the rule
-        (``*bias``/``*beta`` zeros, ``*gamma`` ones).  The device moves in
-        place, so the object stays the one the block holds."""
-        from .. import initializer as init_mod
-
+        (``*bias``/``*beta`` zeros, ``*gamma`` ones, running means zeros
+        and variances ones).  A parameter of unknown shape keeps the
+        choice until its shape is known.  The device moves in place, so
+        the object stays the one the block holds."""
         device = device_of(ctx)
         if self.device != device:
             self.data = self.data.to(device)
             self.grad = None
         if self._initialized and not force_reinit:
             return
+        if self._needs_shape():
+            self._deferred = (init, default_init, name)
+            return
+        self._fill(init, default_init, name)
+
+    def _fill(self, init, default_init, name):
+        from .. import initializer as init_mod
+
         chosen = init or self.init or default_init or init_mod.Uniform()
         init_mod.create(chosen)(name, self)
         self._initialized = True
+        self._deferred = None
+
+    def _reshape(self, shape):
+        """Give a parameter of partial shape its full ``shape`` (values
+        undefined until filled)."""
+        shape = tuple(int(s) for s in shape)
+        if not _compatible(tuple(self.shape), shape) or 0 in shape:
+            raise MXNetError("cannot give parameter of shape %s the shape %s"
+                             % (tuple(self.shape), shape))
+        self.data = torch.empty(shape, dtype=self.dtype, device=self.device)
+        self.grad = None
+
+    def _finish_deferred_init(self, shape):
+        """Called by the layer with the shape its input implies: a
+        parameter still of partial shape takes it and its recorded
+        initializer; one already shaped must agree."""
+        shape = tuple(int(s) for s in shape)
+        if not self._needs_shape():
+            if tuple(self.shape) != shape:
+                raise MXNetError("parameter of shape %s met an input that "
+                                 "implies %s" % (tuple(self.shape), shape))
+            return
+        if self._deferred is None:
+            raise DeferredInitializationError(
+                "parameter of partial shape %s has not been initialized; "
+                "call .initialize() (or set its data) before the first "
+                "call" % (tuple(self.shape),))
+        self._reshape(shape)
+        self._fill(*self._deferred)
 
     def set_data(self, data):
         """Copy ``data`` (a tensor or array of this shape) into the
-        parameter, keeping its dtype and device."""
+        parameter, keeping its dtype and device.  A parameter of partial
+        shape takes the shape of ``data``."""
+        data = torch.as_tensor(data)
+        if self._needs_shape():
+            self._reshape(data.shape)
         with torch.no_grad():
-            self.copy_(torch.as_tensor(data))
+            self.copy_(data)
         self._initialized = True
+        self._deferred = None
 
     def zero_grad(self):
         if self.grad is not None:
             self.grad.zero_()
-

@@ -1,15 +1,28 @@
-"""Neural-net ops of the serving and training slices: dense, activations,
-layer norm, embedding, dropout, log-softmax, gathers and multi-head
-attention.
+"""Neural-net ops of the port: dense, convolution, pooling, batch norm,
+activations, layer norm, embedding, dropout, softmax, gathers and
+multi-head attention.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` (and ``ops/core.py`` for
-``embedding``, ``dot``, ``pick`` and ``take_along_axis``).  Ops are plain functions on tensors.  What the JAX package
-leaves to XLA (matrix products, elementwise chains, the dense attention
-branch) is plain PyTorch here; the flash branch runs the hand-written CUDA
-kernel through ``flash_attention``.
+``embedding``, ``dot``, ``pick`` and ``take_along_axis``).  Ops are plain
+functions on tensors.  What the JAX package leaves to XLA (matrix
+products, convolutions, pooling windows, normalisation, elementwise
+chains, the dense attention branch) is plain PyTorch here, through the
+cuBLAS/cuDNN calls PyTorch makes; the flash branch runs the hand-written
+CUDA kernel through ``flash_attention``.
+
+Convolutions on the card run in ``torch.channels_last`` memory format
+(the logical layout stays NCHW): 4-D inputs are made channels-last at the
+conv, and the ops after it keep that format.  It is the faster layout of
+the two for the bf16 ResNet-50 recipe on the H100 (``PERF.md`` §5).  The
+first conv on the card also turns on ``torch.backends.cudnn.benchmark``,
+cuDNN's counterpart of XLA's own conv algorithm tuning: the first call at
+each shape tunes.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -17,8 +30,10 @@ from ..base import MXNetError
 from . import flash_attention as fa
 
 __all__ = ["fully_connected", "dot", "activation", "gelu", "layer_norm",
-           "embedding", "dropout", "log_softmax", "pick", "take_along_axis",
-           "multi_head_attention"]
+           "embedding", "dropout", "softmax", "log_softmax", "pick",
+           "take_along_axis", "multi_head_attention", "convolution",
+           "deconvolution", "pooling", "adaptive_avg_pooling", "batch_norm",
+           "softmax_cross_entropy"]
 
 
 def gelu(x, approximate=True):
@@ -114,8 +129,29 @@ def dropout(x, p=0.5, generator=None):
     return x * mask / keep
 
 
+def softmax(x, axis=-1, temperature=None, length=None):
+    """Softmax over ``axis``; ``length`` (per leading index) masks the
+    positions at and past it to -inf first."""
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    if length is not None:
+        shape = [1] * x.dim()
+        shape[axis] = x.shape[axis]
+        pos = torch.arange(x.shape[axis], device=x.device).reshape(shape)
+        mask = pos < length.reshape(tuple(length.shape)
+                                    + (1,) * (x.dim() - length.dim()))
+        x = x.masked_fill(~mask, float("-inf"))
+    return torch.softmax(x, dim=axis)
+
+
 def log_softmax(x, axis=-1):
     return torch.log_softmax(x, dim=axis)
+
+
+def softmax_cross_entropy(logits, labels):
+    """The summed negative log-likelihood of integer ``labels``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels.long().unsqueeze(-1)).sum()
 
 
 def pick(x, index, axis=-1, keepdims=False):
@@ -184,3 +220,212 @@ def multi_head_attention(q, k, v, num_heads=1, mask=None, scale=None,
         w = w * keep.reshape(w.shape).to(w.dtype) / (1.0 - attn_dropout)
     out = torch.einsum("bhqk,bhkd->bhqd", w, vh)
     return out.transpose(1, 2).reshape(B, Tq, HD)
+
+
+# ---- convolution and pooling ---------------------------------------------
+
+# The card's conv memory format (see the module docstring); ``None`` keeps
+# the input's own.
+_CUDA_CONV_FORMAT = torch.channels_last
+
+
+def _layout(nd, layout):
+    """The default NC* layout of an ``nd``-dim input, or ``layout``."""
+    return layout or {3: "NCW", 4: "NCHW", 5: "NCDHW"}[nd]
+
+
+def _to_nc(x, layout):
+    """``x`` in ``layout`` -> the N, C, spatial... order, and the
+    permutation that undoes it (None when ``layout`` is already NC*)."""
+    perm = [layout.index("N"), layout.index("C")] + [
+        i for i, c in enumerate(layout) if c not in "NC"]
+    if perm == list(range(x.dim())):
+        return x, None
+    back = [perm.index(i) for i in range(len(perm))]
+    return x.permute(perm), back
+
+
+def _from_nc(y, back):
+    return y if back is None else y.permute(back)
+
+
+def _card_format(x):
+    """On the card, a 4-D conv input in the conv memory format, with
+    cuDNN's algorithm tuning on."""
+    if x.is_cuda and x.dim() == 4 and _CUDA_CONV_FORMAT is not None:
+        torch.backends.cudnn.benchmark = True
+        return x.contiguous(memory_format=_CUDA_CONV_FORMAT)
+    return x
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def convolution(x, weight, bias=None, kernel=None, stride=None, dilate=None,
+                pad=None, num_filter=None, num_group=1, no_bias=False,
+                layout=None):
+    """N-d convolution (1-, 2- or 3-D), weight layout (out, in/groups,
+    *kernel); ``layout`` names x's axes (default NCW/NCHW/NCDHW).  Mixed
+    dtypes follow ``fully_connected``; the bias takes the output's."""
+    n = x.dim() - 2
+    lay = _layout(x.dim(), layout)
+    x, back = _to_nc(x, lay)
+    x, weight = _promote(*_amp_pair(x, weight))
+    b = None if bias is None or no_bias else bias.to(x.dtype)
+    y = _CONV[n](_card_format(x), weight, b,
+                 stride=tuple(stride) if stride else 1,
+                 padding=tuple(pad) if pad else 0,
+                 dilation=tuple(dilate) if dilate else 1, groups=num_group)
+    return _from_nc(y, back)
+
+
+def deconvolution(x, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter=None,
+                  num_group=1, no_bias=False, layout=None):
+    """Transposed convolution, weight layout (in, out, *kernel), as the
+    JAX package computes it: the gradient of a convolution whose
+    dilated input is padded by ``pad`` on each side, so the output has
+    (in - 1) * stride + 1 + 2 * pad - dilate * (k - 1) positions.  ``adj``
+    is accepted and not used, and ``num_group`` must be 1, as there."""
+    if num_group != 1:
+        raise MXNetError("deconvolution: num_group=%d is not supported "
+                         "(the JAX package's op does not group)" % num_group)
+    n = x.dim() - 2
+    lay = _layout(x.dim(), layout)
+    x, back = _to_nc(x, lay)
+    x, weight = _promote(x, weight)
+    stride = tuple(stride) if stride else (1,) * n
+    dilate = tuple(dilate) if dilate else (1,) * n
+    pad = tuple(pad) if pad else (0,) * n
+    k = weight.shape[2:]
+    # lax.conv_transpose's explicit padding p is PyTorch's d*(k-1) - p;
+    # past d*(k-1) the output grows by zero borders
+    tpad = [d * (kk - 1) - p for d, kk, p in zip(dilate, k, pad)]
+    y = _DECONV[n](_card_format(x), weight, stride=stride,
+                   padding=tuple(max(t, 0) for t in tpad), dilation=dilate)
+    grow = [max(-t, 0) for t in tpad]
+    if any(grow):
+        y = F.pad(y, [g for g in reversed(grow) for _ in (0, 1)])
+    if bias is not None and not no_bias:
+        y = y + bias.to(y.dtype).reshape((1, -1) + (1,) * n)
+    return _from_nc(y, back)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _window_sum(x, kernel, stride, pad):
+    """The sum over each window, zeros padded."""
+    if x.dim() == 3:   # avg_pool1d has no divisor_override
+        return F.avg_pool1d(x, kernel, stride, pad,
+                            count_include_pad=True) * kernel[0]
+    return _AVG_POOL[x.dim() - 2](x, kernel, stride, pad,
+                                  count_include_pad=True, divisor_override=1)
+
+
+def _pad_spatial(x, pad, value=0.0):
+    return F.pad(x, [p for p in reversed(pad) for _ in (0, 1)], value=value)
+
+
+def pooling(x, kernel=None, pool_type="max", stride=None, pad=None,
+            global_pool=False, count_include_pad=True, layout=None):
+    """Max, avg, sum or lp (p = 2) pooling over the spatial axes; max pads
+    with -inf; avg divides by the window size, or with
+    ``count_include_pad=False`` by the unpadded count; ``global_pool``
+    takes the max or (any other type) the mean of every spatial axis."""
+    n = x.dim() - 2
+    x, back = _to_nc(x, _layout(x.dim(), layout))
+    if global_pool:
+        axes = tuple(range(2, x.dim()))
+        y = (x.amax(dim=axes, keepdim=True) if pool_type == "max"
+             else x.mean(dim=axes, keepdim=True))
+        return _from_nc(y, back)
+    kernel = tuple(kernel)
+    stride = tuple(stride) if stride else (1,) * n
+    pad = tuple(pad) if pad else (0,) * n
+    # PyTorch's window ops pad by at most half the window; past that the
+    # input is padded first
+    inside = all(p <= k // 2 for p, k in zip(pad, kernel))
+    nopad = (0,) * n
+    if pool_type == "max":
+        if not inside:
+            x, pad = _pad_spatial(x, pad, float("-inf")), nopad
+        y = _MAX_POOL[n](x, kernel, stride, pad)
+    elif pool_type == "avg" and inside:
+        y = _AVG_POOL[n](x, kernel, stride, pad,
+                         count_include_pad=count_include_pad)
+    elif pool_type == "avg":
+        s = _window_sum(_pad_spatial(x, pad), kernel, stride, nopad)
+        if count_include_pad:
+            y = s / math.prod(kernel)
+        else:
+            ones = _pad_spatial(torch.ones_like(x[:1, :1]), pad)
+            y = s / _window_sum(ones, kernel, stride, nopad)
+    elif pool_type in ("sum", "lp"):
+        if not inside:
+            x, pad = _pad_spatial(x, pad), nopad
+        y = (_window_sum(x, kernel, stride, pad) if pool_type == "sum"
+             else torch.sqrt(_window_sum(x * x, kernel, stride, pad)))
+    else:
+        raise MXNetError("unknown pool_type %s" % pool_type)
+    return _from_nc(y, back)
+
+
+def adaptive_avg_pooling(x, output_size=1):
+    """NCHW average pooling onto an ``output_size`` grid, with the JAX
+    package's bins: [floor(i*H/oh), floor((i+1)*H/oh)) (PyTorch's
+    adaptive pooling rounds the end up instead)."""
+    if isinstance(output_size, int):
+        output_size = (output_size, output_size)
+    N, C, H, W = x.shape
+    oh, ow = output_size
+    if H % oh == 0 and W % ow == 0:
+        return x.reshape(N, C, oh, H // oh, ow, W // ow).mean(dim=(3, 5))
+    hi = np.linspace(0, H, oh + 1, dtype=np.float32).astype(np.int32)
+    wi = np.linspace(0, W, ow + 1, dtype=np.float32).astype(np.int32)
+    rows = [torch.stack([x[:, :, hi[i]:hi[i + 1], wi[j]:wi[j + 1]]
+                         .mean(dim=(2, 3)) for j in range(ow)], dim=-1)
+            for i in range(oh)]
+    return torch.stack(rows, dim=-2)
+
+
+# ---- batch norm ------------------------------------------------------------
+
+
+def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
+               momentum=0.9, fix_gamma=False, use_global_stats=False,
+               axis=1, training=False):
+    """Returns ``(out, new_moving_mean, new_moving_var)``.
+
+    Training (and not ``use_global_stats``) normalises with the batch's
+    mean and biased variance over every axis but ``axis`` and returns the
+    moving statistics updated as ``moving * momentum + batch * (1 -
+    momentum)`` (the biased variance: ``F.batch_norm``'s own update uses
+    the unbiased one and weighs the batch by ``momentum``, so it is not
+    called with running stats).  Otherwise it normalises with the moving
+    statistics and returns them as they are.  The statistics and the
+    normalisation are float32 whatever x's dtype (bf16 x with f32 gamma,
+    beta and statistics under mixed precision); the output has x's
+    dtype.  ``fix_gamma`` scales by one."""
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if axis != 1 and axis != 1 - x.dim():
+        x = x.movedim(axis, 1)
+    if training and not use_global_stats:
+        out, mean, invstd = torch.native_batch_norm(
+            x, g, beta, None, None, True, 0.0, eps)
+        with torch.no_grad():
+            var = invstd.double().pow(-2).sub(eps).float()
+            new_mean = moving_mean * momentum + \
+                mean.to(moving_mean.dtype) * (1 - momentum)
+            new_var = moving_var * momentum + \
+                var.to(moving_var.dtype) * (1 - momentum)
+    else:
+        out = F.batch_norm(x, moving_mean, moving_var, g, beta,
+                           training=False, eps=eps)
+        new_mean, new_var = moving_mean, moving_var
+    if axis != 1 and axis != 1 - x.dim():
+        out = out.movedim(1, axis)
+    return out, new_mean, new_var

@@ -20,6 +20,15 @@ fp16 promotes to f32), so in bf16 every dense layer and the attention run
 in bf16 while the residual stream stays f32, and in fp16 they run in f32
 on fp16-rounded weights, as in the JAX package.
 
+State that is not trained (``grad_req='null'``: BatchNorm's running
+mean and variance) is left out of the update and stays float32 under
+mixed precision; the step's forward writes it in place (``BatchNorm``
+in training mode), so with ``grad_accum=k`` it threads through the k
+microbatches in order, as the JAX package's scan carries it.  A block
+with parameters of deferred shape is probed once with the first batch,
+outside autograd and in predict mode, before the optimizer state is
+built.
+
 Not ported (they raise): ``mesh=`` and ``zero=`` (multi-device training),
 ``save_checkpoint``/``load_checkpoint``, ``PipelineTrainer`` and
 ``moe_apply``.  The JAX package's fault-injection site in ``step`` is
@@ -90,8 +99,12 @@ class FusedTrainer:
         self._step_count = 0
 
     # -- set-up -------------------------------------------------------------
-    def _setup(self):
-        named = self._block.collect_params()
+    def _setup(self, xs):
+        block = self._block
+        if any(p._needs_shape() for p in block.collect_params().values()):
+            with autograd.pause():
+                block(*xs)
+        named = block.collect_params()
         self._named = named
         self._trainable = [n for n, p in named.items()
                            if p.grad_req != "null"]
@@ -108,7 +121,8 @@ class FusedTrainer:
         return [self._named[n] for n in self._trainable]
 
     def _device(self):
-        return next(iter(self._named.values())).device
+        named = self._named or self._block.collect_params()
+        return next(iter(named.values())).device
 
     # -- one step -----------------------------------------------------------
     def _forward_loss(self, xs, ys):
@@ -148,8 +162,6 @@ class FusedTrainer:
         ``grad_accum`` microbatches) and the update.  ``x``/``y`` may each
         be one tensor (or array) or a tuple; every leading dim is the
         batch.  Returns the loss, a 0-d tensor."""
-        if self._named is None:
-            self._setup()
         device = self._device()
 
         def as_tensor(v):
@@ -159,6 +171,8 @@ class FusedTrainer:
             else (as_tensor(x),)
         ys = tuple(map(as_tensor, y)) if isinstance(y, (tuple, list)) \
             else (as_tensor(y),)
+        if self._named is None:
+            self._setup(xs)
         k = self._grad_accum
         if k == 1:
             loss, grads = self._loss_and_grads(xs, ys)

@@ -340,3 +340,19 @@ def test_ptxas_report_reads_registers_and_spills():
     assert (entry["registers"], entry["spill_stores"], entry["spill_loads"],
             entry["stack"]) == (128, 24, 16, 8)
     assert "kernel" in entry["function"]
+
+
+@pytest.mark.parametrize("make", [
+    lambda: nn.Conv2D(4, 3, in_channels=3),
+    lambda: nn.Conv2D(4, 3),                   # deferred input channels
+    lambda: nn.BatchNorm(),
+    lambda: mx.gluon.model_zoo.vision.resnet18_v1(classes=10),
+], ids=["conv2d", "conv2d_deferred", "batchnorm", "resnet18_v1"])
+def test_vision_blocks_without_ctx_want_the_card(monkeypatch, make):
+    _no_card(monkeypatch)
+    blk = make()
+    with pytest.raises(MXNetError, match=r"ctx=mx\.cpu\(\)"):
+        blk.initialize()
+    blk.initialize(ctx=mx.cpu())
+    assert all(p.device.type == "cpu"
+               for p in blk.collect_params().values())
