@@ -12,7 +12,11 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    stack and spills from ``-Xptxas -v``.
 3. kernels -- the three flash-attention kernels against their plain
    PyTorch versions on the card, over shapes x {f32, bf16} x {causal, not}
-   x dropout p in {0, 0.1}: the forward (O, LSE) and the backward (dq, dk,
+   x dropout p in {0, 0.1}, the dropout seed an int64 tensor on the card
+   (the kernels read it from device memory; an int seed, a tensor and a
+   seed drawn on the card give the masks they should, and a C entry point
+   refuses dropout with no seed address): the forward (O, LSE) and the
+   backward (dq, dk,
    dv against ``flash_attention_backward_reference``, within
    1e-4*max(1, max|ref|) in f32 and 2e-2*max(1, max|ref|) in bf16), each
    with its device time (a ``torch.cuda._sleep`` ahead of the window keeps
@@ -65,6 +69,35 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    the fp32 recipe (TF32 off, 3 + 10 steps), and one fp32 step's
    gradients and new running statistics at B=2 against the same model on
    the CPU within 1e-3*max(1, max|g|).
+
+8. train_captured -- the ``train`` recipe (BERT-base pretraining, fp32,
+   TF32 off, dropout 0.1, Adam at lr 1e-4, B=8, T=512) through
+   ``gluon.Trainer.capture`` (``mx.step``): the first step runs eagerly,
+   the second captures the step into one CUDA graph and replays it, the
+   rest replay it, 10 in all.  ``report()`` must show every step captured
+   and no fallback; the three kernels' wrappers record 12 launches each
+   into the graph and count none on a replay; two replays draw different
+   attention-dropout seeds (a spy keeps each drawn seed in the graph's
+   memory); the loss falls; one captured step equals one stitched grouped
+   step from the same weights and generator seed within
+   1e-5*max(1, max|w|) (bitwise or not is printed).  Prints the step
+   median captured against stitched (timed in turns, 5 steps a turn, two
+   turns each), tokens/s, peak memory and the graph's pool, a
+   ``torch.profiler`` split of each with the idle share and kernels a
+   step, and the grouped Adam's device and wall time against the
+   per-parameter path's on one step's gradients.  The launch counts in the summary
+   below include the 12 recorded at capture per kernel; each replay runs
+   the recorded launches without counting them.
+9. train_captured_resnet -- ``bench.py``'s captured-step recipe
+   (``_bench_captured_step``): ResNet-50 v1 cast to bf16 with SGD at lr
+   0.05, momentum 0.9 and f32 masters (``multi_precision``), B=64,
+   through ``trainer.capture`` for 10 steps: no fallback, every step
+   captured, falling loss, running statistics moved and finite, no flash
+   launch; img/s and MFU (7.72 GFLOP an image forward) captured against
+   stitched, timed in turns, peak memory, the profiler split and idle
+   share of each, and ``PARITY_STEPS = 3`` captured steps on a fresh
+   model against as many stitched ones (bitwise, worst relative
+   difference).
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -361,7 +394,58 @@ def phase_kernels(torch, fa, seed):
                     for dname in ("float32", "bfloat16", "float16")]})
     _auto_routes(torch, fa)
     _misaligned_refused(torch, fa)
+    _seed_routes(torch, fa, gen)
     return fwd_cases, bwd_cases
+
+
+def _seed_routes(torch, fa, gen):
+    """The seed's two ways into device memory give one mask: the three
+    kernels with an int seed (copied to the card by the wrappers) and
+    with the same seed as an int64 tensor on the card agree bit for bit;
+    a seed the card draws (``random.draw_seed``) reaches the kernels with
+    no host read (each kernel is held against its plain version with it);
+    and the C entry points refuse dropout without a seed address."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.ops import _ext
+
+    q, k, v, do = (torch.randn(2, 12, 512, 64, device="cuda", generator=gen)
+                   for _ in range(4))
+    drawn = mxrandom.draw_seed(q.device)
+    out = {}
+    for name, seed in (("int", SEED_DROP),
+                       ("tensor", fa._seed_tensor(SEED_DROP, q.device)),
+                       ("drawn", drawn)):
+        o, lse = fa._flash_forward(q, k, v, False, 0.125, DROPOUT_P, seed)
+        delta = fa._delta(do, o)
+        args = (q, k, v, do, lse, delta, False, None, DROPOUT_P, seed)
+        out[name] = (o, lse, fa.flash_bwd_dq(*args)) + \
+            fa.flash_bwd_dkv(*args)
+    same = all(torch.equal(a, b) for a, b in zip(out["int"], out["tensor"]))
+    ref_o, ref_l = fa.flash_attention_reference(q, k, v, False, 0.125,
+                                                DROPOUT_P, drawn)
+    ref_g = fa.flash_attention_backward_reference(
+        q, k, v, out["drawn"][0], out["drawn"][1], do, False, 0.125,
+        DROPOUT_P, drawn)
+    errs = {"o": (out["drawn"][0] - ref_o).abs().max().item(),
+            "lse": (out["drawn"][1] - ref_l).abs().max().item()}
+    errs.update({n: _rel_err(g, r) for n, g, r in
+                 zip(("dq", "dk", "dv"), out["drawn"][2:], ref_g)})
+    lib = _ext.load()
+    p = q.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    null_seed = lib.mx_flash_fwd(p, p, p, do.data_ptr(),
+                                 out["int"][1].data_ptr(), 24, 512, 512, 64,
+                                 ctypes.c_float(0.125), 0, 0, 1, None,
+                                 fa._keep_threshold(DROPOUT_P),
+                                 ctypes.c_float(1.0 / (1 - DROPOUT_P)), 0,
+                                 stream)
+    case = {"int_equals_tensor_bitwise": same, "drawn_seed_err": errs,
+            "tol_o": TOL_O["float32"], "tol_lse": TOL_LSE,
+            "null_seed_error": null_seed}
+    emit({"phase": "kernels", "seed_routes": case})
+    if not same or null_seed == 0 or errs["lse"] > TOL_LSE or max(
+            errs[n] for n in ("o", "dq", "dk", "dv")) > TOL_O["float32"]:
+        fail("the dropout seed's routes disagree: %s" % case)
 
 
 def _auto_routes(torch, fa):
@@ -450,7 +534,8 @@ def _misaligned_refused(torch, fa):
         fail("%s took a misaligned input" % name)
     lib = _ext.load()
     p = [t.data_ptr() for t in (bad, good, rows)]
-    tail = [ctypes.c_float(0.125), 0, 0, *fa._dropout_args(0.0, 0), 0,
+    tail = [ctypes.c_float(0.125), 0, 0,
+            *fa._dropout_args(0.0, 0, good.device)[0], 0,
             torch.cuda.current_stream().cuda_stream]
     errs = {"mx_flash_fwd": lib.mx_flash_fwd(
                 p[0], p[0], p[0], p[1], p[2], 2, 64, 64, 64, *tail),
@@ -473,28 +558,31 @@ def _misaligned_refused(torch, fa):
 def _fwd_case(torch, F, fa, q, k, v, causal, p, dname, iters):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
+    # the dropout seed in device memory, where the kernels read it; the
+    # plain version takes the same tensor
+    seed = fa._seed_tensor(SEED_DROP, q.device)
     out, lse = fa._flash_forward(q, k, v, causal, fa._scale(q, None), p,
-                                 SEED_DROP)
+                                 seed)
     torch.cuda.synchronize()
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal,
-                                                    dropout_p=p,
-                                                    seed=SEED_DROP)
+                                                    dropout_p=p, seed=seed)
     err_o = (out.float() - ref_out.float()).abs().max().item()
     err_l = (lse - ref_lse).abs().max().item()
     ok = err_o <= TOL_O[dname] and err_l <= TOL_LSE
     bound, by = attention_bound(B, H, Tq, Tk, D, dname, causal)
     ms, host_ms, covered = cuda_time(lambda: fa.flash_attention(
-        q, k, v, causal, dropout_p=p, seed=SEED_DROP), iters)
+        q, k, v, causal, dropout_p=p, seed=seed), iters)
     backend, lib_ms, refused = sdpa_fastest(
         torch, lambda: F.scaled_dot_product_attention(
             q, k, v, dropout_p=p, is_causal=causal), iters)
     case = {
         "shape": [B, H, Tq, Tk, D], "dtype": dname, "causal": causal,
-        "dropout_p": p, "max_abs_err_o": err_o, "max_abs_err_lse": err_l,
+        "dropout_p": p, "seed": "device", "max_abs_err_o": err_o,
+        "max_abs_err_lse": err_l,
         "tol_o": TOL_O[dname], "tol_lse": TOL_LSE, "ok": ok,
         "ms": ms, "host_ms": host_ms, "sleep_covered": covered,
         "plain_ms": cuda_ms(lambda: fa.flash_attention_reference(
-            q, k, v, causal, dropout_p=p, seed=SEED_DROP), iters),
+            q, k, v, causal, dropout_p=p, seed=seed), iters),
         "library_ms": lib_ms, "library_backend": backend,
         "library_refused": refused,
         "bound_ms": bound, "bound_by": by}
@@ -513,10 +601,11 @@ def _fwd_case(torch, F, fa, q, k, v, causal, p, dname, iters):
 def _bwd_case(torch, F, fa, q, k, v, do, causal, p, dname, iters):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
+    seed = fa._seed_tensor(SEED_DROP, q.device)
     out, lse = fa._flash_forward(q, k, v, causal, fa._scale(q, None), p,
-                                 SEED_DROP)
+                                 seed)
     delta = fa._delta(do, out)
-    args = (q, k, v, do, lse, delta, causal, None, p, SEED_DROP)
+    args = (q, k, v, do, lse, delta, causal, None, p, seed)
 
     def kernels():
         fa.flash_bwd_dq(*args)
@@ -526,7 +615,7 @@ def _bwd_case(torch, F, fa, q, k, v, do, causal, p, dname, iters):
     dk, dv = fa.flash_bwd_dkv(*args)
     torch.cuda.synchronize()
     ref = fa.flash_attention_backward_reference(q, k, v, out, lse, do,
-                                                causal, None, p, SEED_DROP)
+                                                causal, None, p, seed)
     names = ("dq", "dk", "dv")
     errs = {n: _rel_err(g, r) for n, g, r in zip(names, (dq, dk, dv), ref)}
     abs_errs = {n: (g.float() - r.float()).abs().max().item()
@@ -538,13 +627,14 @@ def _bwd_case(torch, F, fa, q, k, v, do, causal, p, dname, iters):
                                               p, iters)
     case = {
         "shape": [B, H, Tq, Tk, D], "dtype": dname, "causal": causal,
-        "dropout_p": p, "rel_err": errs, "max_abs_err": abs_errs,
+        "dropout_p": p, "seed": "device", "rel_err": errs,
+        "max_abs_err": abs_errs,
         "tol": tol, "ok": ok,
         "ms": cuda_ms(lambda: (fa._delta(do, out), kernels()), iters),
         "dq_ms": cuda_ms(lambda: fa.flash_bwd_dq(*args), iters),
         "dkv_ms": cuda_ms(lambda: fa.flash_bwd_dkv(*args), iters),
         "plain_ms": cuda_ms(lambda: fa.flash_attention_backward_reference(
-            q, k, v, out, lse, do, causal, None, p, SEED_DROP), iters),
+            q, k, v, out, lse, do, causal, None, p, seed), iters),
         "plain_dq_ms": cuda_ms(lambda: fa.flash_bwd_dq_reference(*args),
                                iters),
         "plain_dkv_ms": cuda_ms(lambda: fa.flash_bwd_dkv_reference(*args),
@@ -769,12 +859,13 @@ def phase_train(torch, mx, fa, seed, smi):
     q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
                    for _ in range(4))
     with torch.no_grad():
+        seed1 = fa._seed_tensor(1, q.device)
         out, lse = fa._flash_forward(q, k, v, False, fa._scale(q, None),
-                                     DROPOUT_P, 1)
+                                     DROPOUT_P, seed1)
         delta = fa._delta(do, out)
-        args = (q, k, v, do, lse, delta, False, None, DROPOUT_P, 1)
+        args = (q, k, v, do, lse, delta, False, None, DROPOUT_P, seed1)
         kern_ms = 12 * (cuda_ms(lambda: fa.flash_attention(
-            q, k, v, dropout_p=DROPOUT_P, seed=1), 20)
+            q, k, v, dropout_p=DROPOUT_P, seed=seed1), 20)
             + cuda_ms(lambda: fa.flash_bwd_dq(*args), 20)
             + cuda_ms(lambda: fa.flash_bwd_dkv(*args), 20))
     del q, k, v, do, out, lse, delta
@@ -1021,12 +1112,13 @@ def phase_train_bf16(torch, mx, fa, seed, smi):
     q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen,
                                dtype=torch.bfloat16) for _ in range(4))
     with torch.no_grad():
+        seed1 = fa._seed_tensor(1, q.device)
         out, lse = fa._flash_forward(q, k, v, False, fa._scale(q, None),
-                                     DROPOUT_P, 1)
+                                     DROPOUT_P, seed1)
         delta = fa._delta(do, out)
-        args = (q, k, v, do, lse, delta, False, None, DROPOUT_P, 1)
+        args = (q, k, v, do, lse, delta, False, None, DROPOUT_P, seed1)
         kern_ms = 12 * (cuda_ms(lambda: fa.flash_attention(
-            q, k, v, dropout_p=DROPOUT_P, seed=1), 20)
+            q, k, v, dropout_p=DROPOUT_P, seed=seed1), 20)
             + cuda_ms(lambda: fa.flash_bwd_dq(*args), 20)
             + cuda_ms(lambda: fa.flash_bwd_dkv(*args), 20))
     fp16_losses = _fused_fp16_steps(torch, mx, bert, seed)
@@ -1325,6 +1417,380 @@ def _resnet_grad_parity(torch, mx, vision, seed, x, y):
     return worst
 
 
+def _state_leaves(state):
+    """The tensors of an optimizer state (None, a tensor or tuples)."""
+    if state is None:
+        return []
+    if isinstance(state, tuple):
+        return [t for x in state for t in _state_leaves(x)]
+    return [state]
+
+
+def _step_state(torch, trainer, net):
+    """A copy of everything a training step changes: parameters, optimizer
+    states, update counts and the step count."""
+    opt = trainer._optimizer
+    return {"params": [p.detach().clone()
+                       for p in net.collect_params().values()],
+            "states": {i: [t.clone() for t in _state_leaves(st)]
+                       for i, st in trainer._states.items()},
+            "counts": dict(opt._index_update_count),
+            "num_update": opt.num_update, "step": trainer._step_count}
+
+
+def _restore_state(torch, trainer, net, snap):
+    opt = trainer._optimizer
+    with torch.no_grad():
+        for p, v in zip(net.collect_params().values(), snap["params"]):
+            p.copy_(v)
+        for i, ts in snap["states"].items():
+            for t, v in zip(_state_leaves(trainer._states[i]), ts):
+                t.copy_(v)
+    opt._index_update_count = dict(snap["counts"])
+    opt.num_update = snap["num_update"]
+    trainer._step_count = snap["step"]
+
+
+def _captured_vs_stitched_step(torch, mx, trainer, net, program, x, y, bs):
+    """One captured step and one stitched grouped step from the same
+    weights, states and generator seed: -> (worst |w_c - w_s| /
+    max(1, max|w_s|) over the parameters, bitwise)."""
+    gen = mx.random.generator(torch.device("cuda", 0))
+    snap = _step_state(torch, trainer, net)
+    gen.manual_seed(4242)
+    program(x, y, batch_size=bs)
+    torch.cuda.synchronize()
+    captured = [p.detach().clone() for p in net.collect_params().values()]
+    _restore_state(torch, trainer, net, snap)
+    gen.manual_seed(4242)
+    program._stitched(x, y, bs)
+    torch.cuda.synchronize()
+    worst, bitwise = 0.0, True
+    for c, p in zip(captured, net.collect_params().values()):
+        s_ = p.detach().float()
+        bitwise &= torch.equal(c, p.detach())
+        worst = max(worst, (c.float() - s_).abs().max().item()
+                    / max(1.0, s_.abs().max().item()))
+    return worst, bitwise
+
+
+def _wall_ms(torch, fn, iters):
+    """Host-clock ms a call of ``fn`` takes with the card drained after
+    each: its host work and its device work, whichever is longer."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _turns(torch, fns, steps, rounds):
+    """Each of ``fns`` (name: step) timed in turns, ``steps`` steps a
+    turn, ``rounds`` turns each, on the host clock with the loss's
+    ``.item()`` ending each step -> {name: [ms, ...]}."""
+    out = {n: [] for n in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                fn().sum().item()
+                out[name].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _program_report(program, steps):
+    """The program's report, failing on any fallback or a captured count
+    short of ``steps``."""
+    rep = program.report()
+    if rep["fallbacks"] or rep["paths"]["captured"] < steps or \
+            not all(p["graph"] for p in rep["programs"]):
+        fail("captured step fell back or was not captured: %s"
+             % json.dumps(rep, default=str)[:2000])
+    return rep
+
+
+def phase_train_captured(torch, mx, fa, seed, smi):
+    """The ``train`` recipe (BERT-base pretraining, fp32 with TF32 off,
+    dropout 0.1, Adam at lr 1e-4, B=8, T=512, 76 masked positions) through
+    ``trainer.capture``: one CUDA graph a step."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.optimizer import multi_tensor
+
+    B, T, M, vocab, steps = 8, 512, 76, 30522, 10
+    t0 = time.perf_counter()
+    net = pretrain_step(mx, bert, seed, vocab_size=vocab, max_length=T,
+                        dropout=DROPOUT_P)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-4})
+
+    def loss_fn(out, labels, weights, nsp):
+        return bert.pretraining_loss(out[0], out[1], labels, weights, nsp)
+
+    program = trainer.capture(net, loss_fn)
+    host = _train_batch(np.random.default_rng(seed + 2), B, T, M, vocab)
+    x = tuple(torch.from_numpy(host[k]).cuda() for k in ("ids", "types",
+                                                          "pos"))
+    y = tuple(torch.from_numpy(host[k]).cuda() for k in ("labels",
+                                                          "weights", "nsp"))
+    t_build = time.perf_counter() - t0
+    mx.random.seed(seed)
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+
+    # step 1: the eager warm-up on a side stream
+    losses = [program(x, y, batch_size=1).item()]
+    # step 2: capture, then replay; the wrappers count the launches they
+    # record into the graph.  A spy keeps each drawn attention seed in
+    # memory of the graph's own, read after a replay.
+    for c in counters:
+        c.launches = 0
+    seeds, draw_seed = [], mx.random.draw_seed
+
+    def spy(device=None):
+        s_ = draw_seed(device)
+        seeds.append(s_.clone())
+        return s_
+
+    torch.cuda.empty_cache()   # the graph's pool, apart from the cache
+    reserved0 = torch.cuda.memory_reserved()
+    mx.random.draw_seed = spy
+    try:
+        t1 = time.perf_counter()
+        losses.append(program(x, y, batch_size=1).item())
+        capture_s = time.perf_counter() - t1
+    finally:
+        mx.random.draw_seed = draw_seed
+    graph_pool = torch.cuda.memory_reserved() - reserved0
+    recorded = {c.__name__: c.launches for c in counters}
+    seeds_a = [int(s_) for s_ in seeds]
+    losses.append(program(x, y, batch_size=1).item())
+    seeds_b = [int(s_) for s_ in seeds]
+    for _ in range(steps - 3):
+        losses.append(program(x, y, batch_size=1).item())
+    replay_ticks = {c.__name__: c.launches - recorded[c.__name__]
+                    for c in counters}
+    rep = _program_report(program, steps)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("captured BERT losses: %s" % losses)
+    if recorded != {c.__name__: 12 for c in counters} or \
+            any(replay_ticks.values()):
+        fail("flash launches recorded at capture %s, on replays %s (want "
+             "12 each, then none)" % (recorded, replay_ticks))
+    if len(seeds_a) != 12 or len(set(seeds_a)) != 12 or \
+            any(a == b for a, b in zip(seeds_a, seeds_b)):
+        fail("replays did not draw fresh attention seeds: %s %s"
+             % (seeds_a, seeds_b))
+
+    worst, bitwise = _captured_vs_stitched_step(torch, mx, trainer, net,
+                                                program, x, y, 1)
+    if worst > 1e-5:
+        fail("captured step differs from the stitched one by %g" % worst)
+
+    def captured():
+        return program(x, y, batch_size=1)
+
+    def stitched():
+        return program._stitched(x, y, 1)
+
+    times = _turns(torch, {"captured": captured, "stitched": stitched}, 5, 2)
+    med = {n: float(np.median(v)) for n, v in times.items()}
+    torch.cuda.reset_peak_memory_stats()
+    captured().item()
+    peak_c = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stitched().item()
+    peak_s = torch.cuda.max_memory_allocated()
+    split_c = profile_split(torch, captured, 2)
+    split_s = profile_split(torch, stitched, 2)
+
+    # the grouped Adam against the per-parameter path, on one step's
+    # gradients (this moves the weights further; every check is done)
+    items = trainer._items()
+    grads = [torch.randn_like(p) * 1e-3 for _, p, _ in items]
+    groups, _ = multi_tensor.partition(trainer, items)
+    (key, members), = groups.items()
+    group = trainer._mt_groups[key]
+
+    def grouped():
+        plan = multi_tensor.prepare(trainer, group, members)
+        multi_tensor.run(trainer, group, members, grads, plan)
+
+    def per_param():
+        for (i, p, _), g in zip(items, grads):
+            trainer._eager_update(i, p, g)
+
+    g_ms, e_ms = cuda_ms(grouped, 5), cuda_ms(per_param, 3)
+    g_wall, e_wall = _wall_ms(torch, grouped, 5), _wall_ms(torch, per_param, 3)
+    n_params = sum(p.numel() for _, p, _ in items)
+    emit({"phase": "train_captured", "model": "bert_12_768_12",
+          "head": "BERTForPretraining", "trainer": "gluon.Trainer.capture",
+          "dtype": "float32", "tf32": False, "batch": B, "seq_len": T,
+          "masked_positions": M, "dropout": DROPOUT_P, "optimizer": "adam",
+          "lr": 1e-4, "steps": steps, "losses": losses,
+          "report": {"paths": rep["paths"], "fallbacks": rep["fallbacks"],
+                     "segments": [g["segment"] for g in
+                                  rep["programs"][0]["segments"]],
+                     "buckets": len(rep["programs"][0]["bucket_plan"]),
+                     "slots": rep["programs"][0]["host_scalar_slots"]},
+          "launches_recorded_at_capture": recorded,
+          "launches_counted_on_replays": replay_ticks,
+          "attention_seeds_replay_a": seeds_a,
+          "attention_seeds_replay_b": seeds_b,
+          "capture_s": capture_s, "graph_pool_bytes": graph_pool,
+          "captured_vs_stitched_max_rel_err": worst,
+          "captured_vs_stitched_bitwise": bitwise, "tol": 1e-5,
+          "step_ms": times, "step_ms_median": med,
+          "tokens_per_s": {n: B * T / (v / 1e3) for n, v in med.items()},
+          # a replay allocates nothing: the captured step's activations
+          # live in the graph's pool, outside max_memory_allocated
+          "max_memory_allocated_bytes": {"captured": peak_c,
+                                         "stitched": peak_s},
+          "captured_peak_bytes": peak_c + graph_pool,
+          "profile": {"captured": split_c, "stitched": split_s},
+          "idle_share_at_median": {
+              n: (None if sp.get("device_busy_ms") is None
+                  else 1.0 - sp["device_busy_ms"] / med[n])
+              for n, sp in (("captured", split_c), ("stitched", split_s))},
+          "update": {"params": n_params, "tensors": len(items),
+                     "grouped_ms": g_ms, "grouped_wall_ms": g_wall,
+                     "per_parameter_ms": e_ms,
+                     "per_parameter_wall_ms": e_wall,
+                     "bound_ms": 7 * 4 * n_params / HBM_BYTES_PER_S * 1e3},
+          "model_build_s": t_build, "card": smi})
+    return recorded
+
+
+def phase_train_captured_resnet(torch, mx, fa, seed, smi):
+    """``bench.py``'s captured-step recipe (``_bench_captured_step``):
+    ResNet-50 v1 cast to bf16, SGD at lr 0.05 with momentum 0.9 and f32
+    masters (``multi_precision``), B=64, 3x224x224, SoftmaxCrossEntropyLoss,
+    through ``trainer.capture`` against the stitched step."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    B, hw, classes, steps, parity_steps = 64, 224, 1000, 10, 3
+    opt = {"learning_rate": 0.05, "momentum": 0.9, "multi_precision": True}
+    t0 = time.perf_counter()
+
+    def build(count=False):
+        net = _resnet50(torch, mx, vision, seed)
+        flops = resnet_fwd_counts(torch, mx, net, hw, "cuda")[0] \
+            if count else None
+        net.cast("bfloat16")
+        return net, mx.gluon.Trainer(net.collect_params(), "sgd",
+                                     dict(opt)), flops
+
+    net, trainer, flops_img = build(count=True)
+    rng = np.random.default_rng(seed + 6)
+    x = torch.from_numpy(rng.random((B, 3, hw, hw), np.float32)).cuda() \
+        .to(torch.bfloat16)
+    y = torch.from_numpy(rng.integers(0, classes, B)).cuda()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    program = trainer.capture(net, loss_fn)
+    t_build = time.perf_counter() - t0
+    counters = [getattr(fa, n) for n in ("flash_attention", "flash_bwd_dq",
+                                         "flash_bwd_dkv")]
+    for c in counters:
+        c.launches = 0
+    t1 = time.perf_counter()
+    losses = [program(x, y).mean().item()]
+    first_s = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    t1 = time.perf_counter()
+    losses.append(program(x, y).mean().item())
+    capture_s = time.perf_counter() - t1
+    graph_pool = torch.cuda.memory_reserved() - reserved0
+    for _ in range(steps - 2):
+        losses.append(program(x, y).mean().item())
+    launches = {c.__name__: c.launches for c in counters}
+    _program_report(program, steps)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("captured ResNet-50 losses: %s" % losses)
+    if any(launches.values()):
+        fail("the ResNet step launched flash kernels: %s" % launches)
+    params = net.collect_params()
+    means = [p for n, p in params.items() if n.endswith("running_mean")]
+    variances = [p for n, p in params.items() if n.endswith("running_var")]
+    moved_mean = float(min(m.float().abs().max() for m in means))
+    moved_var = float(min((v.float() - 1).abs().max() for v in variances))
+    if not (moved_mean > 0 and moved_var > 0 and all(
+            torch.isfinite(t).all() for t in means + variances)):
+        fail("running statistics did not move or are not finite")
+    masters = {trainer._states[i][0].dtype for i in trainer._states}
+    if masters != {torch.float32}:
+        fail("multi_precision masters are not float32: %s" % masters)
+
+    def captured():
+        return program(x, y)
+
+    def stitched():
+        return program._stitched((x,), (y,), B)
+
+    stitched().sum().item()   # the stitched path's own first step
+    times = _turns(torch, {"captured": captured, "stitched": stitched}, 5, 2)
+    med = {n: float(np.median(v)) for n, v in times.items()}
+    flops = 3 * flops_img * B
+    torch.cuda.reset_peak_memory_stats()
+    captured().sum().item()
+    peak_c = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stitched().sum().item()
+    peak_s = torch.cuda.max_memory_allocated()
+    split_c = profile_split(torch, captured, 2, _resnet_kernel_class)
+    split_s = profile_split(torch, stitched, 2, _resnet_kernel_class)
+    del program, trainer, net
+    torch.cuda.empty_cache()
+
+    # bench.py's parity: fresh models, PARITY_STEPS captured steps against
+    # as many stitched ones
+    net_p, tr_p, _ = build()
+    prog_p = tr_p.capture(net_p, loss_fn)
+    net_q, tr_q, _ = build()
+    for _ in range(parity_steps):
+        prog_p(x, y)
+        with mx.autograd.record():
+            loss = loss_fn(net_q(x), y)
+        mx.autograd.backward(loss)
+        tr_q.step(B)
+    worst, bitwise = 0.0, True
+    qp = net_q.collect_params()
+    for k, p in net_p.collect_params().items():
+        a, b = qp[k].detach().float(), p.detach().float()
+        if not torch.equal(a, b):
+            bitwise = False
+            worst = max(worst, ((a - b).abs() / (a.abs() + 1e-8))
+                        .max().item())
+    _program_report(prog_p, parity_steps)
+    del prog_p, tr_p, net_p, tr_q, net_q
+    torch.cuda.empty_cache()
+    emit({"phase": "train_captured_resnet", "model": "resnet50_v1",
+          "trainer": "gluon.Trainer.capture", "dtype": "bfloat16",
+          "multi_precision": True, "batch": B, "image": [3, hw, hw],
+          "classes": classes, "optimizer": "sgd", "lr": 0.05,
+          "momentum": 0.9, "steps": steps, "losses": losses,
+          "launches": launches, "first_step_s": first_s,
+          "capture_s": capture_s, "graph_pool_bytes": graph_pool,
+          "step_ms": times, "step_ms_median": med,
+          "img_per_s": {n: B / (v / 1e3) for n, v in med.items()},
+          "fwd_flops_per_image": flops_img, "flops_per_step": flops,
+          "mfu": {n: flops / (v / 1e3) / PEAK_FLOPS["bfloat16"]
+                  for n, v in med.items()},
+          "max_memory_allocated_bytes": {"captured": peak_c,
+                                         "stitched": peak_s},
+          "captured_peak_bytes": peak_c + graph_pool,
+          "profile": {"captured": split_c, "stitched": split_s},
+          "idle_share_at_median": {
+              n: (None if sp.get("device_busy_ms") is None
+                  else 1.0 - sp["device_busy_ms"] / med[n])
+              for n, sp in (("captured", split_c), ("stitched", split_s))},
+          "running_stats_moved": {"min_max_abs_mean": moved_mean,
+                                  "min_max_abs_var_minus_1": moved_var},
+          "parity": {"steps": parity_steps, "bitwise": bitwise,
+                     "worst_rel_diff": worst},
+          "model_build_s": t_build, "card": smi})
+    return launches
+
+
 def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
     """One kernel route's summary from its case: ``bound_key`` None for
     the forward's bound (``bound_ms``), else "dq"/"dkv"; ``errs`` the
@@ -1386,6 +1852,8 @@ def main():
     train_launches = phase_train(torch, mx, fa, args.seed, smi)
     bf16_launches = phase_train_bf16(torch, mx, fa, args.seed, smi)
     resnet_launches = phase_train_resnet(torch, mx, fa, args.seed, smi)
+    captured_launches = phase_train_captured(torch, mx, fa, args.seed, smi)
+    phase_train_captured_resnet(torch, mx, fa, args.seed, smi)
 
     # each route's numbers at its main path's shape, not causal: f32 at
     # (8, 12, 512, 512, 64), the forward as served (no dropout), the
@@ -1400,7 +1868,8 @@ def main():
     route_cases = {"float32": (8, 0.0), "bfloat16": (16, DROPOUT_P),
                    "float16": (8, 0.0)}
     fwd_launches = {"float32": serve_launches
-                    + train_launches["flash_attention"],
+                    + train_launches["flash_attention"]
+                    + captured_launches["flash_attention"],
                     "bfloat16": bf16_launches["flash_attention"],
                     "float16": 0}
     routes = {dname: _kernel_entry(
@@ -1412,10 +1881,12 @@ def main():
     entries[0]["launches_by_path"] = {
         "serve": serve_launches, "train": train_launches["flash_attention"],
         "train_bf16": bf16_launches["flash_attention"],
-        "train_resnet": resnet_launches["flash_attention"]}
+        "train_resnet": resnet_launches["flash_attention"],
+        "train_captured_recorded": captured_launches["flash_attention"]}
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
-        launches = {"float32": train_launches[kname],
+        launches = {"float32": train_launches[kname]
+                    + captured_launches[kname],
                     "bfloat16": bf16_launches[kname], "float16": 0}
         routes = {dname: _kernel_entry(
             kname, launches[dname],
@@ -1427,7 +1898,8 @@ def main():
         entries[-1]["launches_by_path"] = {
             "train": train_launches[kname],
             "train_bf16": bf16_launches[kname],
-            "train_resnet": resnet_launches[kname]}
+            "train_resnet": resnet_launches[kname],
+            "train_captured_recorded": captured_launches[kname]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

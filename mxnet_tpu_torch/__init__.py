@@ -2,8 +2,9 @@
 
 This package sits beside ``mxnet_tpu/`` (the JAX reference) and ports it
 slice by slice.  It serves BERT-base through ``serve.Server`` and trains it
-through ``autograd.record()``, ``backward()`` and ``gluon.Trainer``, or in
-bf16 through ``parallel.FusedTrainer``; every
+through ``autograd.record()``, ``backward()`` and ``gluon.Trainer`` (whose
+grouped apply and whole step ``trainer.capture`` turns into one CUDA
+graph, ``mx.step``), or in bf16 through ``parallel.FusedTrainer``; every
 attention call on those paths runs hand-written CUDA flash-attention
 kernels (``csrc/flash_fwd.cu``, and ``csrc/flash_bwd.cu`` for the
 gradients).
@@ -25,8 +26,8 @@ Ground rules:
   or raises; only a CPU tensor takes the kernel's plain PyTorch version.
 """
 from . import (autograd, base, context, contrib, convert, gluon,  # noqa: F401
-               initializer, ops, optimizer, parallel, random, serve,
-               telemetry, trace)
+               initializer, kvstore, monitor, ops, optimizer, parallel,
+               random, serve, step, telemetry, trace)
 from .optimizer import lr_scheduler  # noqa: F401  (mx.lr_scheduler)
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, current_context, gpu  # noqa: F401

@@ -23,12 +23,14 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "backward", "grad"]
+           "is_training", "is_recomputing", "recomputing", "backward",
+           "grad"]
 
 
 class _State(threading.local):
     is_recording = False
     is_training = False
+    is_recomputing = False
 
 
 _STATE = _State()
@@ -40,6 +42,25 @@ def is_recording():
 
 def is_training():
     return _STATE.is_training
+
+
+def is_recomputing():
+    """Whether the forward running now is an activation recompute (the
+    backward of a ``torch.utils.checkpoint`` region): layers that write
+    state in their forward (BatchNorm's running statistics) skip the
+    write, which the first run already made."""
+    return _STATE.is_recomputing
+
+
+@contextlib.contextmanager
+def recomputing(flag=True):
+    """Scope in which ``is_recomputing()`` is ``flag``."""
+    prev = _STATE.is_recomputing
+    _STATE.is_recomputing = flag
+    try:
+        yield
+    finally:
+        _STATE.is_recomputing = prev
 
 
 @contextlib.contextmanager
@@ -92,10 +113,12 @@ def _check_heads(heads):
 
 def backward(heads, head_grads=None, retain_graph=False):
     """Accumulate d(heads)/d(parameter) into each parameter's ``.grad``
-    (``head_grads`` default to ones)."""
+    (``head_grads`` default to ones, so a head that is not a scalar, such
+    as a per-example loss, backpropagates its sum)."""
     heads = _as_list(heads)
     _check_heads(heads)
-    grads = None if head_grads is None else _as_list(head_grads)
+    grads = ([torch.ones_like(h) for h in heads] if head_grads is None
+             else _as_list(head_grads))
     torch.autograd.backward(heads, grads, retain_graph=retain_graph)
 
 

@@ -284,7 +284,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // causal: query tiles wholly before this key tile see none of its keys
   const int lo = causal ? min(k0 / kBlockM, nq) : 0;
   const int key_a = k0 + m0 + g, key_b = key_a + 8;  // accumulator rows
-  const uint32_t bh_key = kDropout ? drop_bh_key(drop.seed, bh) : 0u;
+  const uint32_t bh_key = kDropout ? drop_bh_key(drop, bh) : 0u;
 
   for (int c0 = 0; c0 < D; c0 += kDC) {
     float acc_k[kDT][4], acc_v[kDT][4];
@@ -447,7 +447,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row[2] = {q0 + m0 + g, q0 + m0 + g + 8};
   float lr[2], dr[2];
   uint32_t rk[2] = {0u, 0u};
-  const uint32_t bh_key = kDropout ? drop_bh_key(drop.seed, bh) : 0u;
+  const uint32_t bh_key = kDropout ? drop_bh_key(drop, bh) : 0u;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const bool ok = row[h] < Tq;
@@ -579,7 +579,7 @@ cudaError_t dispatch(const Args& a, cudaStream_t stream) {
 template <bool kDkv>
 int run(const Args& a, int dtype, int dropout, int device, void* stream) {
   if (a.D <= 0 || a.D > 256 || a.D % 8 != 0 || a.bh <= 0 || a.Tq <= 0 ||
-      a.Tk <= 0)
+      a.Tk <= 0 || (dropout && a.drop.seed == nullptr))
     return (int)cudaErrorInvalidValue;
   // rows are D * sizeof(T) bytes apart, a multiple of 16: the 16-byte
   // cp.async copies (and the paired stores) then need only aligned bases
@@ -611,15 +611,16 @@ int run(const Args& a, int dtype, int dropout, int device, void* stream) {
 // Plain C entry points, bound with ctypes.  q/dout/dq: contiguous
 // (B*H, Tq, D); k/v/dk/dv: (B*H, Tk, D), all of dtype 0 = float32,
 // 1 = bfloat16 or 2 = float16, starting on a 16-byte boundary; lse, delta: (B*H, Tq)
-// float32.  dropout != 0 regenerates the forward's mask from (seed,
-// thresh) and scales kept terms by inv_keep.  Each launches on `stream` of
+// float32.  dropout != 0 regenerates the forward's mask from (the seed at
+// `seed` in device memory, thresh) and scales kept terms by inv_keep.  Each launches on `stream` of
 // `device` and returns cudaGetLastError() (0 on success).
 extern "C" int mx_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, int bh, int Tq,
                                int Tk, int D, float scale, int causal,
                                int dtype, int dropout,
-                               unsigned long long seed, unsigned int thresh,
+                               const unsigned long long* seed,
+                               unsigned int thresh,
                                float inv_keep, int device, void* stream) {
   const Args a{q,  k,  v,  dout, lse,   delta,  dq,
                nullptr, bh, Tq, Tk, D, scale, causal,
@@ -632,7 +633,8 @@ extern "C" int mx_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* delta, void* dk, void* dv,
                                 int bh, int Tq, int Tk, int D, float scale,
                                 int causal, int dtype, int dropout,
-                                unsigned long long seed, unsigned int thresh,
+                                const unsigned long long* seed,
+                               unsigned int thresh,
                                 float inv_keep, int device, void* stream) {
   const Args a{q,  k,  v,  dout, lse,   delta,  dk,    dv,
                bh, Tq, Tk, D,    scale, causal, Dropout{seed, thresh, inv_keep}};

@@ -15,7 +15,7 @@
 // kept when bits < uint32((1 - p) * (2^32 - 1)), the TPU kernel's threshold.
 // mxnet_tpu_torch/ops/flash_attention.py:dropout_keep_mask computes the same
 // bits with integer tensor ops; the tests and chip_smoke.py hold the two
-// together.
+// together.  The seed lives in device memory (Dropout::seed).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,11 +63,18 @@ __device__ __forceinline__ bool drop_keep(uint32_t row_key, int col,
   return fmix32(row_key + (uint32_t)col * kGolden) < thresh;
 }
 
-// Dropout parameters handed from the host: threshold and 1 / (1 - p).
+// Dropout parameters handed from the host: the seed's address in device
+// memory (read by the kernel, so a launch captured into a CUDA graph sees
+// the seed its replay drew), the keep threshold and 1 / (1 - p).
 struct Dropout {
-  unsigned long long seed;
+  const unsigned long long* seed;
   uint32_t thresh;
   float inv_keep;
 };
+
+__device__ __forceinline__ uint32_t drop_bh_key(const Dropout& drop,
+                                                uint32_t bh) {
+  return drop_bh_key(__ldg(drop.seed), bh);
+}
 
 }  // namespace mxflash

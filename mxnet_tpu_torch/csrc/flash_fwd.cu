@@ -170,7 +170,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
   uint32_t key_a = 0u, key_b = 0u;
   if (kDropout) {
-    const uint32_t bh_key = drop_bh_key(drop.seed, bh);
+    const uint32_t bh_key = drop_bh_key(drop, bh);
     key_a = drop_row_key(bh_key, row_a);
     key_b = drop_row_key(bh_key, row_b);
   }
@@ -397,16 +397,17 @@ cudaError_t dispatch_dropout(const void* q, const void* k, const void* v,
 
 // Plain C entry point, bound with ctypes.  q/k/v/o: contiguous (B*H, T, D)
 // of dtype 0 = float32, 1 = bfloat16 or 2 = float16; lse: (B*H, Tq) float32.  dropout != 0
-// drops attention probabilities with the mask of flash_common.cuh (seed,
-// keep threshold, 1 / (1 - p)).  Launches on `stream` of `device` and
+// drops attention probabilities with the mask of flash_common.cuh (the
+// address of the 64-bit seed in device memory, keep threshold, 1 / (1 - p)).  Launches on `stream` of `device` and
 // returns cudaGetLastError() (0 on success).
 extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int Tq, int Tk,
                             int D, float scale, int causal, int dtype,
-                            int dropout, unsigned long long seed,
+                            int dropout, const unsigned long long* seed,
                             unsigned int thresh, float inv_keep, int device,
                             void* stream) {
-  if (D <= 0 || D > 256 || D % 8 != 0 || bh <= 0 || Tq <= 0 || Tk <= 0)
+  if (D <= 0 || D > 256 || D % 8 != 0 || bh <= 0 || Tq <= 0 || Tk <= 0 ||
+      (dropout && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   // rows are D * sizeof(T) bytes apart, a multiple of 16: the 16-byte
   // cp.async copies (and the paired stores of O) then need only aligned bases

@@ -60,6 +60,20 @@ class Block(nn.Module):
             elif param.grad is not None:
                 param.grad.zero_()
 
+    def cast(self, dtype):
+        """Cast every parameter to ``dtype`` in place (the objects stay
+        the ones the block holds), then tell each child (``_on_cast``)."""
+        for param in self.collect_params().values():
+            param.cast(dtype)
+        for child in self.children():
+            child._on_cast(dtype)
+
+    def _on_cast(self, dtype):
+        """Hook run after ``cast``: a block that keeps dtype-dependent
+        state beside its parameters overrides it."""
+        for child in self.children():
+            child._on_cast(dtype)
+
     def register_child(self, block, name=None):
         name = name or str(len(self._modules))
         self.add_module(name, block)

@@ -165,7 +165,7 @@ class BatchNorm(_Resolving):
             fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
             training=training)
-        if training:
+        if training and not autograd.is_recomputing():
             with torch.no_grad():
                 self.running_mean.copy_(new_mean)
                 self.running_var.copy_(new_var)

@@ -29,7 +29,9 @@ class MultiHeadAttention(HybridBlock):
     forward(query, key=None, value=None, mask=None): key/value default to
     query.  ``mask`` broadcasts against (B, H, Tq, Tk).  ``dropout`` drops
     attention probabilities while ``autograd.is_training()``; long
-    sequences take it inside the flash kernels."""
+    sequences take it inside the flash kernels.  Each call draws its
+    dropout seed on the inputs' device (``random.draw_seed``), so a
+    captured training step draws a fresh mask on every replay."""
 
     def __init__(self, units, num_heads, dropout=0.0, use_bias=True,
                  causal=False, attention_impl="auto", in_units=0, **kwargs):
@@ -57,7 +59,7 @@ class MultiHeadAttention(HybridBlock):
         drop = {}
         if self._dropout > 0.0 and autograd.is_training():
             drop = dict(attn_dropout=self._dropout,
-                        dropout_seed=_random.take_key())
+                        dropout_seed=_random.draw_seed(query.device))
         out = F.multi_head_attention(
             self.query_proj(query), self.key_proj(key),
             self.value_proj(value), num_heads=self._num_heads, mask=mask,

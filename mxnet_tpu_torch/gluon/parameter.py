@@ -148,6 +148,14 @@ class Parameter(torch.nn.Parameter):
         self._initialized = True
         self._deferred = None
 
+    def cast(self, dtype):
+        """Give the parameter ``dtype`` in place (its gradient is dropped);
+        a deferred parameter keeps the dtype for when it is shaped."""
+        if isinstance(dtype, str):
+            dtype = getattr(torch, dtype)
+        self.data = self.data.to(dtype)
+        self.grad = None
+
     def zero_grad(self):
         if self.grad is not None:
             self.grad.zero_()

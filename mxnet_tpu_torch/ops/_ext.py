@@ -93,8 +93,9 @@ def bind(lib):
     """Declare the C entry points' signatures on a loaded ``ctypes``
     library; returns ``lib``."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # dropout flag, seed, keep threshold, 1 / keep
-    drop = [ci, ctypes.c_uint64, ctypes.c_uint32, cf]
+    # dropout flag, the seed's address in device memory, keep threshold,
+    # 1 / keep
+    drop = [ci, vp, ctypes.c_uint32, cf]
     sigs = {"mx_flash_fwd": [vp] * 5 + [ci] * 4 + [cf, ci, ci],
             "mx_flash_bwd_dq": [vp] * 7 + [ci] * 4 + [cf, ci, ci],
             "mx_flash_bwd_dkv": [vp] * 8 + [ci] * 4 + [cf, ci, ci]}

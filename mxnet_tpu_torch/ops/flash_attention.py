@@ -36,6 +36,10 @@ undropped mass.  Its keep bit is a counter-based hash of the absolute
 the mask is independent of the kernels' tile sizes, is regenerated by all
 three kernels and never stored; ``dropout_keep_mask`` computes the same
 bits with integer tensor ops.  Its bits do not match the TPU generator's.
+The kernels read the 64-bit seed from device memory: a seed given as an
+int64 tensor on the card (``random.draw_seed``) is read where it lies, so
+a step captured into a CUDA graph draws a new mask on every replay; an
+int seed is copied to the card first.  The plain versions take either.
 """
 from __future__ import annotations
 
@@ -83,12 +87,23 @@ def _keep_threshold(p):
     return int((1.0 - p) * float(2 ** 32 - 1))
 
 
+def _seed_halves(seed):
+    """(low, high) 32-bit halves of a 64-bit seed: an int, or a 0-dim (or
+    one-element) int64 tensor holding its bits, split on its device."""
+    if isinstance(seed, torch.Tensor):
+        s = seed.reshape(()).to(torch.int64)
+        return s & _MASK32, (s >> 32) & _MASK32
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return s & _MASK32, s >> 32
+
+
 def _keep_bits(seed, bh, rows, cols):
     """Hash bits for every (bh, row, col): int64 (len(bh), len(rows),
-    len(cols)) in [0, 2^32).  bh, rows, cols: 1-D int64 tensors."""
-    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
-    h = _fmix32((seed & _MASK32) ^ _GOLDEN)
-    h = _fmix32(h ^ (seed >> 32))
+    len(cols)) in [0, 2^32).  bh, rows, cols: 1-D int64 tensors; seed an
+    int or an int64 tensor (``_seed_halves``)."""
+    lo, hi = _seed_halves(seed)
+    h = _fmix32(lo ^ _GOLDEN)
+    h = _fmix32(h ^ hi)
     bh_key = _fmix32(h ^ bh)                                  # (BH,)
     row_key = _fmix32(bh_key[:, None] ^ rows[None, :])        # (BH, Tq)
     col = _mul32(cols, _GOLDEN)                               # (Tk,)
@@ -98,7 +113,8 @@ def _keep_bits(seed, bh, rows, cols):
 def dropout_keep_mask(seed, BH, Tq, Tk, p, device=None, col0=0):
     """The kernels' keep mask: bool (BH, Tq, Tk), True where the attention
     probability of (batch*head, query row, key column + col0) is kept at
-    dropout rate ``p`` with 64-bit ``seed``."""
+    dropout rate ``p`` with 64-bit ``seed`` (an int, or an int64 tensor
+    on ``device`` holding its bits)."""
     def ar(n, start=0):
         return torch.arange(start, start + n, dtype=torch.int64,
                             device=device)
@@ -269,14 +285,34 @@ def _check_rows(name, ts, B, H, Tq):
                              % (name, t.dtype, tuple(t.shape), t.device))
 
 
-def _dropout_args(dropout_p, seed):
-    """(flag, seed, keep threshold, 1 / keep) for the C entry points."""
+def _seed_tensor(seed, device):
+    """The seed as a one-element int64 tensor on ``device``, the memory the
+    kernels read it from: a tensor seed is checked and used as it is
+    (nothing is read back to the host, so a captured launch sees each
+    replay's seed); an int seed is copied there."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1 or \
+                seed.device != device:
+            raise MXNetError("dropout seed must be one int64 on %s (got "
+                             "%s %s on %s)" % (device, seed.dtype,
+                                               tuple(seed.shape),
+                                               seed.device))
+        return seed.contiguous()
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return torch.tensor(s - (1 << 64) if s >> 63 else s, dtype=torch.int64,
+                        device=device)
+
+
+def _dropout_args(dropout_p, seed, device):
+    """((flag, seed address, keep threshold, 1 / keep) for the C entry
+    points, the seed tensor the address points into)."""
     if not 0.0 <= dropout_p < 1.0:
         raise MXNetError("dropout_p must lie in [0, 1), got %r" % dropout_p)
     if dropout_p == 0.0:
-        return 0, 0, 0, ctypes.c_float(1.0)
-    return (1, int(seed) & 0xFFFFFFFFFFFFFFFF, _keep_threshold(dropout_p),
-            ctypes.c_float(1.0 / (1.0 - dropout_p)))
+        return (0, None, 0, ctypes.c_float(1.0)), None
+    st = _seed_tensor(seed, device)
+    return ((1, st.data_ptr(), _keep_threshold(dropout_p),
+             ctypes.c_float(1.0 / (1.0 - dropout_p))), st)
 
 
 def _launch(name, fn, *args):
@@ -315,7 +351,8 @@ def _flash_forward(q, k, v, causal, scale, dropout_p, seed):
                 ((B, H, Tq, D), (B, H, Tk, D), (B, H, Tk, D)))
     q, k, v = _pad_head_dim(q, k, v)
     _check_aligned("flash_attention", "q, k and v", (q, k, v))
-    drop = _dropout_args(dropout_p, seed)
+    # seed_mem holds the seed's memory until the launch is enqueued
+    drop, seed_mem = _dropout_args(dropout_p, seed, q.device)
     lib = _ext.load()
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
@@ -357,7 +394,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, scale=None,
 
     (q, k, v, do), (B, H, Tq, Tk, D) = _bwd_args("flash_bwd_dq", q, k, v,
                                                  do, lse, delta)
-    drop = _dropout_args(dropout_p, seed)
+    # seed_mem holds the seed's memory until the launch is enqueued
+    drop, seed_mem = _dropout_args(dropout_p, seed, q.device)
     lib = _ext.load()
     dq = torch.empty_like(q)
     stream = _stream(q)
@@ -387,7 +425,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
 
     (q, k, v, do), (B, H, Tq, Tk, D) = _bwd_args("flash_bwd_dkv", q, k, v,
                                                  do, lse, delta)
-    drop = _dropout_args(dropout_p, seed)
+    # seed_mem holds the seed's memory until the launch is enqueued
+    drop, seed_mem = _dropout_args(dropout_p, seed, q.device)
     lib = _ext.load()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -423,7 +462,8 @@ def _flash_backward(ctx, do, dlse=None):
 
 class _FlashAttention(torch.autograd.Function):
     """Forward: the flash kernel -> O, saving q, k, v, O and the LSE (the
-    seed rides along, so the backward regenerates the mask).  Backward: Δ,
+    seed, int or device tensor, rides along, so the backward regenerates
+    the mask from the same one).  Backward: Δ,
     then the dq and dk/dv kernels."""
 
     @staticmethod
@@ -463,10 +503,14 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, dropout_p=0.0,
     float32, bfloat16 or float16 with D <= 256 (a D that is no multiple of
     8 is zero-padded for the launch); anything else raises.
     ``dropout_p`` drops attention probabilities with the mask of 64-bit
-    ``seed`` (``dropout_keep_mask``).  ``flash_attention.launches`` counts
+    ``seed`` (``dropout_keep_mask``): an int, or an int64 tensor on q's
+    device that the kernels read (``random.draw_seed``); forward and
+    backward read the same one.  ``flash_attention.launches`` counts
     forward kernel launches."""
+    if not isinstance(seed, torch.Tensor):
+        seed = int(seed)
     return _FlashAttention.apply(q, k, v, bool(causal), _scale(q, sm_scale),
-                                 float(dropout_p), int(seed))
+                                 float(dropout_p), seed)
 
 
 flash_attention.launches = 0

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from ..base import MXNetError
 from . import flash_attention as fa
 
@@ -120,12 +121,14 @@ def embedding(indices, weight):
 def dropout(x, p=0.5, generator=None):
     """Inverted dropout: zero each element with probability ``p`` and scale
     the rest by 1/(1-p).  The mask is drawn from ``generator`` (on x's
-    device; the port's ``random.generator``).  The caller decides whether
+    device; the port's ``random.generator``; inside a ``random.replayable``
+    scope the draw is recorded or replayed).  The caller decides whether
     it is training: this op always drops."""
     if p <= 0.0:
         return x
     keep = 1.0 - p
-    mask = torch.bernoulli(torch.full_like(x, keep), generator=generator)
+    mask = _random.draw(lambda: torch.bernoulli(torch.full_like(x, keep),
+                                                generator=generator))
     return x * mask / keep
 
 
@@ -173,9 +176,11 @@ def multi_head_attention(q, k, v, num_heads=1, mask=None, scale=None,
     impl: 'auto' | 'dense' | 'flash' (blockwise) | 'pallas' (the flash
     kernels; the name is kept from the JAX package, where that path is the
     Pallas kernels).  'auto' takes the kernels when ``use_flash`` says so,
-    dropout included.  ``attn_dropout`` (with a 64-bit ``dropout_seed``,
-    e.g. ``random.take_key()``) drops attention probabilities after the
-    softmax; every impl uses the kernels' mask (``dropout_keep_mask``)."""
+    dropout included.  ``attn_dropout`` (with a 64-bit ``dropout_seed``:
+    an int, or an int64 tensor on the inputs' device such as
+    ``random.draw_seed(device)``, which no impl reads back to the host)
+    drops attention probabilities after the softmax; every impl uses the
+    kernels' mask (``dropout_keep_mask``)."""
     B, Tq, HD = q.shape
     Tk = k.shape[1]
     D = HD // num_heads
@@ -185,8 +190,8 @@ def multi_head_attention(q, k, v, num_heads=1, mask=None, scale=None,
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     if attn_dropout > 0.0 and dropout_seed is None:
         raise MXNetError("attn_dropout > 0 requires dropout_seed (draw one "
-                         "with mxnet_tpu_torch.random.take_key())")
-    seed = dropout_seed or 0
+                         "with mxnet_tpu_torch.random.draw_seed(device))")
+    seed = 0 if dropout_seed is None else dropout_seed
     if impl == "auto":
         impl = "pallas" if fa.use_flash(Tq, Tk, D, mask is not None) \
             else "dense"

@@ -1,8 +1,11 @@
 """Runtime telemetry: the ``serve_*`` counters, gauges and histograms.
 
 A cut copy of ``mxnet_tpu/telemetry.py``: the registry and metric kinds,
-``totals``/``value`` readers, and only the metrics that
-``serve/{batching,runner,server,breaker}.py`` touch.  Disabled cost is one
+``totals``/``value`` readers, and only the metrics the port feeds: those
+of ``serve/{batching,runner,server,breaker}.py``, of the imperative
+``gluon.Trainer``'s grouped apply (``optimizer/multi_tensor.py``), of the
+bucket planner (``kvstore/collective.py``), of ``monitor/`` and of the
+whole-step capture (``step/capture.py``), under the JAX package's names.  Disabled cost is one
 boolean check per hook (``if telemetry.ENABLED:``);
 ``MXNET_TELEMETRY_DISABLE=1`` flips it at import.
 """
@@ -278,3 +281,92 @@ SERVE_BREAKER_TRIPS = counter(
     "serve_breaker_trips_total",
     "circuit breaker openings (bucket quarantined after repeated "
     "dispatch failures)", ("bucket",))
+
+# collectives: the bucket plan a captured step feeds in a world of more
+# than one (``kvstore/collective.py:observe_bucket_fill``)
+COLLECTIVE_CALLS = counter(
+    "collective_calls_total", "collective programs dispatched", ("op",))
+COLLECTIVE_BYTES = counter(
+    "collective_bytes_total", "bytes moved by collectives", ("op",))
+ALLREDUCE_BUCKET_FILL = histogram(
+    "allreduce_bucket_fill",
+    "fill fraction of each fused all-reduce bucket relative to "
+    "MXNET_KVSTORE_BUCKET_BYTES (>1 = one oversized array)",
+    buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 1.0, 1.5, 2.0))
+# the imperative Trainer's grouped apply (optimizer/multi_tensor.py): one
+# multi-tensor rule per parameter group a step; per-parameter eager
+# updates are counted by reason
+TRAINER_FUSED_GROUPS = gauge(
+    "trainer_fused_groups",
+    "multi-tensor update groups in the last imperative Trainer step")
+TRAINER_FUSED_APPLY = counter(
+    "trainer_fused_apply_total",
+    "grouped multi-tensor updates run", ("optimizer",))
+TRAINER_FUSED_BUILDS = counter(
+    "trainer_fused_builds_total",
+    "multi-tensor group builds (slot buffer and member signature)",
+    ("optimizer",))
+TRAINER_EAGER_UPDATES = counter(
+    "trainer_eager_updates_total",
+    "per-parameter eager optimizer updates (multi-tensor fallback)",
+    ("reason",))
+TRAINER_UPDATE_SECONDS = histogram(
+    "trainer_update_seconds",
+    "imperative Trainer optimizer-apply host latency per step")
+# mx.monitor (monitor/): per-group health numerics, published on the
+# training thread (the publisher thread is not ported)
+MONITOR_STAT_PROGRAMS = counter(
+    "monitor_stat_programs_total",
+    "stat reductions dispatched (groups x observed steps)")
+MONITOR_GRAD_NORM = gauge(
+    "monitor_grad_norm", "last observed per-group gradient L2 norm",
+    ("group",))
+MONITOR_WEIGHT_NORM = gauge(
+    "monitor_weight_norm", "last observed per-group weight L2 norm",
+    ("group",))
+MONITOR_GRAD_MAX = gauge(
+    "monitor_grad_max_abs", "last observed per-group max |grad|",
+    ("group",))
+MONITOR_WEIGHT_MAX = gauge(
+    "monitor_weight_max_abs", "last observed per-group max |weight|",
+    ("group",))
+MONITOR_GRAD_GLOBAL_NORM = gauge(
+    "monitor_grad_global_norm",
+    "last observed global gradient L2 norm (sqrt of the per-group "
+    "squared-norm sum)")
+MONITOR_NONFINITE = counter(
+    "monitor_nonfinite_total",
+    "nonfinite (NaN/Inf) elements observed", ("kind", "group"))
+MONITOR_NONFINITE_STEPS = counter(
+    "monitor_nonfinite_steps_total",
+    "observed steps with at least one nonfinite gradient element")
+MONITOR_SKIPPED_STEPS = counter(
+    "monitor_skipped_steps_total",
+    "trainer steps skipped whole by the nonfinite sentinel "
+    "(policy=skip_step; params/optimizer state untouched)")
+MONITOR_SENTINEL_TRIPS = counter(
+    "monitor_sentinel_trips_total",
+    "nonfinite sentinel trips by the policy in force", ("policy",))
+MONITOR_FETCH_SECONDS = histogram(
+    "monitor_fetch_seconds",
+    "device->host stat vector fetch latency")
+# mx.step (step/): the whole training step as one CUDA graph on the card
+# (eager on the CPU); the stitched imperative path stays the fallback,
+# counted by reason
+STEP_CAPTURE_BUILDS = counter(
+    "step_capture_builds_total",
+    "whole-step program builds (one per input signature, optimizer "
+    "hyper-parameters, monitor mode and remat policy)")
+STEP_CAPTURE_STEPS = counter(
+    "step_capture_steps_total",
+    "training steps executed through mx.step, by path (captured = the "
+    "whole-step program; stitched = the imperative forward/backward/"
+    "Trainer.step sequence)", ("path",))
+STEP_CAPTURE_FALLBACKS = counter(
+    "step_capture_fallback_total",
+    "captured-step degradations to the stitched path, by reason (the "
+    "step is still applied)", ("reason",))
+STEP_PROGRAM_SECONDS = histogram(
+    "step_program_seconds",
+    "captured whole-step host latency per step (slots, input copies, "
+    "replay and bookkeeping; the card runs asynchronously)")

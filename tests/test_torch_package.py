@@ -356,3 +356,73 @@ def test_vision_blocks_without_ctx_want_the_card(monkeypatch, make):
     blk.initialize(ctx=mx.cpu())
     assert all(p.device.type == "cpu"
                for p in blk.collect_params().values())
+
+
+_CHIP_SMOKE_PROBE = """
+import json, sys
+sys.path.insert(0, %r)
+import chip_smoke
+import mxnet_tpu_torch.step.capture, mxnet_tpu_torch.monitor.core
+import mxnet_tpu_torch.optimizer.multi_tensor, mxnet_tpu_torch.kvstore.collective
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+print(json.dumps({"bad": bad, "phases": sorted(
+    n for n in dir(chip_smoke) if n.startswith("phase_"))}))
+"""
+
+
+def test_chip_smoke_and_step_modules_pull_in_no_jax():
+    """``chip_smoke.py`` and the modules of whole-step capture (the
+    grouped apply, the monitor, the bucket planner) import neither JAX
+    nor the JAX package; the script has its captured phases."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _CHIP_SMOKE_PROBE
+                          % str(ROOT)], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    assert {"phase_train_captured", "phase_train_captured_resnet"} \
+        <= set(res["phases"])
+
+
+@pytest.mark.parametrize("kind", ["int", "tensor"])
+def test_dropout_seed_reaches_the_kernels_by_address(monkeypatch, kind):
+    """The kernels read the dropout seed from memory: the wrappers hand
+    the C entry points the address of a one-element int64 holding it --
+    the caller's own tensor where the seed is one (no copy, no host read),
+    else a copy of the int -- and the forward and backward read the same
+    seed."""
+    seen = []
+
+    def note(flag, addr):   # read while the launch's memory is alive
+        seen.append((flag, addr,
+                     _host_view(addr, (1,), torch.int64).item()))
+
+    class Lib(_HostKernels):
+        def mx_flash_fwd(self, *args):
+            note(*args[12:14])
+            return super().mx_flash_fwd(*args)
+
+        def mx_flash_bwd_dq(self, *args):
+            note(*args[14:16])
+            return super().mx_flash_bwd_dq(*args)
+
+        def mx_flash_bwd_dkv(self, *args):
+            note(*args[15:17])
+            return super().mx_flash_bwd_dkv(*args)
+
+    monkeypatch.setattr(_ext, "load", lambda: Lib())
+    monkeypatch.setattr(fa, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(fa, "_check_device", lambda name, ts: None)
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    value = 2 ** 63 + 12345          # the top bit set: a negative int64
+    seed = value if kind == "int" else fa._seed_tensor(value,
+                                                       torch.device("cpu"))
+    q, k, v = (torch.randn(1, 2, 64, 32).requires_grad_() for _ in range(3))
+    fa.flash_attention(q, k, v, dropout_p=0.1, seed=seed).sum().backward()
+    assert [flag for flag, _, _ in seen] == [1, 1, 1]
+    for _, addr, got in seen:
+        assert got & (2 ** 64 - 1) == value
+        if kind == "tensor":
+            assert addr == seed.data_ptr()
