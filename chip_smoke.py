@@ -99,6 +99,29 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    model against as many stitched ones (bitwise, worst relative
    difference).
 
+10. nd_imperative -- ``mx.nd`` on the card.  ``BASELINE.json`` config 1,
+   ``examples/mnist_mlp.py``'s MLP (784 -> 128 -> 64 -> 10, ReLU) with
+   Adam at lr 1e-3, B=256, 50 steps on a fixed synthetic set (10 class
+   prototypes plus noise, from numpy), every array an NDArray:
+   ``nd.array(batch)`` -> ``net(x)`` -> ``SoftmaxCrossEntropyLoss`` ->
+   ``.mean()`` -> ``backward()`` -> ``trainer.step(1)`` -> ``asnumpy()``;
+   the same loop on raw tensors in turns (the NDArray layer's own cost is
+   the difference of the step medians).  The loss falls and the first
+   step's gradients match the CPU within 1e-3*max(1, max|g|).  Then
+   ``nd.multi_head_attention`` on NDArrays under ``autograd.record()`` at
+   (8, 512, 768), 12 heads, ``impl='auto'``, p=0.1 with the seed drawn on
+   the card, in f32 and bf16, then ``backward()``: the forward, dq and
+   dk/dv kernels launch exactly once each, and out and the q/k/v
+   gradients equal a direct ``ops.nn.multi_head_attention`` call on the
+   same tensors and seed (bitwise, or within the kernel gates, the worst
+   difference printed).  Last, opperf's dispatch cases (``add``,
+   ``multiply``, ``dot``, ``exp``, ``softmax`` at 4x4): raw torch,
+   unrecorded and recorded ``nd``, microseconds a call beside the budget
+   (recorded <= 3x unrecorded or <= 150 us; printed, not gated); and the
+   host microseconds of ``autograd.backward``'s ``grad_req`` pass over the
+   live leaves, with no gradient held and with every MLP parameter
+   holding one (printed).
+
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero and prints no result line.  Without a card,
@@ -1791,6 +1814,271 @@ def phase_train_captured_resnet(torch, mx, fa, seed, smi):
     return launches
 
 
+# ---- phase nd_imperative: mx.nd on the card ---------------------------------
+
+ND_MLP_B, ND_MLP_STEPS = 256, 50       # BASELINE.json config 1
+ND_MHA_SHAPE, ND_MHA_HEADS = (8, 512, 768), 12   # BERT-base width
+DISPATCH_US = 150.0   # opperf's absolute budget for a recorded call
+
+
+def _nd_mlp(mx):
+    """``examples/mnist_mlp.py``'s MLP: 784 -> 128 -> 64 -> 10, ReLU."""
+    nn = mx.gluon.nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(128, activation="relu", in_units=784),
+            nn.Dense(64, activation="relu", in_units=128),
+            nn.Dense(10, in_units=64))
+    return net
+
+
+def _nd_step(mx, net, loss_fn, trainer, x, y, step=True):
+    """One step of config 1's loop: ``net(x)`` -> softmax CE -> mean ->
+    backward -> ``trainer.step(1)``; NDArrays or tensors alike."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y).mean()
+    mx.autograd.backward(loss)
+    if step:
+        trainer.step(1)
+    return loss
+
+
+def _nd_dispatch(torch, mx, iters=300, warmup=25):
+    """opperf's dispatch cases (``benchmark/opperf/opperf.py``
+    ``bench_dispatch``) at 4x4 on the card: raw torch, unrecorded ``nd``
+    and recorded ``nd``, microseconds a call (host wall time, synchronized
+    at the ends)."""
+    nd = mx.nd
+    small = np.random.RandomState(0).rand(4, 4).astype(np.float32)
+    t = torch.from_numpy(small).cuda()
+    xa, ya = nd.array(small), nd.array(small)
+    xa.attach_grad()
+
+    def timeit(f):
+        for _ in range(warmup):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            f()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e6
+
+    cases = {
+        "add": (lambda: torch.add(t, t), lambda: nd.add(xa, ya)),
+        "multiply": (lambda: torch.mul(t, t), lambda: nd.multiply(xa, ya)),
+        "dot": (lambda: t @ t, lambda: nd.dot(xa, ya)),
+        "exp": (lambda: torch.exp(t), lambda: nd.exp(xa)),
+        "softmax": (lambda: torch.softmax(t, -1),
+                    lambda: nd.softmax(xa, axis=-1)),
+    }
+    rows = {}
+    for name, (raw_fn, nd_fn) in cases.items():
+        def rec_fn(_f=nd_fn):
+            with mx.autograd.record():
+                return _f()
+
+        raw, unrec, rec = timeit(raw_fn), timeit(nd_fn), timeit(rec_fn)
+        rows[name] = {"raw_torch_us": raw, "unrecorded_us": unrec,
+                      "recorded_us": rec,
+                      "recorded_over_unrecorded": rec / unrec,
+                      "unrecorded_over_raw": unrec / raw,
+                      "within_budget": rec / unrec <= 3.0
+                      or rec <= DISPATCH_US}
+    return rows
+
+
+def _grad_req_bookkeeping(torch, mx, params, iters=1000):
+    """Host microseconds of ``autograd.backward``'s ``grad_req`` pass over
+    the leaves alive now: with no gradient held (a training loop, where
+    ``Trainer.step`` cleared them) and with every one of ``params``
+    holding one (each taken off, then given back)."""
+    ag = mx.autograd
+
+    def per_call():
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            ag._restore_unreached(ag._take_write_grads())
+        return (time.perf_counter() - t0) / iters * 1e6
+
+    none_us = per_call()
+    for p in params:
+        p.grad = torch.zeros_like(p)
+    held_us = per_call()
+    for p in params:
+        p.grad = None
+    return {"live_leaves": len(ag._LEAVES), "held": len(params),
+            "none_held_us": none_us, "all_held_us": held_us}
+
+
+def _nd_mha_case(torch, mx, fa, counters, dname, seed):
+    """``nd.multi_head_attention`` at BERT-base width on NDArrays under
+    ``autograd.record()``, p=0.1 with the seed on the card, then
+    ``backward()``: the launches it makes (counted alone), and out and the
+    q/k/v gradients against a direct ``ops.nn.multi_head_attention`` call
+    on the same tensors and seed."""
+    nd = mx.nd
+    dt = getattr(torch, dname)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(ND_MHA_SHAPE, device="cuda", generator=gen)
+                   .to(dt) for _ in range(4))
+    seed_t = mx.random.draw_seed(torch.device("cuda"))
+    kw = {"num_heads": ND_MHA_HEADS, "impl": "auto",
+          "attn_dropout": DROPOUT_P, "dropout_seed": seed_t}
+    arrs = [nd.array(t) for t in (q, k, v)]
+    for a in arrs:
+        a.attach_grad()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    with mx.autograd.record():
+        out = nd.multi_head_attention(*arrs, **kw)
+    out.backward(nd.array(do))
+    torch.cuda.synchronize()
+    launched = {c.__name__: c.launches for c in counters}
+    if list(launched.values()) != [1, 1, 1]:
+        fail("nd.multi_head_attention (%s) launched %s, want one of each "
+             "flash kernel" % (dname, launched))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = mx.ops.nn.multi_head_attention(*leaves, **kw)
+    ref.backward(do)
+    torch.cuda.synchronize()
+    tol = TOL_O[dname]
+    errs, bitwise = {}, True
+    for name, got, want in zip(("out", "dq", "dk", "dv"),
+                               [out._data] + [a.grad._data for a in arrs],
+                               [ref] + [t.grad for t in leaves]):
+        got, want = got.detach().float(), want.detach().float()
+        bitwise = bitwise and torch.equal(got, want)
+        errs[name] = ((got - want).abs().max().item()
+                      / (1.0 if name == "out"
+                         else max(1.0, want.abs().max().item())))
+        if not torch.isfinite(got).all() or errs[name] > (
+                tol if name == "out" else max(tol, TOL_GRAD)):
+            fail("nd.multi_head_attention (%s) %s differs from the direct "
+                 "call by %g" % (dname, name, errs[name]))
+
+    def nd_call():
+        with mx.autograd.record():
+            o = nd.multi_head_attention(*arrs, **kw)
+        o.backward(nd.array(do))
+
+    def direct_call():
+        o = mx.ops.nn.multi_head_attention(*leaves, **kw)
+        o.backward(do)
+
+    nd_dev, nd_host, _ = cuda_time(nd_call, 5)
+    dir_dev, dir_host, _ = cuda_time(direct_call, 5)
+    return launched, {"dtype": dname, "shape": list(ND_MHA_SHAPE),
+                      "heads": ND_MHA_HEADS, "dropout_p": DROPOUT_P,
+                      "launches": launched, "bitwise": bitwise,
+                      "max_err": errs, "tol_o": tol, "tol_grad": TOL_GRAD,
+                      "nd_fwd_bwd_ms": nd_dev, "nd_host_ms": nd_host,
+                      "direct_fwd_bwd_ms": dir_dev,
+                      "direct_host_ms": dir_host}
+
+
+def phase_nd_imperative(torch, mx, fa, seed, smi):
+    """``mx.nd`` on the card: config 1's MLP loop on NDArrays (and the same
+    loop on raw tensors), ``nd.multi_head_attention`` at BERT-base width
+    through the registry in f32 and bf16, and opperf's dispatch cases."""
+    nd = mx.nd
+    rng = np.random.default_rng(seed + 9)
+    protos = rng.random((10, 784), dtype=np.float32)
+    labels = rng.integers(0, 10, (ND_MLP_STEPS, ND_MLP_B))
+    data = np.clip(protos[labels] + 0.3 * rng.standard_normal(
+        (ND_MLP_STEPS, ND_MLP_B, 784)), 0, 1).astype(np.float32)
+    labels = labels.astype(np.float32)
+
+    mx.random.seed(seed)
+    nets = {}
+    for kind in ("nd", "raw", "cpu"):
+        net = _nd_mlp(mx)
+        net.initialize(ctx=mx.cpu() if kind == "cpu" else None)
+        nets[kind] = net
+    init = {k: p.detach().cpu().numpy()
+            for k, p in nets["nd"].collect_params().items()}
+    for kind in ("raw", "cpu"):
+        mx.convert.load_jax_params(nets[kind], init)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainers = {k: mx.gluon.Trainer(n.collect_params(), "adam",
+                                    {"learning_rate": 1e-3})
+                for k, n in nets.items()}
+
+    # the first step's gradients: the card's NDArray loop against the CPU
+    with mx.cpu():
+        _nd_step(mx, nets["cpu"], loss_fn, None, nd.array(data[0]),
+                 nd.array(labels[0]), step=False)
+    _nd_step(mx, nets["nd"], loss_fn, None, nd.array(data[0]),
+             nd.array(labels[0]), step=False)
+    grad_err = 0.0
+    card = nets["nd"].collect_params()
+    for name, p in nets["cpu"].collect_params().items():
+        err = ((card[name].grad.cpu() - p.grad).abs().max().item()
+               / max(1.0, p.grad.abs().max().item()))
+        grad_err = max(grad_err, err)
+        if err > TOL_GRAD:
+            fail("nd MLP: gradient of %s differs from the CPU by %g"
+                 % (name, err))
+    for net in nets.values():
+        net.zero_grad(set_to_none=True)
+
+    # config 1's loop, NDArray and raw-tensor steps in turns
+    losses, nd_ms, raw_ms = [], [], []
+    for i in range(ND_MLP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _nd_step(mx, nets["nd"], loss_fn, trainers["nd"],
+                        nd.array(data[i]), nd.array(labels[i]))
+        losses.append(float(loss.asnumpy()))
+        nd_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        loss = _nd_step(mx, nets["raw"], loss_fn, trainers["raw"],
+                        torch.from_numpy(data[i]).cuda(),
+                        torch.from_numpy(labels[i]).cuda())
+        loss.item()
+        raw_ms.append((time.perf_counter() - t0) * 1e3)
+    if not isinstance(loss_fn(nets["nd"](nd.array(data[0])),
+                              nd.array(labels[0])), nd.NDArray):
+        fail("a block called with NDArrays did not return NDArrays")
+    if not all(np.isfinite(losses)):
+        fail("nd MLP: nonfinite loss %s" % losses)
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        fail("nd MLP: the loss did not fall: %s" % losses)
+
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    launches = {c.__name__: {} for c in counters}
+    mha = []
+    for j, dname in enumerate(("float32", "bfloat16")):
+        launched, case = _nd_mha_case(torch, mx, fa, counters, dname,
+                                      seed + 20 + j)
+        for name, n in launched.items():
+            launches[name][dname] = n
+        mha.append(case)
+
+    dispatch = _nd_dispatch(torch, mx)
+    bookkeeping = _grad_req_bookkeeping(
+        torch, mx, [p for n in nets.values()
+                    for p in n.collect_params().values()])
+    emit({"phase": "nd_imperative", "nvidia_smi": smi,
+          "mlp": {"batch": ND_MLP_B, "steps": ND_MLP_STEPS,
+                  "optimizer": "adam", "lr": 1e-3,
+                  "losses_first_last": [losses[0], losses[-1]],
+                  "nd_step_ms_median": float(np.median(nd_ms)),
+                  "nd_step_ms_range": [min(nd_ms), max(nd_ms)],
+                  "raw_step_ms_median": float(np.median(raw_ms)),
+                  "raw_step_ms_range": [min(raw_ms), max(raw_ms)],
+                  "nd_over_raw": float(np.median(nd_ms) / np.median(raw_ms)),
+                  "grad_vs_cpu_max_rel_err": grad_err,
+                  "grad_tol": TOL_GRAD},
+          "multi_head_attention": mha,
+          "grad_req_bookkeeping": bookkeeping,
+          "dispatch_us": dispatch,
+          "dispatch_budget": "recorded <= 3x unrecorded or <= %.0f us "
+                             "(printed, not gated)" % DISPATCH_US})
+    return launches
+
+
+
 def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
     """One kernel route's summary from its case: ``bound_key`` None for
     the forward's bound (``bound_ms``), else "dq"/"dkv"; ``errs`` the
@@ -1854,6 +2142,7 @@ def main():
     resnet_launches = phase_train_resnet(torch, mx, fa, args.seed, smi)
     captured_launches = phase_train_captured(torch, mx, fa, args.seed, smi)
     phase_train_captured_resnet(torch, mx, fa, args.seed, smi)
+    nd_launches = phase_nd_imperative(torch, mx, fa, args.seed, smi)
 
     # each route's numbers at its main path's shape, not causal: f32 at
     # (8, 12, 512, 512, 64), the forward as served (no dropout), the
@@ -1867,10 +2156,13 @@ def main():
 
     route_cases = {"float32": (8, 0.0), "bfloat16": (16, DROPOUT_P),
                    "float16": (8, 0.0)}
+    nd_fwd = nd_launches["flash_attention"]
     fwd_launches = {"float32": serve_launches
                     + train_launches["flash_attention"]
-                    + captured_launches["flash_attention"],
-                    "bfloat16": bf16_launches["flash_attention"],
+                    + captured_launches["flash_attention"]
+                    + nd_fwd["float32"],
+                    "bfloat16": bf16_launches["flash_attention"]
+                    + nd_fwd["bfloat16"],
                     "float16": 0}
     routes = {dname: _kernel_entry(
         "flash_fwd", fwd_launches[dname], case(fwd_cases, B, dname, p),
@@ -1882,12 +2174,15 @@ def main():
         "serve": serve_launches, "train": train_launches["flash_attention"],
         "train_bf16": bf16_launches["flash_attention"],
         "train_resnet": resnet_launches["flash_attention"],
-        "train_captured_recorded": captured_launches["flash_attention"]}
+        "train_captured_recorded": captured_launches["flash_attention"],
+        "nd_imperative": sum(nd_fwd.values())}
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
+        nd_k = nd_launches[kname]
         launches = {"float32": train_launches[kname]
-                    + captured_launches[kname],
-                    "bfloat16": bf16_launches[kname], "float16": 0}
+                    + captured_launches[kname] + nd_k["float32"],
+                    "bfloat16": bf16_launches[kname] + nd_k["bfloat16"],
+                    "float16": 0}
         routes = {dname: _kernel_entry(
             kname, launches[dname],
             case(bwd_cases, B, dname, DROPOUT_P), short + "_ms",
@@ -1899,7 +2194,8 @@ def main():
             "train": train_launches[kname],
             "train_bf16": bf16_launches[kname],
             "train_resnet": resnet_launches[kname],
-            "train_captured_recorded": captured_launches[kname]}
+            "train_captured_recorded": captured_launches[kname],
+            "nd_imperative": sum(nd_k.values())}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

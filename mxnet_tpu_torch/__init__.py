@@ -1,7 +1,9 @@
 """mxnet_tpu_torch: the PyTorch + CUDA port of mxnet_tpu, for NVIDIA Hopper.
 
 This package sits beside ``mxnet_tpu/`` (the JAX reference) and ports it
-slice by slice.  It serves BERT-base through ``serve.Server`` and trains it
+slice by slice.  Its imperative front door is ``mx.nd``: ``NDArray``
+over one tensor, the op registry and its ops, and NDArray autograd.  It
+serves BERT-base through ``serve.Server`` and trains it
 through ``autograd.record()``, ``backward()`` and ``gluon.Trainer`` (whose
 grouped apply and whole step ``trainer.capture`` turns into one CUDA
 graph, ``mx.step``), or in bf16 through ``parallel.FusedTrainer``; every
@@ -25,9 +27,12 @@ Ground rules:
   they raise.  A CUDA tensor handed to a kernel wrapper launches the kernel
   or raises; only a CPU tensor takes the kernel's plain PyTorch version.
 """
-from . import (autograd, base, context, contrib, convert, gluon,  # noqa: F401
-               initializer, kvstore, monitor, ops, optimizer, parallel,
-               random, serve, step, telemetry, trace)
+from . import (autograd, base, context, contrib, convert, error,  # noqa: F401
+               gluon, initializer, kvstore, monitor, ndarray, ops, optimizer,
+               parallel, random, serve, step, telemetry, trace)
+from . import ndarray as nd  # noqa: F401
+from .ndarray import NDArray, waitall  # noqa: F401
 from .optimizer import lr_scheduler  # noqa: F401  (mx.lr_scheduler)
 from .base import MXNetError  # noqa: F401
-from .context import Context, cpu, current_context, gpu  # noqa: F401
+from .context import (Context, cpu, current_context, gpu,  # noqa: F401
+                      num_gpus)

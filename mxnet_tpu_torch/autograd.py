@@ -12,11 +12,26 @@ Gluon API reads, per thread:
   import or outside these scopes.
 - *training*: ``Dropout`` and attention dropout act only while it is set
   (``record()`` sets it unless ``train_mode=False``).
+
+``backward`` and ``grad`` take tensors or ``NDArray`` heads; ``grad``
+returns NDArrays for NDArray variables.  A variable is a torch leaf:
+a ``gluon.Parameter``, or the tensor of an NDArray after ``attach_grad``
+or ``mark_variables``.  Its ``grad_req`` follows the JAX package's
+``_write_grads`` (``mxnet_tpu/autograd.py:270-291``): with ``'write'`` the
+gradient of a backward replaces the one a leaf holds, with ``'add'`` it is
+summed into it, and a leaf the backward does not reach keeps its gradient.
+Torch only sums, so ``backward`` first takes the gradient off every
+``'write'`` leaf that holds one and gives it back to each leaf the
+backward left without one.  That costs one attribute check per live leaf
+(``_LEAVES``: the ``Parameter``s and attached NDArrays alive in the
+process) and no walk of the graph; in a training loop ``Trainer.step``
+has cleared the gradients, so nothing is taken.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 
 import torch
 
@@ -24,7 +39,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "is_recomputing", "recomputing", "backward",
-           "grad"]
+           "grad", "mark_variables"]
 
 
 class _State(threading.local):
@@ -103,6 +118,36 @@ def _as_list(x):
     return list(x) if isinstance(x, (list, tuple)) else [x]
 
 
+# every leaf that carries a grad_req: id -> tensor (Parameters register at
+# construction, NDArray tensors at attach_grad / mark_variables)
+_LEAVES = weakref.WeakValueDictionary()
+# the leaves of mark_variables, whose gradient lands in the caller's handle
+_HANDLED = weakref.WeakValueDictionary()
+
+
+def _register_leaf(t):
+    _LEAVES[id(t)] = t
+    return t
+
+
+def _make_leaf(t, grad_req="write", grad=None):
+    """A fresh leaf over ``t``'s values with ``grad_req`` and gradient
+    buffer ``grad`` (zeros when None), as ``attach_grad`` makes it."""
+    if grad_req not in ("write", "add", "null"):
+        raise MXNetError("grad_req must be one of write, add, null; got %r"
+                         % (grad_req,))
+    leaf = t.detach()
+    if grad_req != "null":
+        leaf.requires_grad_(True)
+    leaf.grad = torch.zeros_like(leaf) if grad is None else grad
+    leaf.grad_req = grad_req
+    return _register_leaf(leaf)
+
+
+def _tensor(x):
+    return getattr(x, "_data", x)
+
+
 def _check_heads(heads):
     for h in heads:
         if not (isinstance(h, torch.Tensor) and h.requires_grad):
@@ -111,30 +156,76 @@ def _check_heads(heads):
                 "autograd.record() (it has no graph)")
 
 
-def backward(heads, head_grads=None, retain_graph=False):
-    """Accumulate d(heads)/d(parameter) into each parameter's ``.grad``
-    (``head_grads`` default to ones, so a head that is not a scalar, such
-    as a per-example loss, backpropagates its sum)."""
-    heads = _as_list(heads)
+def _take_write_grads():
+    """Detach the gradient of every ``'write'`` leaf that holds one, so the
+    backward writes it afresh instead of summing into it; returns the
+    leaves with their old gradients, for ``_restore_unreached``."""
+    taken = []
+    for t in list(_LEAVES.values()):
+        if t.grad is not None and getattr(t, "grad_req", None) == "write":
+            taken.append((t, t.grad))
+            t.grad = None
+    return taken
+
+
+def _restore_unreached(taken):
+    """Give each leaf the backward did not reach its old gradient back."""
+    for t, old in taken:
+        if t.grad is None:
+            t.grad = old
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):  # pylint: disable=redefined-outer-name
+    """Write d(heads)/d(leaf) into the ``.grad`` of every leaf the heads
+    reach, by its ``grad_req`` (``head_grads`` default to ones, so a head
+    that is not a scalar, such as a per-example loss, backpropagates its
+    sum).  Heads and head gradients may be tensors or NDArrays."""
+    heads = [_tensor(h) for h in _as_list(heads)]
     _check_heads(heads)
     grads = ([torch.ones_like(h) for h in heads] if head_grads is None
-             else _as_list(head_grads))
-    torch.autograd.backward(heads, grads, retain_graph=retain_graph)
+             else [_tensor(g) for g in _as_list(head_grads)])
+    taken = _take_write_grads()
+    try:
+        torch.autograd.backward(heads, grads, retain_graph=retain_graph)
+    finally:
+        _restore_unreached(taken)
+    for t in list(_HANDLED.values()):
+        if t.grad is not None:
+            t._mx_grad._data = t.grad
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
-         create_graph=False):
-    """Gradients of ``heads`` with respect to ``variables``, returned as a
-    list (``.grad`` is left as it was)."""
-    heads = _as_list(heads)
+         create_graph=False, train_mode=True):  # pylint: disable=redefined-outer-name
+    """Gradients of ``heads`` (seeded with ``head_grads``, default ones)
+    with respect to ``variables``, returned as a list (``.grad`` is left
+    as it was): NDArrays for NDArray variables, tensors for tensors."""
+    heads = [_tensor(h) for h in _as_list(heads)]
     _check_heads(heads)
     variables = _as_list(variables)
-    grads = None if head_grads is None else _as_list(head_grads)
+    grads = ([torch.ones_like(h) for h in heads] if head_grads is None
+             else [_tensor(g) for g in _as_list(head_grads)])
     try:
-        out = torch.autograd.grad(heads, variables, grads,
-                                  retain_graph=retain_graph,
+        out = torch.autograd.grad(heads, [_tensor(v) for v in variables],
+                                  grads, retain_graph=retain_graph,
                                   create_graph=create_graph)
     except RuntimeError as e:
         raise MXNetError("one of the requested variables is unreachable "
                          "from the heads: %s" % e) from None
+    if variables and not isinstance(variables[0], torch.Tensor):
+        from .ndarray.ndarray import NDArray
+
+        return [NDArray(g) for g in out]
     return list(out)
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make each NDArray of ``variables`` a leaf whose gradient lands in the
+    matching NDArray of ``gradients`` (that handle is the one its ``.grad``
+    returns), by ``grad_reqs``."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, gradient, req in zip(variables, gradients, grad_reqs):
+        leaf = _make_leaf(var._data, req, gradient._data)
+        leaf._mx_grad = gradient
+        _HANDLED[id(leaf)] = leaf
+        var._data = leaf

@@ -2,20 +2,28 @@
 
 Counterpart of ``mxnet_tpu/context.py``.  The default context is
 ``gpu(0)``: entry points run on the card unless the caller passes
-``ctx=mx.cpu()``.  Asking for the card where there is none raises; nothing
-falls back to the CPU behind the caller's back.
+``ctx=mx.cpu()`` or opens a ``with mx.cpu():`` scope, which makes its
+context the default on this thread until the scope ends.  Asking for the
+card where there is none raises; nothing falls back to the CPU behind the
+caller's back.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "device_of"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "device_of",
+           "num_gpus"]
 
 
 class Context:
-    """A device context: (device_type, device_id)."""
+    """A device context: (device_type, device_id); ``with ctx:`` makes it
+    the default context."""
+
+    _default_ctx = threading.local()   # .stack: the open scopes
 
     def __init__(self, device_type, device_id=0):
         if device_type not in ("cpu", "gpu"):
@@ -30,12 +38,19 @@ class Context:
         that is not there."""
         if self.device_type == "cpu":
             return torch.device("cpu")
-        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        n = num_gpus()
         if self.device_id >= n:
             raise MXNetError(
                 "%r needs a CUDA device, but this process sees %d; pass "
                 "ctx=mx.cpu() to run on the CPU" % (self, n))
         return torch.device("cuda", self.device_id)
+
+    @classmethod
+    def from_device(cls, device):
+        """The context of a ``torch.device``."""
+        if device.type == "cuda":
+            return cls("gpu", device.index or 0)
+        return cls("cpu", 0)
 
     def __eq__(self, other):
         return (isinstance(other, Context)
@@ -48,6 +63,17 @@ class Context:
     def __repr__(self):
         return "%s(%d)" % (self.device_type, self.device_id)
 
+    __str__ = __repr__
+
+    def __enter__(self):
+        if not hasattr(self._default_ctx, "stack"):
+            self._default_ctx.stack = []
+        self._default_ctx.stack.append(self)
+        return self
+
+    def __exit__(self, *args):
+        self._default_ctx.stack.pop()
+
 
 def cpu(device_id=0):
     return Context("cpu", device_id)
@@ -57,8 +83,17 @@ def gpu(device_id=0):
     return Context("gpu", device_id)
 
 
+def num_gpus():
+    """The CUDA devices this process sees."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
 def current_context():
-    """The default context: the first card."""
+    """The default context: the innermost open ``with ctx:`` scope of
+    this thread, else the first card."""
+    stack = getattr(Context._default_ctx, "stack", None)
+    if stack:
+        return stack[-1]
     return gpu(0)
 
 

@@ -9,6 +9,10 @@ Training mode follows ``autograd``, not ``nn.Module.training``: dropout
 acts while ``autograd.is_training()``, and a block builds an autograd graph
 only inside ``autograd.record()`` (outside it, it runs under
 ``torch.no_grad()``), as the JAX package's blocks do.
+
+A block called with ``mx.nd`` NDArrays takes their tensors and returns its
+outputs as NDArrays (a tuple or list of them for several); called with
+tensors it returns tensors.
 """
 from __future__ import annotations
 
@@ -18,14 +22,37 @@ import torch
 from torch import nn
 
 from .. import autograd
+from ..ops import registry as _registry
 
 __all__ = ["Block", "HybridBlock"]
+
+
+def _wrap(out, NDArray):
+    if isinstance(out, torch.Tensor):
+        return NDArray(out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_wrap(o, NDArray) for o in out)
+    return out
+
+
+def _call_with_ndarrays(block, NDArray, args, kwargs):
+    """``block`` called on the tensors of its NDArray arguments, its
+    outputs wrapped as NDArrays."""
+    args = tuple(a._data if isinstance(a, NDArray) else a for a in args)
+    kwargs = {k: (v._data if isinstance(v, NDArray) else v)
+              for k, v in kwargs.items()}
+    return _wrap(block(*args, **kwargs), NDArray)
 
 
 class Block(nn.Module):
     """Base block: an ``nn.Module`` with Gluon's parameter naming."""
 
     def __call__(self, *args, **kwargs):
+        NDArray = _registry.NDArray
+        if NDArray is not None and (
+                any(isinstance(a, NDArray) for a in args)
+                or any(isinstance(v, NDArray) for v in kwargs.values())):
+            return _call_with_ndarrays(self, NDArray, args, kwargs)
         if autograd.is_recording() or not torch.is_grad_enabled():
             return super().__call__(*args, **kwargs)
         with torch.no_grad():   # not recording: no graph, as in JAX

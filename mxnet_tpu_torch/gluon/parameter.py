@@ -9,8 +9,9 @@ Two of the JAX package's methods are spelled the PyTorch way, because a
 tensor's own fields carry those names: the data is the parameter itself
 (``p`` or ``p.data``, where the JAX package has ``p.data()``) and its
 gradient is ``p.grad`` (``p.grad()`` there).  ``grad_req='write'`` means
-the gradient of one backward replaces the last one: ``Trainer.step``
-clears it after applying it (``'add'`` keeps it).
+the gradient of one backward replaces the last one (``autograd.backward``
+drops a stale one first; ``Trainer.step`` also clears it after applying
+it), ``'add'`` sums them.
 
 Deferred shapes: a parameter whose shape holds a 0 (``Dense(units,
 in_units=0)`` has weight shape ``(units, 0)``) has no values yet.
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import autograd
 from ..base import MXNetError
 from ..context import device_of
 
@@ -57,6 +59,7 @@ class Parameter(torch.nn.Parameter):
         self.init = init
         self._initialized = False   # zeros from the constructor until set
         self._deferred = None       # (init, default_init, name) until shaped
+        autograd._register_leaf(self)
         return self
 
     def __init__(self, *args, **kwargs):  # all set in __new__

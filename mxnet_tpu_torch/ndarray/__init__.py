@@ -1,0 +1,185 @@
+"""``mx.nd``: the imperative NDArray API.
+
+Counterpart of ``mxnet_tpu/ndarray/__init__.py``.  Every registered op is
+exposed under its MXNet name as its ``Operator`` (``nd.add``,
+``nd.multi_head_attention``, the CamelCase and ``broadcast_*`` names), so
+every call flows through ``ops.registry.invoke``.  Arrays are made on
+``ctx`` (default the current context: the card, or the CPU inside ``with
+mx.cpu():``).  Types follow the JAX package: float64 data becomes float32
+and int64 data int32.  ``save``/``load`` use the JAX package's ``npz``
+layout, so a file written by one package loads in the other.
+"""
+# pylint: disable=redefined-builtin
+from __future__ import annotations
+
+import os
+import tempfile
+
+import numpy as _np
+import torch
+
+from ..base import MXNetError, _as_torch_dtype
+from ..context import device_of
+from ..ops.registry import apply_op, get_op, list_ops
+from .ndarray import NDArray, concatenate, from_torch, waitall
+
+# ---- every registered op under its MXNet name -----------------------------
+_namespace = globals()
+for _name in list_ops():
+    _namespace.setdefault(_name, get_op(_name))
+
+for _name in ("power", "maximum", "minimum", "equal", "not_equal", "greater",
+              "greater_equal", "lesser", "lesser_equal"):
+    _namespace["broadcast_" + _name] = get_op(_name)
+SoftmaxActivation = get_op("softmax")
+L2Normalization = get_op("l2_normalization")
+BlockGrad = stop_gradient = get_op("stop_gradient")
+
+
+def dropout(data, p=0.5, mode="training", axes=None):
+    """Dropout with the port's generator, active in training (the legacy
+    ``Dropout`` op)."""
+    return get_op("Dropout")(data, p=p, mode=mode,
+                             axes=tuple(axes) if axes else None)
+
+
+# ---- creation -------------------------------------------------------------
+
+
+def _dtype(dtype):
+    return _as_torch_dtype(dtype if dtype is not None else "float32")
+
+
+def array(source_array, ctx=None, dtype=None):
+    """A new array holding a copy of ``source_array`` (float64 data
+    becomes float32, int64 data int32, unless ``dtype`` says otherwise)."""
+    if isinstance(source_array, NDArray):
+        source_array = source_array._data
+    if isinstance(source_array, torch.Tensor):
+        t = source_array.detach()
+    else:
+        arr = _np.asarray(source_array)
+        if not arr.flags.writeable:
+            arr = arr.copy()
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.view(_np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(_np.ascontiguousarray(arr))
+    dt = _as_torch_dtype(t.dtype if dtype is None else dtype)
+    return NDArray(t.to(device_of(ctx), dt, copy=True))
+
+
+def _shape(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def zeros(shape, ctx=None, dtype="float32", **kw):
+    return NDArray(torch.zeros(_shape(shape), dtype=_dtype(dtype),
+                               device=device_of(ctx)))
+
+
+def ones(shape, ctx=None, dtype="float32", **kw):
+    return NDArray(torch.ones(_shape(shape), dtype=_dtype(dtype),
+                              device=device_of(ctx)))
+
+
+def full(shape, val, ctx=None, dtype="float32", **kw):
+    return NDArray(torch.full(_shape(shape), val, dtype=_dtype(dtype),
+                              device=device_of(ctx)))
+
+
+def empty(shape, ctx=None, dtype="float32"):
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
+    if stop is None:
+        start, stop = 0, start
+    data = torch.arange(start, stop, step, dtype=torch.float64).to(
+        _dtype(dtype))
+    if repeat > 1:
+        data = data.repeat_interleave(repeat)
+    return NDArray(data.to(device_of(ctx)))
+
+
+def linspace(start, stop, num, endpoint=True, ctx=None, dtype="float32"):
+    if endpoint:
+        data = torch.linspace(start, stop, num, dtype=torch.float64)
+    else:
+        data = torch.linspace(start, stop, num + 1,
+                              dtype=torch.float64)[:num]
+    return NDArray(data.to(device_of(ctx), _dtype(dtype)))
+
+
+def eye(N, M=0, k=0, ctx=None, dtype="float32"):
+    M = M if M else N
+    data = torch.ones(N, M, dtype=_dtype(dtype)).tril(k).triu(k)
+    return NDArray(data.to(device_of(ctx)))
+
+
+def zeros_like(other, **kw):
+    return get_op("zeros_like")(other)
+
+
+def ones_like(other, **kw):
+    return get_op("ones_like")(other)
+
+
+def moveaxis(a, source, destination):
+    return apply_op(lambda x: torch.movedim(x, source, destination), a)
+
+
+# ---- serialization: the JAX package's npz layout --------------------------
+
+
+def save(fname, data, format="npz"):
+    """Save an NDArray, a list or a dict of NDArrays as ``.npz``: a single
+    array under ``__mx_single__``, a list under ``__mx_list_<i>__``, a
+    dict under its keys.  The file is written beside ``fname`` and moved
+    into place, so a crash never leaves a truncated ``fname``."""
+    if format != "npz":
+        raise MXNetError("save: format %r is not ported (have npz)"
+                         % (format,))
+    if isinstance(data, NDArray):
+        payload = {"__mx_single__": data.asnumpy()}
+    elif isinstance(data, dict):
+        payload = {k: v.asnumpy() for k, v in data.items()}
+    elif isinstance(data, (list, tuple)):
+        payload = {"__mx_list_%d__" % i: v.asnumpy()
+                   for i, v in enumerate(data)}
+    else:
+        raise MXNetError("save: unsupported data type %r" % type(data))
+    fname = os.fspath(fname)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(fname)),
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            _np.savez(f, **payload)
+        os.replace(tmp, fname)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def load(fname, ctx=None):
+    """Load what ``save`` wrote (by either package): an NDArray, a list or
+    a dict of NDArrays on ``ctx``."""
+    with _np.load(fname, allow_pickle=False) as npz:
+        keys = list(npz.keys())
+        if keys == ["__mx_single__"]:
+            return array(npz["__mx_single__"], ctx=ctx)
+        if keys and all(k.startswith("__mx_list_") for k in keys):
+            out = [None] * len(keys)
+            for k in keys:
+                out[int(k[len("__mx_list_"):-2])] = array(npz[k], ctx=ctx)
+            return out
+        return {k: array(npz[k], ctx=ctx) for k in keys}
+
+
+from . import random  # noqa: E402  (mx.nd.random)
+
+__all__ = ["NDArray", "waitall", "array", "zeros", "ones", "full", "empty",
+           "arange", "linspace", "eye", "zeros_like", "ones_like", "moveaxis",
+           "save", "load", "concatenate", "from_torch", "random",
+           "dropout"] + list_ops()

@@ -1,3 +1,10 @@
 """Operators of the port: plain functions on tensors, plus the hand-written
-CUDA kernels they launch (``csrc/``, built and loaded by ``_ext``)."""
+CUDA kernels they launch (``csrc/``, built and loaded by ``_ext``).
+
+``registry`` names the ops ``mx.nd`` dispatches: the modules below register
+their functions as they are imported (``legacy`` last, as its aliases
+resolve against the others)."""
 from . import flash_attention, nn  # noqa: F401
+from . import core, tensor_tail, random_ops, legacy  # noqa: F401
+from .registry import (Operator, alias, apply_op, get_op, invoke,  # noqa: F401
+                       list_ops, register)

@@ -10,6 +10,12 @@ chains, the dense attention branch) is plain PyTorch here, through the
 cuBLAS/cuDNN calls PyTorch makes; the flash branch runs the hand-written
 CUDA kernel through ``flash_attention``.
 
+Every op of the JAX module but ``ctc_loss`` is registered for ``mx.nd``
+at the end of this module (``registry.register`` returns each function
+unchanged, so these names stay plain functions on tensors and the paths
+that call them pay no dispatch); the activations, norms, resizes and
+losses that only ``mx.nd`` calls are plain PyTorch here too.
+
 Convolutions on the card run in ``torch.channels_last`` memory format
 (the logical layout stays NCHW): 4-D inputs are made channels-last at the
 conv, and the ops after it keep that format.  It is the faster layout of
@@ -29,6 +35,7 @@ import torch.nn.functional as F
 from .. import random as _random
 from ..base import MXNetError
 from . import flash_attention as fa
+from .registry import register
 
 __all__ = ["fully_connected", "dot", "activation", "gelu", "layer_norm",
            "embedding", "dropout", "softmax", "log_softmax", "pick",
@@ -42,27 +49,56 @@ def gelu(x, approximate=True):
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
+def relu(x):
+    return torch.relu(x)
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def log_sigmoid(x):
+    return F.logsigmoid(x)
+
+
+def softrelu(x):
+    return F.softplus(x)
+
+
+def softsign(x):
+    return F.softsign(x)
+
+
+def silu(x):
+    return F.silu(x)
+
+
+def mish(x):
+    return F.mish(x)
+
+
 _ACTIVATIONS = {
-    "relu": torch.relu,
-    "sigmoid": torch.sigmoid,
+    "relu": relu,
+    "sigmoid": sigmoid,
     "tanh": torch.tanh,
-    "softrelu": F.softplus,
-    "softsign": F.softsign,
-    "log_sigmoid": F.logsigmoid,
-    "mish": F.mish,
+    "softrelu": softrelu,
+    "softsign": softsign,
+    "log_sigmoid": log_sigmoid,
+    "mish": mish,
     "gelu": gelu,
-    "silu": F.silu,
+    "silu": silu,
 }
 
 
-def activation(x, act_type="relu"):
-    """act_type dispatcher (the ``Activation`` op)."""
+def activation(data, act_type="relu"):
+    """act_type dispatcher (the ``Activation`` op; ``ops/legacy.py``
+    registers it under that name)."""
     try:
         fn = _ACTIVATIONS[act_type]
     except KeyError:
         raise MXNetError("Activation: unknown act_type %r" % (act_type,)) \
             from None
-    return fn(x)
+    return fn(data)
 
 
 def _amp_pair(x, weight):
@@ -118,16 +154,18 @@ def embedding(indices, weight):
     return F.embedding(indices.long(), weight)
 
 
-def dropout(x, p=0.5, generator=None):
+def dropout(x, p=0.5, generator=None, axes=None):
     """Inverted dropout: zero each element with probability ``p`` and scale
     the rest by 1/(1-p).  The mask is drawn from ``generator`` (on x's
     device; the port's ``random.generator``; inside a ``random.replayable``
-    scope the draw is recorded or replayed).  The caller decides whether
-    it is training: this op always drops."""
+    scope the draw is recorded or replayed); along ``axes`` it is shared.
+    The caller decides whether it is training: this op always drops."""
     if p <= 0.0:
         return x
     keep = 1.0 - p
-    mask = _random.draw(lambda: torch.bernoulli(torch.full_like(x, keep),
+    like = x if not axes else x[tuple(slice(0, 1) if i in axes else
+                                      slice(None) for i in range(x.dim()))]
+    mask = _random.draw(lambda: torch.bernoulli(torch.full_like(like, keep),
                                                 generator=generator))
     return x * mask / keep
 
@@ -147,7 +185,9 @@ def softmax(x, axis=-1, temperature=None, length=None):
     return torch.softmax(x, dim=axis)
 
 
-def log_softmax(x, axis=-1):
+def log_softmax(x, axis=-1, temperature=None):
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
     return torch.log_softmax(x, dim=axis)
 
 
@@ -434,3 +474,132 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
     if axis != 1 and axis != 1 - x.dim():
         out = out.movedim(1, axis)
     return out, new_mean, new_var
+
+
+# ---- the ops only mx.nd calls ----------------------------------------------
+
+
+def hard_sigmoid(x, alpha=0.2, beta=0.5):
+    return torch.clamp(alpha * x + beta, 0.0, 1.0)
+
+
+def leaky_relu(x, slope=0.25):
+    return torch.where(x >= 0, x, slope * x)
+
+
+def prelu(x, gamma):
+    return torch.where(x >= 0, x, gamma * x)
+
+
+def elu(x, alpha=1.0):
+    return torch.where(x >= 0, x, alpha * torch.expm1(x))
+
+
+def selu(x):
+    return F.selu(x)
+
+
+def softmin(x, axis=-1):
+    return torch.softmax(-x, dim=axis)
+
+
+def _moments(x, dims):
+    return (x.mean(dim=dims, keepdim=True),
+            x.var(dim=dims, keepdim=True, unbiased=False))
+
+
+def group_norm(x, gamma, beta, num_groups=1, eps=1e-5):
+    """Normalise over each group of channels and the spatial axes (NC...
+    layout), then scale and shift per channel."""
+    N, C = x.shape[0], x.shape[1]
+    spatial = tuple(x.shape[2:])
+    xg = x.reshape((N, num_groups, C // num_groups) + spatial)
+    m, v = _moments(xg, tuple(range(2, xg.dim())))
+    out = ((xg - m) * torch.rsqrt(v + eps)).reshape(x.shape)
+    shape = (1, C) + (1,) * len(spatial)
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+def instance_norm(x, gamma, beta, eps=1e-5):
+    m, v = _moments(x, tuple(range(2, x.dim())))
+    shape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+    return (x - m) * torch.rsqrt(v + eps) * gamma.reshape(shape) + \
+        beta.reshape(shape)
+
+
+def rms_norm(x, gamma, axis=-1, eps=1e-6):
+    xf = x.float()
+    ms = (xf * xf).mean(dim=axis, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype) * gamma
+
+
+def l2_normalization(x, eps=1e-10, mode="instance"):
+    if mode == "instance":
+        n = torch.sqrt((x * x).sum(dim=tuple(range(1, x.dim())),
+                                   keepdim=True) + eps)
+    elif mode == "channel":
+        n = torch.sqrt((x * x).sum(dim=1, keepdim=True) + eps)
+    else:
+        n = torch.sqrt((x * x).sum() + eps)
+    return x / n
+
+
+def lrn(x, alpha=1e-4, beta=0.75, knorm=2, nsize=5):
+    """Local response normalisation across channels (NC...)."""
+    half = nsize // 2
+    sq = F.pad(x * x, [0, 0] * (x.dim() - 2) + [half, half])
+    s = sum(sq[:, i:i + x.shape[1]] for i in range(nsize))
+    return x / torch.pow(knorm + alpha * s / nsize, beta)
+
+
+def _dropout_op(x, seed=None, p=0.5, mode="training", axes=None):
+    """The ``dropout`` op: ``dropout`` with a generator seeded by ``seed``
+    (where the JAX op takes a key), or the port's generator of x's
+    device."""
+    gen = (_random.generator(x.device) if seed is None else
+           torch.Generator(device=x.device).manual_seed(int(seed)))
+    return dropout(x, p, gen, axes)
+
+
+def upsampling(x, scale=2, sample_type="nearest"):
+    if sample_type == "nearest":
+        return x.repeat_interleave(scale, 2).repeat_interleave(scale, 3)
+    return F.interpolate(x, scale_factor=scale, mode="bilinear",
+                         align_corners=False)
+
+
+def bilinear_resize(x, height=None, width=None, align_corners=False):
+    """Bilinear resize to (height, width) with half-pixel centres; a
+    shrinking axis is antialiased, as ``jax.image.resize`` does."""
+    return F.interpolate(x, size=(height, width), mode="bilinear",
+                         align_corners=False,
+                         antialias=height < x.shape[2] or width < x.shape[3])
+
+
+def smooth_l1(x, scalar=1.0):
+    s2 = scalar * scalar
+    return torch.where(torch.abs(x) < 1.0 / s2, 0.5 * s2 * x * x,
+                       torch.abs(x) - 0.5 / s2)
+
+
+for _name, _fn, _n in (
+        ("relu", relu, 1), ("sigmoid", sigmoid, 1),
+        ("log_sigmoid", log_sigmoid, 1), ("softrelu", softrelu, 1),
+        ("softsign", softsign, 1), ("hard_sigmoid", hard_sigmoid, 1),
+        ("leaky_relu", leaky_relu, 1), ("prelu", prelu, 1),
+        ("elu", elu, 1), ("selu", selu, 1), ("gelu", gelu, 1),
+        ("silu", silu, 1), ("mish", mish, 1), ("softmax", softmax, 1),
+        ("log_softmax", log_softmax, 1), ("softmin", softmin, 1),
+        ("fully_connected", fully_connected, 1),
+        ("convolution", convolution, 1), ("deconvolution", deconvolution, 1),
+        ("pooling", pooling, 1),
+        ("adaptive_avg_pooling", adaptive_avg_pooling, 1),
+        ("batch_norm", batch_norm, 3), ("layer_norm", layer_norm, 1),
+        ("group_norm", group_norm, 1), ("instance_norm", instance_norm, 1),
+        ("rms_norm", rms_norm, 1), ("l2_normalization", l2_normalization, 1),
+        ("lrn", lrn, 1), ("dropout", _dropout_op, 1),
+        ("upsampling", upsampling, 1), ("bilinear_resize", bilinear_resize, 1),
+        ("softmax_cross_entropy", softmax_cross_entropy, 1),
+        ("smooth_l1", smooth_l1, 1),
+        ("multi_head_attention", multi_head_attention, 1)):
+    register(_name, num_outputs=_n)(_fn)

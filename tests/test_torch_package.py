@@ -49,6 +49,10 @@ def test_import_pulls_in_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "mxnet_tpu_torch.serve.server" in res["modules"]
     assert "mxnet_tpu_torch.ops._ext" in res["modules"]
+    for mod in ("error", "ndarray", "ndarray.ndarray", "ndarray.random",
+                "ops.registry", "ops.core", "ops.tensor_tail",
+                "ops.legacy", "ops.random_ops"):
+        assert "mxnet_tpu_torch." + mod in res["modules"]
     assert res["bad"] == []
 
 

@@ -27,6 +27,7 @@ from mxnet_tpu import autograd as jautograd
 from mxnet_tpu import gluon as jgluon
 from mxnet_tpu import optimizer as jopt
 from mxnet_tpu.gluon.model_zoo import bert as jbert
+from mxnet_tpu.gluon.parameter import _trace_stack as _jax_trace_stack
 from mxnet_tpu.ops import pallas_attention as pa
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import MXNetError, autograd, convert, gluon
@@ -311,9 +312,20 @@ def test_jax_hybridized_call_mistakes_none_for_an_input():
     jnet = jbert.BERTForPretraining(dropout=0.0, **cfg)
     jnet.initialize()
     jnet.hybridize()
-    with pytest.raises(StopIteration):
-        jnet(jmx.nd.array(ids, dtype="int32"), jmx.nd.array(ids, dtype="int32"),
-             None, jmx.nd.array(pos, dtype="int32"))
+    depth = len(_jax_trace_stack)
+    try:
+        with pytest.raises(StopIteration):
+            jnet(jmx.nd.array(ids, dtype="int32"),
+                 jmx.nd.array(ids, dtype="int32"), None,
+                 jmx.nd.array(pos, dtype="int32"))
+        # the raise also leaves the call's trace context on the JAX
+        # package's trace stack (pushed before the failing line, popped
+        # only by a later finally)
+        assert len(_jax_trace_stack) == depth + 1
+    finally:
+        # left there, its id()-keyed substitutions would hand this net's
+        # tracers to any later JAX Parameter that reuses one of its ids
+        del _jax_trace_stack[depth:]
     tnet = tbert.BERTForPretraining(dropout=0.0, **cfg)
     tnet.initialize(ctx=mx.cpu())
     tnet.hybridize()
