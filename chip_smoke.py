@@ -122,7 +122,50 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    live leaves, with no gradient held and with every MLP parameter
    holding one (printed).
 
-Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and as
+11. train_lstm -- ``BASELINE.json`` config 5, the JAX package's LSTM LM
+   recipe (``bench.py`` ``_bench_lstm_lm``): ``StandardRNNLM(10000, 650,
+   650, 2 layers, dropout 0)`` through ``parallel.FusedTrainer(loss=
+   'softmax_ce', optimizer='sgd')`` at lr 1.0, fp32 with TF32 off, B=32,
+   T=64, one synthetic batch: 3 warm-up and 10 timed steps.  The loss
+   falls and is finite, no flash kernel launches, the encoder's weights
+   stay views of cuDNN's flat buffer through the updates; prints the step
+   median, tokens/s, the FLOPs a step (decoder and LSTM products, x3),
+   peak memory, a ``torch.profiler`` split (cuDNN's RNN kernels, GEMMs,
+   softmax/CE, SGD, the rest) with the idle share and the cuDNN RNN
+   kernels a step (``cudnn_rnn_kernels``, which must be above 0), and the
+   decoder's three GEMMs timed alone.  The encoder's cuDNN call holds
+   against the plain per-step version on the card at the recipe's shapes
+   (outputs and final states within 1e-4, gradients within
+   1e-3*max(1, max|ref|), its autograd node ``CudnnRnnBackward0``), with
+   the device times of the fused call on flat weights, on copies cuDNN
+   must gather, as one two-layer call and as a call a layer, and of the
+   per-step version.  One step's gradients at B=2 match the CPU within
+   1e-3*max(1, max|g|).  Then ``standard_lstm_lm_650`` (vocab 33278,
+   dropout 0.5: a cuDNN call a layer with the port's masks between them)
+   trained the imperative way for 10 steps of B=32, T=35 of one synthetic
+   Zipf stream: ``autograd.record()``, ``backward()``,
+   ``gluon.utils.clip_global_norm`` (0.25) and ``gluon.Trainer`` SGD, the
+   states carried and detached; its step median and falling loss.
+12. train_gpt_lm -- ``gpt_lm()`` at its own sizes (vocab 50257, 256 wide,
+   8 heads of D=32, 4 layers, 1024 positions, dropout 0.1, no attention
+   dropout) through ``parallel.FusedTrainer(adam, lr 1e-4,
+   dtype='bfloat16')``, B=8, T=1024, a synthetic Zipf stream: 3 warm-up
+   and 5 timed steps.  The kernels see bf16, causal, (8, 8, 1024, 32), and
+   each launches exactly 4 times a step; the loss falls.  Prints the step
+   median, tokens/s, MFU against 989 TFLOP/s (FLOPs counted off the layer
+   shapes, x3), peak memory, the profiler split with the idle share, and
+   one causal (8, 8, 1024, 1024, 32) bf16 forward and backward against
+   the kernels' plain versions at the kernel phase's gates, with SDPA's
+   time and the bounds.
+13. rnn_parts -- ``nd.RNN`` in every mode (two bidirectional layers),
+   every cell unrolled (the bidirectional one with lengths), ``foreach``
+   over an LSTM cell and ``while_loop``, and ``ctc_loss`` (with an
+   alignment that cannot fit: ~1e30), each with its gradients, on the
+   card against the CPU within 1e-4*max(1, max|ref|); a bf16 LSTM, which
+   cuDNN refuses, raises.
+
+Then the ``{"kernels": [...]}`` summary (gpt_lm's causal D=32 bf16 route
+as ``routes["bfloat16_causal_d32"]``), the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero and prints no result line.  Without a card,
 or without the package beside it, it exits non-zero.
@@ -986,9 +1029,10 @@ def profile_split(torch, fn, steps, classify=_kernel_class):
     """Device time of ``steps`` calls of ``fn`` (each ending in a
     synchronize) under ``torch.profiler`` tracing the card only, split by
     kernel class (``classify``: by default GEMMs, each flash kernel, the
-    foreach update, the rest; the largest kernels of the catch-all and
-    element-wise classes by name), and the device's idle share: 1 - the union of device activity over
-    the calls' wall time (host clock).  Tracing the host too would stretch
+    foreach update, the rest; kernels a step by class; the largest kernels
+    of the catch-all, element-wise and cuDNN RNN classes by name), and the
+    device's idle share: 1 - the union of device activity over the calls'
+    wall time (host clock).  Tracing the host too would stretch
     the wall time with the profiler's own work.  None where the profiler
     sees no device activity."""
     import tempfile
@@ -1012,11 +1056,12 @@ def profile_split(torch, fn, steps, classify=_kernel_class):
     out = {"device_events": len(dev), "wall_ms": wall * 1e3 / steps}
     if not dev:
         return dict(out, split_ms=None, idle_share=None)
-    split, other = {}, {}
+    split, other, counts = {}, {}, {}
     for t0, t1, name in dev:
         cls = classify(name)
         split[cls] = split.get(cls, 0.0) + (t1 - t0) / 1e3 / steps
-        if cls in ("other", "rest", "elementwise"):
+        counts[cls] = counts.get(cls, 0) + 1.0 / steps
+        if cls in ("other", "rest", "elementwise", "cudnn_rnn"):
             other[name] = other.get(name, 0.0) + (t1 - t0) / 1e3 / steps
     busy, end = 0.0, dev[0][0]
     for t0, t1, _ in dev:          # the union of the device intervals
@@ -1029,6 +1074,7 @@ def profile_split(torch, fn, steps, classify=_kernel_class):
     return dict(out, split_ms=split, device_busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / out["wall_ms"],
                 kernels_per_step=len(dev) / steps,
+                kernels_per_step_by_class=counts,
                 top_other_ms=[[n[:90], ms] for n, ms in top])
 
 
@@ -2079,6 +2125,641 @@ def phase_nd_imperative(torch, mx, fa, seed, smi):
 
 
 
+# ---- recurrent models (BASELINE.json config 5) and the GPT-style LM ---------
+
+TOL_RNN = 1e-4      # cuDNN's RNN vs the per-step version (outputs, states)
+LSTM_CFG = dict(vocab=10000, hidden=650, layers=2, B=32, T=64, warm=3,
+                steps=10, lr=1.0)                     # bench.py _bench_lstm_lm
+# gluon-nlp's word LM loop for standard_lstm_lm_650 (SGD, global-norm clip
+# 0.25, bptt 35) at lr 1.0: its lr 20 overshoots on this synthetic stream
+LSTM_650_CFG = dict(vocab=33278, B=32, T=35, steps=10, lr=1.0, clip=0.25)
+GPT_CFG = dict(B=8, T=1024, warm=3, steps=5, lr=1e-4)
+
+
+def _cudnn_rnn_class(name):
+    """Profile classes of an LSTM LM step: cuDNN's recurrent kernels (its
+    persistent and element-wise RNN kernels, not ATen's ``at::native``
+    loop), matrix products (the decoder's and cuDNN's input GEMMs),
+    softmax/CE, the foreach SGD and the rest."""
+    low = name.lower()
+    if ("rnn" in low or "lstm" in low) and "at::native" not in name:
+        return "cudnn_rnn"
+    if any(g in low for g in _GEMM_NAMES):
+        return "gemm"
+    if "softmax" in low or "nll" in low or "gather" in low:
+        return "softmax_ce"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "sgd"
+    return "rest"
+
+
+def lm_params(block, seed, scale=0.07):
+    """LM weights from numpy: uniform(-scale, scale) matrices (the JAX
+    package's default initializer), zero biases, LayerNorm gamma 1."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in block.collect_params().items():
+        shape = tuple(p.shape)
+        if name.endswith(".gamma"):
+            out[name] = np.ones(shape, np.float32)
+        elif name.endswith(("bias", ".beta")):
+            out[name] = np.zeros(shape, np.float32)
+        else:
+            out[name] = rng.uniform(-scale, scale, shape).astype(np.float32)
+    return out
+
+
+def _lstm_lm(torch, mx, seed, ctx=None):
+    """``bench.py``'s config-5 model on ``ctx`` (default the card), its
+    deferred sizes shaped by a call, weights from ``lm_params``."""
+    from mxnet_tpu_torch.gluon.model_zoo import language_model as lm
+
+    c = LSTM_CFG
+    net = lm.StandardRNNLM(c["vocab"], embed_size=c["hidden"],
+                           hidden_size=c["hidden"], num_layers=c["layers"],
+                           dropout=0.0)
+    net.initialize(ctx=ctx)
+    with mx.autograd.pause():
+        net(torch.zeros(1, 2, dtype=torch.int64,
+                        device=net.embedding.weight.device))
+    mx.convert.load_jax_params(net, lm_params(net, seed))
+    return net
+
+
+def _grad_fn_names(t, depth=4):
+    """The autograd node names within ``depth`` steps of ``t``."""
+    names, frontier = [], [t.grad_fn]
+    for _ in range(depth):
+        nxt = []
+        for fn in frontier:
+            if fn is None:
+                continue
+            names.append(fn.name())
+            nxt += [f for f, _ in fn.next_functions]
+        frontier = nxt
+    return names
+
+
+def _lm_grads(torch, mx, net, x, y):
+    """(loss, [gradient of each parameter]) of the mean token CE."""
+    params = list(net.collect_params().values())
+    with mx.autograd.record():
+        logits = net(x)
+        loss = -torch.log_softmax(logits, -1).gather(
+            -1, y.long().unsqueeze(-1)).mean()
+    return loss.item(), torch.autograd.grad(loss, params)
+
+
+def _rnn_layer_vs_plain(torch, rl, enc, B, T, seed):
+    """The encoder's cuDNN call against the per-step version on the card at
+    the recipe's shapes: outputs and final states, and the gradients of a
+    probe of all three.  Also the device time of the fused call (flat
+    weights, then copies that cuDNN must gather each call; one two-layer
+    call, then a call a layer) and of the per-step version."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    H = enc._hidden_size
+    x = torch.randn(T, B, H, device="cuda", generator=gen)
+    h0, c0 = (torch.randn(enc._num_layers, B, H, device="cuda",
+                          generator=gen) * 0.5 for _ in range(2))
+    weights = enc._weights()
+    enc._flatten(weights)
+    leaves = [t.detach().requires_grad_() for t in [x, h0, c0] + weights]
+    probes = [torch.randn(s, device="cuda", generator=gen)
+              for s in ((T, B, H), (enc._num_layers, B, H),
+                        (enc._num_layers, B, H))]
+
+    def grads(fn):
+        outs = fn(*leaves)
+        loss = sum((o * p).sum() for o, p in zip(outs, probes))
+        return outs, torch.autograd.grad(loss, leaves)
+
+    fused, g_fused = grads(lambda x_, h_, c_, *w: rl.rnn_forward(
+        "lstm", x_, h_, c_, list(w), enc._num_layers, False))
+    ref, g_ref = grads(lambda x_, h_, c_, *w: rl.rnn_reference(
+        "lstm", x_, h_, c_, list(w), enc._num_layers, False))
+    err = {n: (a - b).abs().max().item()
+           for n, a, b in zip(("out", "hT", "cT"), fused, ref)}
+    gerr = max(_rel_err(a, b) for a, b in zip(g_fused, g_ref))
+    if max(err.values()) > TOL_RNN or gerr > TOL_GRAD:
+        fail("cuDNN's LSTM disagrees with the per-step version: %s, "
+             "gradients %g" % (err, gerr))
+    with torch.no_grad():
+        flat = [w.detach() for w in weights]
+        copies = [w.clone() for w in flat]
+
+        def call(ws, per_layer=False):
+            return rl.rnn_forward("lstm", x, h0, c0, ws, enc._num_layers,
+                                  False, per_layer=per_layer)
+
+        times = {"fused_flat_ms": cuda_ms(lambda: call(flat), 20),
+                 "fused_copied_weights_ms": cuda_ms(lambda: call(copies),
+                                                    20),
+                 "fused_per_layer_calls_ms": cuda_ms(
+                     lambda: call(flat, per_layer=True), 20),
+                 "plain_per_step_ms": cuda_ms(lambda: rl.rnn_reference(
+                     "lstm", x, h0, c0, flat, enc._num_layers, False), 3)}
+
+    def fwd_bwd(ws):
+        outs = rl.rnn_forward("lstm", *leaves[:3], ws, enc._num_layers,
+                              False)
+        torch.autograd.grad(sum((o * p).sum() for o, p in
+                                zip(outs, probes)), leaves[:3])
+
+    lw = leaves[3:]
+    cw = [w.detach().clone().requires_grad_() for w in lw]
+    times["fused_fwd_bwd_flat_ms"] = cuda_ms(lambda: fwd_bwd(lw), 10)
+    times["fused_fwd_bwd_copied_weights_ms"] = cuda_ms(lambda: fwd_bwd(cw),
+                                                       10)
+    return {"max_abs_err": err, "grad_max_rel_err": gerr, "tol": TOL_RNN,
+            "grad_tol": TOL_GRAD, "shape_TBH": [T, B, H],
+            "grad_fn": _grad_fn_names(fused[0])[:3], **times}
+
+
+def phase_train_lstm(torch, mx, fa, seed, smi):
+    """``BASELINE.json`` config 5 (``bench.py`` ``_bench_lstm_lm``): the
+    LSTM LM trained through ``parallel.FusedTrainer`` in fp32, the encoder
+    on cuDNN's RNN; then ``standard_lstm_lm_650``'s imperative loop."""
+    from mxnet_tpu_torch.gluon.rnn import rnn_layer as rl
+
+    c = LSTM_CFG
+    B, T, V, H = c["B"], c["T"], c["vocab"], c["hidden"]
+    t0 = time.perf_counter()
+    net = _lstm_lm(torch, mx, seed)
+    enc = net.encoder
+    init = {k: p.detach().cpu().numpy()
+            for k, p in net.collect_params().items()}
+    trainer = mx.parallel.FusedTrainer(
+        net, loss="softmax_ce", optimizer="sgd",
+        optimizer_params={"learning_rate": c["lr"]})
+    rs = np.random.RandomState(0)        # bench.py's data
+    x = torch.from_numpy(rs.randint(0, V, (B, T)).astype(np.int32)).cuda()
+    y = torch.from_numpy(rs.randint(0, V, (B, T)).astype(np.int32)).cuda()
+    t_build = time.perf_counter() - t0
+
+    # the encoder's parameters are views of cuDNN's flat buffer
+    ptrs = [w.data_ptr() for w in enc._weights()]
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for cnt in counters:
+        cnt.launches = 0
+    first_ms, warm_losses, losses, step_ms = _timed_steps(
+        torch, trainer, x, y, c["warm"], 0)
+    if [w.data_ptr() for w in enc._weights()] != ptrs or \
+            enc._flat_ptrs != tuple(ptrs):
+        fail("an SGD step moved the LSTM weights out of cuDNN's buffer")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(c["steps"]):
+        t1 = time.perf_counter()
+        losses.append(trainer.step(x, y).item())
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {cnt.__name__: cnt.launches for cnt in counters}
+    if any(launches.values()):
+        fail("the LSTM LM launched flash kernels: %s" % launches)
+    all_losses = warm_losses + losses
+    if not all(np.isfinite(all_losses)):
+        fail("nonfinite LSTM LM loss: %s" % all_losses)
+    if not losses[-1] < all_losses[0]:
+        fail("LSTM LM loss did not fall: %s" % all_losses)
+
+    med = float(np.median(step_ms))
+    # 2 x multiply-adds: the decoder (B*T, H) x (H, V) and each layer's
+    # input and hidden products (B*T, H) x (H, 4H); x3 for training
+    flops = 3 * 2 * B * T * (H * V + c["layers"] * 2 * H * 4 * H)
+    split = profile_split(torch, lambda: trainer.step(x, y), 2,
+                          classify=_cudnn_rnn_class)
+    n_cudnn = (split.get("kernels_per_step_by_class") or {}).get(
+        "cudnn_rnn", 0)
+    if not n_cudnn:
+        emit({"phase": "train_lstm", "failed_profile": split})
+        fail("no cuDNN RNN kernel in the LSTM step's profile")
+    # the decoder's three GEMMs alone, at the step's shapes
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(B * T, H, device="cuda", generator=gen)
+    w = torch.randn(V, H, device="cuda", generator=gen)
+    g = torch.randn(B * T, V, device="cuda", generator=gen)
+    decoder_ms = cuda_ms(lambda: (a @ w.t(), g @ w, g.t() @ a), 10)
+    layer = _rnn_layer_vs_plain(torch, rl, enc, B, T, seed + 1)
+    if "CudnnRnnBackward0" not in layer["grad_fn"]:
+        fail("the fused LSTM call did not run cuDNN: %s" % layer["grad_fn"])
+
+    # the first step's gradients at B=2 against the CPU, fresh weights
+    net_gpu = _lstm_lm(torch, mx, seed)
+    net_cpu = _lstm_lm(torch, mx, seed, ctx=mx.cpu())
+    for n in (net_gpu, net_cpu):
+        mx.convert.load_jax_params(n, init)
+    l_gpu, g_gpu = _lm_grads(torch, mx, net_gpu, x[:2], y[:2])
+    l_cpu, g_cpu = _lm_grads(torch, mx, net_cpu, x[:2].cpu(), y[:2].cpu())
+    names = list(net_cpu.collect_params())
+    grad_err = {n: _rel_err(a.cpu(), b) for n, a, b in
+                zip(names, g_gpu, g_cpu)}
+    if max(grad_err.values()) > TOL_GRAD:
+        fail("LSTM LM gradients differ from the CPU: %s" % grad_err)
+    del net_gpu, net_cpu
+
+    imperative = _lstm_650_loop(torch, mx, seed)
+    emit({"phase": "train_lstm", "recipe": "bench.py _bench_lstm_lm",
+          "model": "StandardRNNLM(10000, 650, 650, 2 layers, dropout 0)",
+          "trainer": "parallel.FusedTrainer(loss='softmax_ce', sgd)",
+          "dtype": "float32", "tf32": False, "batch": B, "seq_len": T,
+          "lr": c["lr"], "warm_up_steps": c["warm"], "steps": c["steps"],
+          "losses": all_losses, "first_step_ms": first_ms,
+          "step_ms": step_ms, "step_ms_median": med,
+          "tokens_per_s": B * T / (med / 1e3), "flops_per_step": flops,
+          "mfu_fp32": flops / (med / 1e3) / PEAK_FLOPS["float32"],
+          "bound_ms_fp32": flops / PEAK_FLOPS["float32"] * 1e3,
+          "max_memory_allocated_bytes": peak, "profile": split,
+          "cudnn_rnn_kernels": n_cudnn,
+          "cudnn_rnn_kernel_names": [
+              n for n, _ in split["top_other_ms"]
+              if _cudnn_rnn_class(n) == "cudnn_rnn"],
+          "decoder_gemms_ms": decoder_ms,
+          "idle_share_at_median": (
+              None if split.get("device_busy_ms") is None
+              else 1.0 - split["device_busy_ms"] / med),
+          "encoder_vs_per_step": layer,
+          "grad_vs_cpu_b2": {"loss_card": l_gpu, "loss_cpu": l_cpu,
+                             "max_rel_err": max(grad_err.values()),
+                             "tol": TOL_GRAD},
+          "weights_stay_flat": True,
+          "lstm_650_imperative": imperative, "launches": launches,
+          "model_build_s": t_build, "card": smi})
+    return launches
+
+
+def _zipf_stream(seed, vocab, n):
+    """A token stream with a Zipf-like unigram law (what a word LM learns
+    first), from numpy."""
+    rng = np.random.default_rng(seed)
+    return ((rng.zipf(1.2, n) - 1) % vocab).astype(np.int64)
+
+
+def _lstm_650_loop(torch, mx, seed):
+    """``standard_lstm_lm_650`` (vocab 33278, dropout 0.5) trained the
+    imperative way: ``autograd.record()``, ``backward()``,
+    ``clip_global_norm`` and ``gluon.Trainer`` SGD, the states carried and
+    detached across consecutive batches of one stream."""
+    from mxnet_tpu_torch.gluon.model_zoo import language_model as lm
+
+    c = LSTM_650_CFG
+    B, T, V = c["B"], c["T"], c["vocab"]
+    mx.random.seed(seed)
+    net = lm.standard_lstm_lm_650(vocab_size=V)
+    net.initialize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": c["lr"]})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    stream = torch.from_numpy(_zipf_stream(seed, V, B * (T * c["steps"]
+                                                          + 1))).cuda()
+    data = stream.reshape(B, -1)
+    states = net.begin_state(B)
+    params = list(net.collect_params().values())
+    losses, step_ms = [], []
+    enc = net.encoder
+    for i in range(c["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = data[:, i * T:(i + 1) * T]
+        y = data[:, i * T + 1:(i + 1) * T + 1]
+        states = [s.detach() for s in states]
+        with mx.autograd.record():
+            logits, states = net(x, states)
+            loss = loss_fn(logits.reshape(-1, V), y.reshape(-1)).mean()
+        mx.autograd.backward(loss)
+        mx.gluon.utils.clip_global_norm([p.grad for p in params],
+                                        c["clip"])
+        trainer.step(1)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if tuple(w.data_ptr() for w in enc._weights()) != enc._flat_ptrs:
+            fail("gluon.Trainer's update moved the LSTM weights out of "
+                 "cuDNN's buffers")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("standard_lstm_lm_650's loss did not fall: %s" % losses)
+    return {"model": "standard_lstm_lm_650", "vocab": V, "batch": B,
+            "bptt": T, "dropout": 0.5, "optimizer": "sgd", "lr": c["lr"],
+            "clip_global_norm": c["clip"], "losses": losses,
+            "step_ms": step_ms, "step_ms_median": float(np.median(step_ms)),
+            "per_layer_calls": net.encoder._dropout > 0}
+
+
+def gpt_train_flops_per_step(B, T, units=256, hidden=1024, layers=4,
+                             heads=8, vocab=50257):
+    """3 x the forward's 2 x multiply-adds: per token and layer the four
+    projections (4 u^2) and the FFN (2 u h); the causal attention's
+    4 * D * H FLOPs per visible pair and layer; the tied (u x vocab)
+    projection."""
+    dense = 2 * B * T * layers * (4 * units * units + 2 * units * hidden)
+    attn = layers * 4.0 * B * heads * (units // heads) * _pairs(T, T, True)
+    proj = 2 * B * T * units * vocab
+    return 3 * (dense + attn + proj)
+
+
+def phase_train_gpt_lm(torch, mx, fa, seed, smi):
+    """``gpt_lm()`` at its own sizes (vocab 50257, 256 wide, 8 heads of
+    D=32, 4 layers, 1024 positions, dropout 0.1) trained through
+    ``parallel.FusedTrainer`` in bf16 with Adam: every attention call goes
+    to the causal flash kernels at D=32."""
+    from mxnet_tpu_torch.gluon.model_zoo import language_model as lm
+    import torch.nn.functional as F
+
+    c = GPT_CFG
+    B, T = c["B"], c["T"]
+    t0 = time.perf_counter()
+    net = lm.gpt_lm()
+    net.initialize()
+    mx.convert.load_jax_params(net, bert_params(net, seed))
+    trainer = mx.parallel.FusedTrainer(
+        net, loss="softmax_ce", optimizer="adam",
+        optimizer_params={"learning_rate": c["lr"]}, dtype="bfloat16")
+    tokens = torch.from_numpy(_zipf_stream(seed + 5, 50257,
+                                           B * (T + 1))).cuda()
+    tokens = tokens.reshape(B, T + 1)
+    x, y = tokens[:, :-1].contiguous(), tokens[:, 1:].contiguous()
+    t_build = time.perf_counter() - t0
+    mx.random.seed(seed)
+
+    # what the kernels were handed in the first step
+    seen = set()
+    check, fwd = fa._check_cuda, fa._flash_forward
+
+    def spy_check(name, ts, shapes):
+        seen.add((name, str(ts[0].dtype), tuple(ts[0].shape)))
+        return check(name, ts, shapes)
+
+    def spy_fwd(q, k, v, causal, *args):
+        seen.add(("causal", bool(causal)))
+        return fwd(q, k, v, causal, *args)
+
+    fa._check_cuda, fa._flash_forward = spy_check, spy_fwd
+    try:
+        losses = [trainer.step(x, y).item()]
+    finally:
+        fa._check_cuda, fa._flash_forward = check, fwd
+    want = {(n, "torch.bfloat16", (B, 8, T, 32)) for n in
+            ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")} \
+        | {("causal", True)}
+    if seen != want:
+        fail("gpt_lm handed the kernels %s, want %s" % (sorted(seen),
+                                                        sorted(want)))
+    for _ in range(c["warm"] - 1):
+        losses.append(trainer.step(x, y).item())
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for cnt in counters:
+        cnt.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(c["steps"]):
+        t1 = time.perf_counter()
+        losses.append(trainer.step(x, y).item())
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = {cnt.__name__: cnt.launches for cnt in counters}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("gpt_lm loss did not fall: %s" % losses)
+    for name, n in launches.items():
+        if n != 4 * c["steps"]:
+            fail("%s launched %d times in %d gpt_lm steps (want 4 a step)"
+                 % (name, n, c["steps"]))
+    med = float(np.median(step_ms))
+    flops = gpt_train_flops_per_step(B, T)
+    split = profile_split(torch, lambda: trainer.step(x, y), 2)
+
+    # the main path's attention alone: one causal (8, 8, 1024, 1024, 32)
+    # bf16 forward and backward against the plain versions
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    q, k, v, do = (torch.randn(B, 8, T, 32, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+    fwd_case = _fwd_case(torch, F, fa, q, k, v, True, 0.0, "bfloat16", 20)
+    bwd_case = _bwd_case(torch, F, fa, q, k, v, do, True, 0.0, "bfloat16",
+                         20)
+    emit({"phase": "train_gpt_lm", "model": "gpt_lm()",
+          "config": {"vocab": 50257, "units": 256, "hidden_size": 1024,
+                     "layers": 4, "heads": 8, "head_dim": 32,
+                     "max_length": 1024, "dropout": 0.1,
+                     "attention_dropout": 0.0},
+          "trainer": "parallel.FusedTrainer(adam, dtype='bfloat16')",
+          "batch": B, "seq_len": T, "lr": c["lr"],
+          "warm_up_steps": c["warm"], "steps": c["steps"],
+          "losses": losses, "launches": launches,
+          "launches_per_step": {n: l / c["steps"]
+                                for n, l in launches.items()},
+          "kernel_inputs": sorted(map(str, seen)),
+          "step_ms": step_ms, "step_ms_median": med,
+          "tokens_per_s": B * T / (med / 1e3), "flops_per_step": flops,
+          "mfu": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"],
+          "max_memory_allocated_bytes": peak, "profile": split,
+          "idle_share_at_median": (
+              None if split.get("device_busy_ms") is None
+              else 1.0 - split["device_busy_ms"] / med),
+          "causal_d32_fwd": fwd_case, "causal_d32_bwd": bwd_case,
+          "model_build_s": t_build, "card": smi})
+    return launches, fwd_case, bwd_case
+
+
+def _on(dev, obj):
+    """Tensors (nested in lists) moved to ``dev``."""
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_on(dev, o) for o in obj)
+    return obj.to(dev)
+
+
+def _compare(where, got, want, tol=TOL_RNN):
+    """Fail unless each tensor of ``got`` is within ``tol`` x max(1,
+    max|ref|) of ``want``; return the worst relative error."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.shape != b.shape:
+            fail("%s: shape %s against %s" % (where, tuple(a.shape),
+                                               tuple(b.shape)))
+        worst = max(worst, _rel_err(a.detach().cpu(), b.detach().cpu()))
+    if worst > tol:
+        fail("%s: the card differs from the CPU by %g" % (where, worst))
+    return worst
+
+
+def _flat_tensors(obj):
+    if isinstance(obj, (list, tuple)):
+        return [t for o in obj for t in _flat_tensors(o)]
+    return [obj]
+
+
+def _control_flow_case(mx, contrib, name, cell, x, w, B):
+    """``foreach``: an LSTM cell over the steps of ``x`` scaled by ``w``;
+    ``while_loop``: nine steps of a decaying state -> the outputs and
+    final states as one list."""
+    if name == "foreach":
+        outs, st = contrib.foreach(lambda xt, s: cell(xt * w, s), x,
+                                   cell.begin_state(B))
+        return [outs] + st
+    outs, st = contrib.while_loop(
+        lambda i, s: bool((i < 9).all()),
+        lambda i, s: ((s * w).sum(-1), [i + 1, s * 0.9 + 0.1]),
+        [x.new_zeros(1), x[0]], max_iterations=12)
+    return [outs] + st
+
+
+def phase_rnn_parts(torch, mx, fa, seed, smi):
+    """The recurrent pieces off the main paths, on the card against the
+    CPU: ``nd.RNN`` in every mode, every cell unrolled, ``foreach`` and
+    ``while_loop``, and ``ctc_loss`` with its gradient; and a bf16 LSTM,
+    which cuDNN refuses, raises."""
+    from mxnet_tpu_torch.gluon import rnn
+    from mxnet_tpu_torch.gluon.rnn import rnn_layer as rl
+    from mxnet_tpu_torch.gluon.rnn.rnn_layer import _GATES
+    from mxnet_tpu_torch.ndarray import contrib
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    rng = np.random.default_rng(seed + 7)
+    T, B, I, H = 12, 4, 16, 32
+    out = {}
+
+    def leaf(a, dev):
+        return torch.from_numpy(a).to(dev).requires_grad_()
+
+    # nd.RNN, every mode, 2 layers, both directions: outputs and gradients
+    rnn_op = {}
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        G, n = _GATES[mode], 0
+        for layer in range(2):
+            n += 2 * G * H * ((I if layer == 0 else 2 * H) + H + 2)
+        arrays = [rng.standard_normal(s).astype(np.float32) * sc
+                  for s, sc in (((T, B, I), 1.0), ((n,), 0.2),
+                                ((4, B, H), 0.5), ((4, B, H), 0.5))]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            x, p, h0, c0 = (leaf(a, dev) for a in arrays)
+            with mx.autograd.record():
+                outs = mx.nd.RNN(x, p, h0, c0 if mode == "lstm" else None,
+                                 state_size=H, num_layers=2, mode=mode,
+                                 bidirectional=True, state_outputs=True)
+            outs = [o._data for o in outs]
+            grads = torch.autograd.grad(
+                sum((o * 0.5).sum() for o in outs),
+                [x, p, h0] + ([c0] if mode == "lstm" else []))
+            res[dev] = outs + list(grads)
+        rnn_op[mode] = _compare("nd.RNN(%s)" % mode, res["cuda"],
+                                res["cpu"])
+    out["nd_RNN_max_rel_err"] = rnn_op
+
+    # every cell, unrolled (NTC; the bidirectional one with lengths)
+    def cells():
+        seq = rnn.SequentialRNNCell()
+        seq.add(rnn.LSTMCell(H))
+        seq.add(rnn.DropoutCell(0.5))
+        seq.add(rnn.GRUCell(H))
+        return {"rnn_tanh": rnn.RNNCell(H),
+                "rnn_relu": rnn.RNNCell(H, activation="relu"),
+                "lstm": rnn.LSTMCell(H), "gru": rnn.GRUCell(H),
+                "sequential": seq, "residual": rnn.ResidualCell(
+                    rnn.GRUCell(I)),
+                "bidirectional": rnn.BidirectionalCell(rnn.LSTMCell(H),
+                                                       rnn.GRUCell(H)),
+                "zoneout": rnn.ZoneoutCell(rnn.LSTMCell(H), 0.2, 0.2),
+                "variational": rnn.VariationalDropoutCell(
+                    rnn.GRUCell(H), 0.2, 0.2, 0.2)}
+
+    xs = rng.standard_normal((B, T, I)).astype(np.float32)
+    lengths = np.array([T, 3, 7, 10], np.float32)
+    cell_err = {}
+    card_cells, cpu_cells = cells(), cells()
+    for name in card_cells:
+        res = {}
+        for dev, cell in (("cuda", card_cells[name]),
+                          ("cpu", cpu_cells[name])):
+            cell.initialize(ctx=None if dev == "cuda" else mx.cpu())
+            with mx.autograd.pause():
+                cell.unroll(1, torch.zeros(B, 1, I, device=dev))
+            if dev == "cuda":
+                params = lm_params(cell, seed + 8, scale=0.3)
+            mx.convert.load_jax_params(cell, params)
+            x = leaf(xs, dev)
+            vl = (torch.from_numpy(lengths).to(dev)
+                  if name == "bidirectional" else None)
+            with mx.autograd.record(train_mode=False):
+                o, st = cell.unroll(T, x, valid_length=vl)
+                loss = (o * o).sum()
+            g = torch.autograd.grad(loss, [x] + list(cell.parameters()))
+            res[dev] = [o] + _flat_tensors(st) + list(g)
+        cell_err[name] = _compare("cell %s" % name, res["cuda"], res["cpu"])
+    out["cells_max_rel_err"] = cell_err
+
+    # foreach (an LSTM cell over the steps) and while_loop
+    cf = {}
+    w = rng.standard_normal((I,)).astype(np.float32)
+    for name in ("foreach", "while_loop"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            cell = card_cells["lstm"] if dev == "cuda" else \
+                cpu_cells["lstm"]
+            x = leaf(xs.transpose(1, 0, 2).copy(), dev)
+            wt = leaf(w, dev)
+            with mx.autograd.record(train_mode=False):
+                got = _control_flow_case(mx, contrib, name, cell, x, wt, B)
+            grads = torch.autograd.grad(sum((t * t).sum() for t in got),
+                                        [x, wt], allow_unused=True)
+            res[dev] = got + [g for g in grads if g is not None]
+        cf[name] = _compare(name, res["cuda"], res["cpu"])
+    out["control_flow_max_rel_err"] = cf
+
+
+    # ctc_loss (blank first, -1 padding, one infeasible alignment)
+    acts = rng.standard_normal((30, B, 20)).astype(np.float32) * 2
+    labels = np.array([[3, 4, 4, 5, -1], [1, 2, -1, -1, -1],
+                       [7] * 5, [9, 8, 7, 6, 5]], np.float32)
+    dlen = np.array([30, 20, 6, 25], np.int32)   # 7x5 needs 9 frames
+    res = {}
+    for dev in ("cuda", "cpu"):
+        a = leaf(acts, dev)
+        loss = ops_nn.ctc_loss(a, torch.from_numpy(labels).to(dev),
+                               torch.from_numpy(dlen).to(dev))
+        res[dev] = [loss, torch.autograd.grad(
+            (loss * torch.linspace(0.5, 1.5, B, device=dev)).sum(), a)[0]]
+    out["ctc_max_rel_err"] = _compare("ctc_loss", res["cuda"], res["cpu"])
+    out["ctc_losses"] = res["cuda"][0].tolist()
+    if not 1e29 < out["ctc_losses"][2] < 1e31:
+        fail("the infeasible CTC alignment gave %g, want ~1e30"
+             % out["ctc_losses"][2])
+
+    # a backward after record(train_mode=False) (cuDNN's backward needs a
+    # forward in its training form); the grouped SGD keeps the weights
+    # views of cuDNN's buffers (one a layer: dropout 0.3), and the next
+    # forward reads the update
+    layer = rnn.LSTM(H, num_layers=2, dropout=0.3, input_size=I)
+    layer.initialize()
+    trainer = mx.gluon.Trainer(layer.collect_params(), "sgd",
+                               {"learning_rate": 0.5})
+    x = torch.from_numpy(xs.transpose(1, 0, 2).copy()).cuda()
+    with mx.autograd.record(train_mode=False):
+        loss = (layer(x) ** 2).sum()
+    mx.autograd.backward(loss)
+    before = layer._flat_ptrs
+    trainer.step(1)
+    weights = [w.detach() for w in layer._weights()]
+    if tuple(w.data_ptr() for w in weights) != before:
+        fail("gluon.Trainer's update moved the LSTM weights out of "
+             "cuDNN's buffers")
+    with torch.no_grad():
+        got = layer(x)
+        zeros = torch.zeros(2, B, H, device="cuda")
+        want = rl.rnn_reference("lstm", x, zeros, zeros, weights, 2, False)[0]
+    out["update_seen_max_rel_err"] = _compare("LSTM after an update",
+                                              [got], [want])
+
+    # cuDNN refuses bf16: the layer raises instead of falling back
+    layer = rnn.LSTM(H)
+    layer.initialize()
+    layer.cast("bfloat16")
+    try:
+        layer(torch.zeros(T, B, I, device="cuda", dtype=torch.bfloat16))
+    except mx.MXNetError as e:
+        out["bf16_lstm_refused"] = str(e)[:120]
+    else:
+        fail("a bf16 LSTM on the card did not raise")
+    emit(dict({"phase": "rnn_parts", "tol": TOL_RNN, "card": smi}, **out))
+
+
 def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
     """One kernel route's summary from its case: ``bound_key`` None for
     the forward's bound (``bound_ms``), else "dq"/"dkv"; ``errs`` the
@@ -2143,6 +2824,10 @@ def main():
     captured_launches = phase_train_captured(torch, mx, fa, args.seed, smi)
     phase_train_captured_resnet(torch, mx, fa, args.seed, smi)
     nd_launches = phase_nd_imperative(torch, mx, fa, args.seed, smi)
+    lstm_launches = phase_train_lstm(torch, mx, fa, args.seed, smi)
+    gpt_launches, gpt_fwd, gpt_bwd = phase_train_gpt_lm(torch, mx, fa,
+                                                        args.seed, smi)
+    phase_rnn_parts(torch, mx, fa, args.seed, smi)
 
     # each route's numbers at its main path's shape, not causal: f32 at
     # (8, 12, 512, 512, 64), the forward as served (no dropout), the
@@ -2162,12 +2847,17 @@ def main():
                     + captured_launches["flash_attention"]
                     + nd_fwd["float32"],
                     "bfloat16": bf16_launches["flash_attention"]
-                    + nd_fwd["bfloat16"],
+                    + nd_fwd["bfloat16"]
+                    + gpt_launches["flash_attention"],
                     "float16": 0}
     routes = {dname: _kernel_entry(
         "flash_fwd", fwd_launches[dname], case(fwd_cases, B, dname, p),
         "ms", "plain_ms", None, "max_abs_err_o")
         for dname, (B, p) in route_cases.items()}
+    # gpt_lm's route: bf16, causal, (8, 8, 1024, 1024, 32), no dropout
+    routes["bfloat16_causal_d32"] = _kernel_entry(
+        "flash_fwd", gpt_launches["flash_attention"], gpt_fwd, "ms",
+        "plain_ms", None, "max_abs_err_o")
     entries = [dict(routes["float32"], routes=routes)]
     entries[0]["launches"] = sum(fwd_launches.values())
     entries[0]["launches_by_path"] = {
@@ -2175,19 +2865,25 @@ def main():
         "train_bf16": bf16_launches["flash_attention"],
         "train_resnet": resnet_launches["flash_attention"],
         "train_captured_recorded": captured_launches["flash_attention"],
-        "nd_imperative": sum(nd_fwd.values())}
+        "nd_imperative": sum(nd_fwd.values()),
+        "train_lstm": lstm_launches["flash_attention"],
+        "train_gpt_lm": gpt_launches["flash_attention"]}
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
         nd_k = nd_launches[kname]
         launches = {"float32": train_launches[kname]
                     + captured_launches[kname] + nd_k["float32"],
-                    "bfloat16": bf16_launches[kname] + nd_k["bfloat16"],
+                    "bfloat16": bf16_launches[kname] + nd_k["bfloat16"]
+                    + gpt_launches[kname],
                     "float16": 0}
         routes = {dname: _kernel_entry(
             kname, launches[dname],
             case(bwd_cases, B, dname, DROPOUT_P), short + "_ms",
             "plain_%s_ms" % short, short, outs)
             for dname, (B, _) in route_cases.items()}
+        routes["bfloat16_causal_d32"] = _kernel_entry(
+            kname, gpt_launches[kname], gpt_bwd, short + "_ms",
+            "plain_%s_ms" % short, short, outs)
         entries.append(dict(routes["float32"], routes=routes))
         entries[-1]["launches"] = sum(launches.values())
         entries[-1]["launches_by_path"] = {
@@ -2195,7 +2891,9 @@ def main():
             "train_bf16": bf16_launches[kname],
             "train_resnet": resnet_launches[kname],
             "train_captured_recorded": captured_launches[kname],
-            "nd_imperative": sum(nd_k.values())}
+            "nd_imperative": sum(nd_k.values()),
+            "train_lstm": lstm_launches[kname],
+            "train_gpt_lm": gpt_launches[kname]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

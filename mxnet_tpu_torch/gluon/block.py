@@ -35,12 +35,30 @@ def _wrap(out, NDArray):
     return out
 
 
+def _unwrap(x, NDArray):
+    if isinstance(x, NDArray):
+        return x._data
+    if isinstance(x, (tuple, list)):
+        return type(x)(_unwrap(v, NDArray) for v in x)
+    return x
+
+
+def _has_ndarray(xs, NDArray):
+    """Whether an NDArray is among ``xs`` or inside a list/tuple there (a
+    plain loop: it runs on every block call)."""
+    for x in xs:
+        if isinstance(x, NDArray) or (isinstance(x, (tuple, list))
+                                      and _has_ndarray(x, NDArray)):
+            return True
+    return False
+
+
 def _call_with_ndarrays(block, NDArray, args, kwargs):
-    """``block`` called on the tensors of its NDArray arguments, its
-    outputs wrapped as NDArrays."""
-    args = tuple(a._data if isinstance(a, NDArray) else a for a in args)
-    kwargs = {k: (v._data if isinstance(v, NDArray) else v)
-              for k, v in kwargs.items()}
+    """``block`` called on the tensors of its NDArray arguments (also
+    inside lists and tuples, as recurrent states come), its outputs
+    wrapped as NDArrays."""
+    args = _unwrap(args, NDArray)
+    kwargs = {k: _unwrap(v, NDArray) for k, v in kwargs.items()}
     return _wrap(block(*args, **kwargs), NDArray)
 
 
@@ -50,8 +68,8 @@ class Block(nn.Module):
     def __call__(self, *args, **kwargs):
         NDArray = _registry.NDArray
         if NDArray is not None and (
-                any(isinstance(a, NDArray) for a in args)
-                or any(isinstance(v, NDArray) for v in kwargs.values())):
+                _has_ndarray(args, NDArray)
+                or (kwargs and _has_ndarray(kwargs.values(), NDArray))):
             return _call_with_ndarrays(self, NDArray, args, kwargs)
         if autograd.is_recording() or not torch.is_grad_enabled():
             return super().__call__(*args, **kwargs)

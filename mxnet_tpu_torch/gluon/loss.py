@@ -1,11 +1,10 @@
 """Loss blocks.
 
-Counterpart of ``mxnet_tpu/gluon/loss.py``: every loss there except
-``CTCLoss``, which waits for the ``ctc_loss`` op.  Each loss is a block
-``loss(pred, label, [sample_weight])`` that returns one value per example
-(the mean over every axis but ``batch_axis``), weighted by ``weight`` and
-``sample_weight``; ``PoissonNLLLoss`` returns the mean over everything,
-as there.
+Counterpart of ``mxnet_tpu/gluon/loss.py``: every loss there.  Each loss
+is a block ``loss(pred, label, [sample_weight])`` that returns one value
+per example (the mean over every axis but ``batch_axis``), weighted by
+``weight`` and ``sample_weight``; ``PoissonNLLLoss`` returns the mean over
+everything, as there, and ``CTCLoss`` one loss a sequence.
 """
 from __future__ import annotations
 
@@ -20,7 +19,7 @@ __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
            "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
            "LogisticLoss", "TripletLoss", "PoissonNLLLoss",
-           "CosineEmbeddingLoss", "SDMLLoss"]
+           "CosineEmbeddingLoss", "SDMLLoss", "CTCLoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -135,6 +134,28 @@ class KLDivLoss(Loss):
         loss = label * (torch.log(label + 1e-12) - pred)
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return self._mean_nonbatch(loss)
+
+
+class CTCLoss(Loss):
+    """CTC loss (``ops.nn.ctc_loss``, blank class 0) a sequence:
+    ``loss(pred, label, pred_lengths=None, label_lengths=None,
+    sample_weight=None)``, pred in ``layout`` NTC or TNC, label in
+    ``label_layout`` NT or TN."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        super().__init__(weight, 0, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        if self._label_layout == "TN":
+            label = label.transpose(0, 1)
+        loss = F.ctc_loss(pred, label, pred_lengths, label_lengths)
+        return _apply_weighting(loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

@@ -14,7 +14,7 @@ from .. import nn
 from ..block import HybridBlock
 
 __all__ = ["BERTModel", "BERTForPretraining", "pretraining_loss",
-           "bert_12_768_12", "get_bert"]
+           "bert_12_768_12", "bert_24_1024_16", "get_bert"]
 
 
 class BERTModel(HybridBlock):
@@ -124,6 +124,8 @@ def pretraining_loss(mlm_scores, nsp_scores, masked_labels, masked_weights,
 _BERT_CONFIGS = {
     "bert_12_768_12": dict(units=768, hidden_size=3072, num_layers=12,
                            num_heads=12),
+    "bert_24_1024_16": dict(units=1024, hidden_size=4096, num_layers=24,
+                            num_heads=16),
 }
 
 
@@ -141,3 +143,8 @@ def get_bert(name, vocab_size=30522, pretraining=False, **kwargs):
 def bert_12_768_12(**kwargs):
     """BERT-base."""
     return get_bert("bert_12_768_12", **kwargs)
+
+
+def bert_24_1024_16(**kwargs):
+    """BERT-large."""
+    return get_bert("bert_24_1024_16", **kwargs)

@@ -177,9 +177,9 @@ def load(fname, ctx=None):
         return {k: array(npz[k], ctx=ctx) for k in keys}
 
 
-from . import random  # noqa: E402  (mx.nd.random)
+from . import contrib, random  # noqa: E402  (mx.nd.contrib, mx.nd.random)
 
 __all__ = ["NDArray", "waitall", "array", "zeros", "ones", "full", "empty",
            "arange", "linspace", "eye", "zeros_like", "ones_like", "moveaxis",
            "save", "load", "concatenate", "from_torch", "random",
-           "dropout"] + list_ops()
+           "contrib", "dropout"] + list_ops()

@@ -5,10 +5,11 @@ already takes the 1.x attr names, the CamelCase name is a registry alias
 (the same ``Operator``), and ``Activation`` is ``ops/nn.py``'s
 ``activation``; where the 1.x signature differs (``LeakyReLU``'s act_type
 dispatch, ``Dropout``'s implicit training-mode generator, ``Embedding``'s
-declarative attrs) a thin adapter maps it onto the port's op.
+declarative attrs) a thin adapter maps it onto the port's op.  ``RNN``
+unpacks its one parameter vector and runs ``gluon.rnn``'s fused
+recurrence.
 
-Not ported yet: ``RNN`` (with the recurrent layers), ``ROIPooling`` (with
-detection) and the ``CTCLoss`` alias (with ``ctc_loss``).
+Not ported yet: ``ROIPooling`` (with detection).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ for _camel, _snake in [
         ("SliceChannel", "split"), ("UpSampling", "upsampling"),
         ("BatchNorm", "batch_norm"), ("LayerNorm", "layer_norm"),
         ("GroupNorm", "group_norm"), ("InstanceNorm", "instance_norm"),
-        ("LRN", "lrn"),
+        ("LRN", "lrn"), ("CTCLoss", "ctc_loss"),
         ("SequenceMask", "sequence_mask"), ("SequenceLast", "sequence_last"),
         ("SequenceReverse", "sequence_reverse"),
         ("FullyConnected", "fully_connected"),
@@ -85,3 +86,57 @@ def Embedding(data, weight, input_dim=None, output_dim=None,
     """1.x Embedding: input_dim/output_dim are declarative; the lookup is
     the same gather."""
     return nn.embedding(data, weight)
+
+
+def _rnn_num_outputs(attrs):
+    if not attrs.get("state_outputs", False):
+        return 1
+    return 3 if attrs.get("mode", "lstm") == "lstm" else 2
+
+
+def RNN(data, parameters, state, state_cell=None, state_size=None,
+        num_layers=1, mode="lstm", bidirectional=False, p=0.0,
+        state_outputs=False, lstm_state_clip_min=None,
+        lstm_state_clip_max=None, **_ignored):
+    """1.x fused RNN op: every layer's weights and biases in ONE flat
+    vector (the weights of every (layer, direction) first, i2h then h2h,
+    then all the biases likewise), data TNC, states (layers * dirs, B, H).
+    The recurrence is ``gluon.rnn``'s fused one (cuDNN's RNN on the card),
+    with dropout ``p`` between layers in training.  As in the JAX package,
+    ``lstm_state_clip_*`` clips only the final cell state."""
+    from ..gluon.rnn.rnn_layer import _GATES, rnn_forward
+
+    I = data.shape[2]
+    H = int(state_size)
+    G = _GATES[mode]
+    ndir = 2 if bidirectional else 1
+    flat = parameters.reshape(-1).to(data.dtype)
+    off, weights = 0, []
+    for layer in range(int(num_layers)):
+        in_sz = I if layer == 0 else H * ndir
+        for _ in range(ndir):
+            for shape in ((G * H, in_sz), (G * H, H)):
+                n = shape[0] * shape[1]
+                weights.append(flat[off:off + n].reshape(shape))
+                off += n
+    packed = []   # wi, wh, bi, bh for each (layer, direction)
+    for k in range(int(num_layers) * ndir):
+        packed += [weights[2 * k], weights[2 * k + 1],
+                   flat[off:off + G * H], flat[off + G * H:off + 2 * G * H]]
+        off += 2 * G * H
+    c0 = state_cell if state_cell is not None else torch.zeros_like(state)
+    drop = float(p) if p and _ag.is_training() else 0.0
+    out, hT, cT = rnn_forward(
+        mode, data, state, c0 if mode == "lstm" else None, packed,
+        int(num_layers), bool(bidirectional), drop,
+        generator=_random.generator(data.device) if drop else None)
+    if mode == "lstm" and lstm_state_clip_min is not None:
+        cT = cT.clamp(lstm_state_clip_min, lstm_state_clip_max)
+    if not state_outputs:
+        return out
+    if mode == "lstm":
+        return out, hT, cT
+    return out, hT
+
+
+register("RNN", num_outputs=_rnn_num_outputs)(RNN)

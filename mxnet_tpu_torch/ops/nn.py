@@ -10,8 +10,8 @@ chains, the dense attention branch) is plain PyTorch here, through the
 cuBLAS/cuDNN calls PyTorch makes; the flash branch runs the hand-written
 CUDA kernel through ``flash_attention``.
 
-Every op of the JAX module but ``ctc_loss`` is registered for ``mx.nd``
-at the end of this module (``registry.register`` returns each function
+Every op of the JAX module is registered for ``mx.nd`` at the end of
+this module (``registry.register`` returns each function
 unchanged, so these names stay plain functions on tensors and the paths
 that call them pay no dispatch); the activations, norms, resizes and
 losses that only ``mx.nd`` calls are plain PyTorch here too.
@@ -41,7 +41,7 @@ __all__ = ["fully_connected", "dot", "activation", "gelu", "layer_norm",
            "embedding", "dropout", "softmax", "log_softmax", "pick",
            "take_along_axis", "multi_head_attention", "convolution",
            "deconvolution", "pooling", "adaptive_avg_pooling", "batch_norm",
-           "softmax_cross_entropy"]
+           "softmax_cross_entropy", "ctc_loss"]
 
 
 def gelu(x, approximate=True):
@@ -582,6 +582,64 @@ def smooth_l1(x, scalar=1.0):
                        torch.abs(x) - 0.5 / s2)
 
 
+_CTC_NEG_INF = -1e30   # the JAX op's log of zero: finite, as there
+
+
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             blank_label="first"):
+    """Connectionist temporal classification loss -> (B,) negative log
+    likelihoods.
+
+    data: (T, B, V) unnormalised activations; label: (B, L), padded past
+    each label with -1 (or 0 with ``blank_label='first'``, where 0 is the
+    blank).  ``blank_label`` 'first' makes class 0 the blank, 'last' class
+    V-1.  Lengths missing are derived as the JAX op derives them: every
+    frame; labels > 0 ('first') or >= 0 ('last').  The log-space alpha
+    recursion over the extended label (blank, l1, blank, l2, ..., blank)
+    is the JAX op's, step for step, with log(0) = -1e30: an alignment that
+    cannot fit gives a finite loss of about 1e30 (where
+    ``F.ctc_loss`` gives inf), and its gradient stays finite.  A padding
+    label reads class V-1 (-1 wraps, as JAX's gather does); positions past
+    each label's end never reach its loss."""
+    T, B, V = data.shape
+    logp = torch.log_softmax(data, dim=-1)
+    blank = 0 if blank_label == "first" else V - 1
+    L = label.shape[1]
+    lab = label.long()
+    dev = data.device
+    if label_lengths is None:
+        label_lengths = (lab > (0 if blank_label == "first" else -1)).sum(1)
+    if data_lengths is None:
+        data_lengths = torch.full((B,), T, dtype=torch.long, device=dev)
+    S = 2 * L + 1
+    ext = torch.full((B, S), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = lab
+    ext = ext.remainder(V)
+    pos = torch.arange(S, device=dev)
+    skip = torch.cat([torch.zeros(B, 2, dtype=torch.bool, device=dev),
+                      ext[:, 2:] == ext[:, :-2]], dim=1) | (pos % 2 == 0)
+    ninf = torch.tensor(_CTC_NEG_INF, dtype=logp.dtype, device=dev)
+    emit = torch.gather(logp, 2, ext.unsqueeze(0).expand(T, B, S))
+    alpha = torch.cat([emit[0, :, :2], ninf.expand(B, S - 2)], dim=1)
+    alphas = [alpha]
+    for t in range(1, T):
+        a1 = torch.cat([ninf.expand(B, 1), alpha[:, :-1]], dim=1)
+        a2 = torch.cat([ninf.expand(B, 2), alpha[:, :-2]], dim=1)
+        a2 = torch.where(skip, ninf, a2)
+        m = torch.maximum(alpha, torch.maximum(a1, a2))
+        alpha = m + torch.log(torch.exp(alpha - m) + torch.exp(a1 - m)
+                              + torch.exp(a2 - m)) + emit[t]
+        alphas.append(alpha)
+    alphas = torch.stack(alphas)                                # (T, B, S)
+    t_end = (data_lengths.long() - 1).clamp(0, T - 1)
+    alpha_T = alphas[t_end, torch.arange(B, device=dev)]         # (B, S)
+    end = 2 * label_lengths.long()
+    a_end = alpha_T.gather(1, end[:, None])[:, 0]
+    a_end1 = alpha_T.gather(1, (end - 1).clamp(min=0)[:, None])[:, 0]
+    m = torch.maximum(a_end, a_end1)
+    return -(m + torch.log(torch.exp(a_end - m) + torch.exp(a_end1 - m)))
+
+
 for _name, _fn, _n in (
         ("relu", relu, 1), ("sigmoid", sigmoid, 1),
         ("log_sigmoid", log_sigmoid, 1), ("softrelu", softrelu, 1),
@@ -600,6 +658,6 @@ for _name, _fn, _n in (
         ("lrn", lrn, 1), ("dropout", _dropout_op, 1),
         ("upsampling", upsampling, 1), ("bilinear_resize", bilinear_resize, 1),
         ("softmax_cross_entropy", softmax_cross_entropy, 1),
-        ("smooth_l1", smooth_l1, 1),
+        ("smooth_l1", smooth_l1, 1), ("ctc_loss", ctc_loss, 1),
         ("multi_head_attention", multi_head_attention, 1)):
     register(_name, num_outputs=_n)(_fn)

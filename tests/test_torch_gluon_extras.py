@@ -105,7 +105,15 @@ def test_loss_matches_jax(case, weighted):
 
 
 def test_ctc_loss_is_not_ported():
-    assert not hasattr(tloss, "CTCLoss")
+    """The name stays from when ``CTCLoss`` was missing; the loss is
+    ported now, and on a small NTC case it gives the JAX loss's numbers
+    (``test_torch_ctc.py`` holds the rest)."""
+    pred = RS.randn(2, 6, 5).astype(np.float32)
+    label = np.array([[1, 2, -1], [3, 3, 4]], np.float32)
+    want = jloss.CTCLoss()(jmx.nd.array(pred),
+                           jmx.nd.array(label)).asnumpy()
+    got = tloss.CTCLoss()(torch.from_numpy(pred), torch.from_numpy(label))
+    _close(got.numpy(), want)
 
 
 # metric name: (ctor kwargs, labels, preds)

@@ -238,6 +238,13 @@ for _name in ("SequenceMask", "SequenceLast", "SequenceReverse",
     add(_name, lambda s: _r((5, 3, 4)),
         const(np.array([3, 5, 2], np.float32)),
         attrs={"use_sequence_length": True})
+add(["ctc_loss", "CTCLoss"], lambda s: _r((6, 2, 5), -2, 2),
+    const(np.array([[1, 2, -1], [3, 3, 4]], np.float32)), **ACC)
+# one LSTM layer: i2h (4H, I), h2h (4H, H), then the two biases, I=3, H=5
+add("RNN", lambda s: _r((4, 2, 3)),
+    lambda s: _r((20 * 3 + 20 * 5 + 2 * 20,), -0.5, 0.5),
+    lambda s: _r((1, 2, 5)), lambda s: _r((1, 2, 5)),
+    attrs={"state_size": 5, "mode": "lstm", "state_outputs": True}, **ACC)
 add("multi_head_attention", lambda s: _r((2, 8, 16)),
     lambda s: _r((2, 8, 16)), lambda s: _r((2, 8, 16)),
     attrs={"num_heads": 2, "impl": "dense"}, **ACC)

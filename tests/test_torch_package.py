@@ -51,7 +51,9 @@ def test_import_pulls_in_no_jax():
     assert "mxnet_tpu_torch.ops._ext" in res["modules"]
     for mod in ("error", "ndarray", "ndarray.ndarray", "ndarray.random",
                 "ops.registry", "ops.core", "ops.tensor_tail",
-                "ops.legacy", "ops.random_ops"):
+                "ops.legacy", "ops.random_ops", "ndarray.contrib",
+                "gluon.rnn", "gluon.rnn.rnn_layer", "gluon.rnn.rnn_cell",
+                "gluon.model_zoo.language_model"):
         assert "mxnet_tpu_torch." + mod in res["modules"]
     assert res["bad"] == []
 
@@ -386,7 +388,8 @@ def test_chip_smoke_and_step_modules_pull_in_no_jax():
                          check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    assert {"phase_train_captured", "phase_train_captured_resnet"} \
+    assert {"phase_train_captured", "phase_train_captured_resnet",
+            "phase_train_lstm", "phase_train_gpt_lm", "phase_rnn_parts"} \
         <= set(res["phases"])
 
 
