@@ -164,6 +164,26 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    card against the CPU within 1e-4*max(1, max|ref|); a bf16 LSTM, which
    cuDNN refuses, raises.
 
+14. data_pipeline -- the input pipeline (``BASELINE.json`` configs 1 and
+   2 fed as their users feed them): 1,280 synthetic 256x256 RGB images
+   (smooth, with class-dependent shapes; 100 classes) packed with
+   ``recordio.pack_img`` into a ``.rec``/``.idx`` pair and 4 shards, JPEG
+   q95 where the host library has libjpeg, else raw u8 npy payloads (the
+   phase prints which and why); ``io.ImageRecordIter`` (3x224x224, B=128,
+   random crop and mirror, shuffle, min(cores, 16) threads, route
+   ``native``) alone, img/s onto the card and on the host; ResNet-50 v1
+   (``train_resnet``'s bf16 recipe, B=128) fed from the pack through
+   ``data.PrefetchRing`` (page-locked slots, side stream): 3 + 7 steps,
+   the step median against the same trainer's synthetic-tensor median,
+   the H2D copy ms a batch, the ring's occupancy before each step and its
+   stalls; the losses are finite and fall and the first staged batch is
+   bit-identical to the host batch; ``examples/mnist_mlp.py``'s loop
+   (``vision.MNIST(...).transform_first(ToTensor())``,
+   ``gluon.data.DataLoader(batch_size=256, shuffle=True)``, the MLP, Adam
+   1e-3) for 2 epochs on the card, img/s and test accuracy above 0.9; and
+   one ``StreamLoader`` epoch over the 4 shards in a world of one that
+   sees every record once.  No flash kernel launches.
+
 Then the ``{"kernels": [...]}`` summary (gpt_lm's causal D=32 bf16 route
 as ``routes["bfloat16_causal_d32"]``), the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -2760,6 +2780,316 @@ def phase_rnn_parts(torch, mx, fa, seed, smi):
     emit(dict({"phase": "rnn_parts", "tol": TOL_RNN, "card": smi}, **out))
 
 
+# ---- phase 14: the input pipeline -------------------------------------------
+
+DATA_CFG = dict(images=1280, side=256, crop=224, classes=100, batch=128,
+                warm=3, steps=7, shards=4, mnist_batch=256, mnist_epochs=2,
+                jpeg_quality=95)
+
+
+def synthetic_images(rng, n, side, classes):
+    """``n`` smooth RGB uint8 images (side x side) with their labels: a
+    two-colour gradient, a class-dependent shape (a disc, a square or a
+    ring, at a class-dependent place and size, in a class-dependent
+    colour) and mild noise, so JPEG sizes are those of photographs, not of
+    noise."""
+    yy, xx = np.mgrid[0:side, 0:side].astype(np.float32) / side
+    labels = rng.integers(0, classes, n)
+    for i in range(n):
+        c = int(labels[i])
+        base = rng.uniform(40, 200, 3).astype(np.float32)
+        tilt = rng.uniform(-60, 60, 3).astype(np.float32)
+        img = base + tilt * (xx[..., None] * np.cos(c)
+                             + yy[..., None] * np.sin(c))
+        cy = 0.25 + 0.05 * ((7 * c) % 11)
+        cx = 0.25 + 0.05 * ((3 * c) % 11)
+        size = 0.08 + 0.02 * (c % 5)
+        r = np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2)
+        shape = [r < size,
+                 np.maximum(abs(yy - cy), abs(xx - cx)) < size,
+                 abs(r - size) < 0.03][c % 3]
+        img[shape] = np.array([(37 * c) % 256, (91 * c) % 256,
+                               (53 * c) % 256], np.float32)
+        img += rng.normal(0, 4, img.shape).astype(np.float32)
+        yield np.clip(img, 0, 255).astype(np.uint8), float(c)
+
+
+def pack_images(mx, tmp, cfg, seed):
+    """The pack the phase reads: ``images.rec``/``.idx`` and the same
+    records split into ``cfg['shards']`` shards round robin.  JPEG at
+    ``cfg['jpeg_quality']`` where the host library has libjpeg, else raw
+    u8 npy payloads (``native.route()``)."""
+    from mxnet_tpu_torch import native, recordio
+
+    route = native.route()
+    fmt = ".jpg" if route == "jpeg" else ".npy"
+    rng = np.random.default_rng(seed + 14)
+    t0 = time.perf_counter()
+    whole = recordio.MXIndexedRecordIO(os.path.join(tmp, "images.idx"),
+                                       os.path.join(tmp, "images.rec"), "w")
+    shards = [recordio.MXIndexedRecordIO(
+        os.path.join(tmp, "shard-%d.idx" % s),
+        os.path.join(tmp, "shard-%d.rec" % s), "w")
+        for s in range(cfg["shards"])]
+    nbytes = 0
+    for i, (img, label) in enumerate(synthetic_images(
+            rng, cfg["images"], cfg["side"], cfg["classes"])):
+        rec = recordio.pack_img(recordio.IRHeader(0, label, i, 0), img,
+                                quality=cfg["jpeg_quality"], img_fmt=fmt)
+        nbytes += len(rec)
+        whole.write_idx(i, rec)
+        shards[i % len(shards)].write_idx(i // len(shards), rec)
+    for w in [whole] + shards:
+        w.close()
+    return {"host_library": route, "payload": fmt.lstrip("."),
+            "jpeg_skipped_reason": None if route == "jpeg" else
+            "the host has no <jpeglib.h>: raw u8 npy payloads",
+            "records": cfg["images"], "bytes": nbytes,
+            "bytes_per_record": nbytes / cfg["images"],
+            "pack_s": time.perf_counter() - t0}
+
+
+def _record_iter(mx, rec, cfg, seed):
+    return mx.io.ImageRecordIter(
+        path_imgrec=rec, data_shape=(3, cfg["crop"], cfg["crop"]),
+        batch_size=cfg["batch"], rand_crop=True, rand_mirror=True,
+        shuffle=True, preprocess_threads=min(os.cpu_count(), 16),
+        seed=seed)
+
+
+def _loader_epoch(torch, it):
+    """One epoch of ``it``: (images, seconds), the last batch on the
+    card when the clock stops."""
+    t0 = time.perf_counter()
+    n, last = 0, None
+    for batch in it:
+        last = batch.data[0]
+        n += batch.data[0].shape[0] - batch.pad
+    if last is not None and last.context.device_type == "gpu":
+        torch.cuda.synchronize()
+    it.reset()
+    return n, time.perf_counter() - t0
+
+
+def _fed_resnet(torch, mx, rec, cfg, seed):
+    """ResNet-50 v1 (``train_resnet``'s recipe) fed from the pack through
+    ``data.PrefetchRing``: the stager thread reads host batches from an
+    ``ImageRecordIter`` and stages them onto the card through page-locked
+    slots on a side stream."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    it = _record_iter(mx, rec, cfg, seed)
+    first = {}
+    count = [0]
+
+    def source():
+        with mx.cpu():
+            try:
+                b = it.next()
+            except StopIteration:
+                it.reset()
+                b = it.next()
+        host = (b.data[0]._data, b.label[0]._data)
+        if count[0] == 0:
+            first["x"], first["y"] = (t.clone() for t in host)
+        count[0] += 1
+        return count[0] - 1, host, None
+
+    placer = mx.data.make_placer(slots=3, timing=True)
+    ring = mx.data.PrefetchRing(source, placer, depth=2, name="resnet")
+    net = _resnet50(torch, mx, vision, seed)
+    trainer = mx.parallel.FusedTrainer(
+        net, loss="softmax_ce", optimizer="sgd",
+        optimizer_params={"learning_rate": 0.05, "momentum": 0.9},
+        dtype="bfloat16")
+    losses, step_ms, occupancy, identical = [], [], [], None
+    for i in range(cfg["warm"] + cfg["steps"]):
+        t0 = time.perf_counter()
+        occupancy.append(ring.occupancy())
+        idx, (x, y), _ = ring.next()
+        if i == 0:
+            identical = bool(torch.equal(x._data.cpu(), first["x"])
+                             and torch.equal(y._data.cpu(), first["y"]))
+        losses.append(trainer.step(x, y).item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    stalls = ring.stalls
+    ring.stop()
+    copy_ms = placer.copy_ms()
+    # the same trainer on one synthetic batch already on the card
+    rng = np.random.default_rng(seed + 5)
+    B, hw = cfg["batch"], cfg["crop"]
+    xs = torch.from_numpy(rng.random((B, 3, hw, hw), np.float32)).cuda()
+    ys = torch.from_numpy(rng.integers(0, cfg["classes"], B)).cuda()
+    _, _, _, synth_ms = _timed_steps(torch, trainer, xs, ys, cfg["warm"],
+                                     cfg["steps"])
+    timed = step_ms[cfg["warm"]:]
+    return {"losses": losses, "step_ms": step_ms,
+            "step_ms_median": float(np.median(timed)),
+            "img_per_s": B / (float(np.median(timed)) / 1e3),
+            "synthetic_step_ms": synth_ms,
+            "synthetic_step_ms_median": float(np.median(synth_ms)),
+            "h2d_ms_per_batch": copy_ms,
+            "h2d_ms_median": float(np.median(copy_ms)),
+            "h2d_bytes_per_batch": 4 * B * (3 * hw * hw + 1),
+            "ring_depth": ring.depth,
+            "ring_occupancy_before_each_step": occupancy,
+            "ring_stalls": stalls,
+            "first_batch_bit_identical": identical}
+
+
+def _mnist_loop(torch, mx, root, cfg, seed):
+    """``examples/mnist_mlp.py``'s loop on the card, as the example
+    writes it (deferred input sizes, ``hybridize``, Adam at lr 1e-3)."""
+    from mxnet_tpu_torch.gluon.data.vision import datasets, transforms
+
+    mx.random.seed(seed)
+    to_tensor = transforms.ToTensor()
+    train = datasets.MNIST(root=root, train=True).transform_first(to_tensor)
+    test = datasets.MNIST(root=root, train=False).transform_first(to_tensor)
+    train_loader = mx.gluon.data.DataLoader(
+        train, batch_size=cfg["mnist_batch"], shuffle=True)
+    test_loader = mx.gluon.data.DataLoader(test,
+                                           batch_size=cfg["mnist_batch"])
+    nn = mx.gluon.nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(128, activation="relu"), nn.Dense(64, activation="relu"),
+            nn.Dense(10))
+    net.initialize()
+    net.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-3})
+    epochs, where = [], set()
+    for _ in range(cfg["mnist_epochs"]):
+        t0 = time.perf_counter()
+        total = seen = 0.0
+        for x, y in train_loader:
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y).mean()
+            loss.backward()
+            trainer.step(1)
+            total += float(loss.asnumpy()) * x.shape[0]
+            seen += x.shape[0]
+            where.add(str(x.context))
+        train_s = time.perf_counter() - t0
+        correct = n = 0
+        for x, y in test_loader:
+            pred = net(x).asnumpy().argmax(axis=1)
+            correct += int((pred == y.asnumpy()).sum())
+            n += x.shape[0]
+        epochs.append({"loss": total / seen, "test_acc": correct / n,
+                       "train_s": train_s, "img_per_s": seen / train_s})
+    return {"epochs": epochs, "batch_contexts": sorted(where),
+            "route": train_loader.route}
+
+
+def _stream_epoch(torch, mx, tmp, cfg, seed):
+    """One ``StreamLoader`` epoch over the shards, in a world of one."""
+    shards = [os.path.join(tmp, "shard-%d.rec" % s)
+              for s in range(cfg["shards"])]
+    loader = mx.data.StreamLoader(shards, cfg["batch"], seed=seed,
+                                  num_workers=min(os.cpu_count(), 8),
+                                  prefetch=2)
+    ids, shapes = [], set()
+    t0 = time.perf_counter()
+    for data, label in loader:
+        shapes.add((tuple(data.shape), str(data.context), str(data.dtype)))
+        ids.append(loader.last_ids.copy())
+        del data, label
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    stats = loader.stats()
+    loader.close()
+    ids = np.concatenate(ids)
+    return {"world": [loader.num_hosts, loader.host],
+            "assignment": loader.assignment_mode,
+            "batches": len(ids) // cfg["batch"], "records": len(ids),
+            "distinct": int(len(set(ids.tolist()))),
+            "batch_shapes": sorted(map(str, shapes)), "seconds": secs,
+            "img_per_s": len(ids) / secs,
+            "ring_stalls": stats["ring_stalls"],
+            "records_total": stats["records_total"]}
+
+
+def phase_data_pipeline(torch, mx, fa, seed, smi, cfg=DATA_CFG):
+    """The input pipeline on the card: a RecordIO pack of synthetic
+    images, the native ``ImageRecordIter`` alone, ResNet-50 fed through
+    ``data.PrefetchRing``, config 1's MNIST loop through
+    ``gluon.data.DataLoader`` and a ``StreamLoader`` epoch over shards."""
+    import shutil
+    import tempfile
+
+    counters = [getattr(fa, n) for n in ("flash_attention", "flash_bwd_dq",
+                                         "flash_bwd_dkv")]
+    for c in counters:
+        c.launches = 0
+    tmp = tempfile.mkdtemp(prefix="mx_data_pipeline_")
+    try:
+        pack = pack_images(mx, tmp, cfg, seed)
+        rec = os.path.join(tmp, "images.rec")
+        it = _record_iter(mx, rec, cfg, seed)
+        route = it.route
+        if route != "native":
+            fail("ImageRecordIter took the %r route" % route)
+        loader = {}
+        for name, scope in (("card", None), ("host", mx.cpu())):
+            runs = []
+            for _ in range(2):
+                if scope is None:
+                    runs.append(_loader_epoch(torch, it))
+                else:
+                    with scope:
+                        runs.append(_loader_epoch(torch, it))
+            n, secs = runs[-1]
+            if n != cfg["images"]:
+                fail("an ImageRecordIter epoch gave %d images of %d"
+                     % (n, cfg["images"]))
+            loader[name] = {"img_per_s": n / secs, "epoch_s": secs,
+                            "first_epoch_s": runs[0][1]}
+        del it
+        fed = _fed_resnet(torch, mx, rec, cfg, seed)
+        losses = fed["losses"]
+        if not all(np.isfinite(losses)):
+            fail("nonfinite fed ResNet-50 loss: %s" % losses)
+        if not (losses[-1] < losses[0] and np.mean(losses[-3:])
+                < np.mean(losses[:3])):
+            fail("fed ResNet-50 loss did not fall: %s" % losses)
+        if not fed["first_batch_bit_identical"]:
+            fail("the first staged batch differs from the host batch")
+        torch.cuda.empty_cache()
+        mnist = _mnist_loop(torch, mx, os.path.join(tmp, "mnist"), cfg,
+                            seed)
+        if mnist["batch_contexts"] != ["gpu(0)"]:
+            fail("MNIST batches landed on %s" % mnist["batch_contexts"])
+        if not mnist["epochs"][-1]["test_acc"] > 0.9:
+            fail("MNIST test accuracy %.4f <= 0.9"
+                 % mnist["epochs"][-1]["test_acc"])
+        stream = _stream_epoch(torch, mx, tmp, cfg, seed)
+        if not (stream["records"] == stream["distinct"] == cfg["images"]
+                == stream["records_total"]):
+            fail("the StreamLoader epoch did not see every record once: %s"
+                 % stream)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {c.__name__: c.launches for c in counters}
+    if any(launches.values()):
+        fail("the data pipeline launched flash kernels: %s" % launches)
+    emit({"phase": "data_pipeline", "pack": pack, "host_cores":
+          os.cpu_count(), "record_iter": {
+              "route": route, "batch": cfg["batch"],
+              "data_shape": [3, cfg["crop"], cfg["crop"]],
+              "preprocess_threads": min(os.cpu_count(), 16),
+              "rand_crop": True, "rand_mirror": True, "shuffle": True,
+              "to_card": loader["card"], "host_only": loader["host"]},
+          "fed_resnet50": dict(fed, model="resnet50_v1",
+                               trainer="parallel.FusedTrainer",
+                               dtype="bfloat16", optimizer="sgd", lr=0.05,
+                               momentum=0.9, batch=cfg["batch"]),
+          "mnist_mlp": mnist, "stream_loader": stream,
+          "launches": launches, "card": smi})
+    return launches
+
+
 def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
     """One kernel route's summary from its case: ``bound_key`` None for
     the forward's bound (``bound_ms``), else "dq"/"dkv"; ``errs`` the
@@ -2828,6 +3158,7 @@ def main():
     gpt_launches, gpt_fwd, gpt_bwd = phase_train_gpt_lm(torch, mx, fa,
                                                         args.seed, smi)
     phase_rnn_parts(torch, mx, fa, args.seed, smi)
+    data_launches = phase_data_pipeline(torch, mx, fa, args.seed, smi)
 
     # each route's numbers at its main path's shape, not causal: f32 at
     # (8, 12, 512, 512, 64), the forward as served (no dropout), the
@@ -2867,7 +3198,8 @@ def main():
         "train_captured_recorded": captured_launches["flash_attention"],
         "nd_imperative": sum(nd_fwd.values()),
         "train_lstm": lstm_launches["flash_attention"],
-        "train_gpt_lm": gpt_launches["flash_attention"]}
+        "train_gpt_lm": gpt_launches["flash_attention"],
+        "data_pipeline": data_launches["flash_attention"]}
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
         nd_k = nd_launches[kname]
@@ -2893,7 +3225,8 @@ def main():
             "train_captured_recorded": captured_launches[kname],
             "nd_imperative": sum(nd_k.values()),
             "train_lstm": lstm_launches[kname],
-            "train_gpt_lm": gpt_launches[kname]}
+            "train_gpt_lm": gpt_launches[kname],
+            "data_pipeline": data_launches[kname]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,7 +9,9 @@ grouped apply and whole step ``trainer.capture`` turns into one CUDA
 graph, ``mx.step``), or in bf16 through ``parallel.FusedTrainer``; every
 attention call on those paths runs hand-written CUDA flash-attention
 kernels (``csrc/flash_fwd.cu``, and ``csrc/flash_bwd.cu`` for the
-gradients).
+gradients).  Its input pipeline (``gluon.data``, ``io``, ``recordio``,
+``image``, the streaming ``mx.data``) decodes and augments on the host and
+stages whole batches onto the card.
 
 Ground rules:
 
@@ -30,9 +32,10 @@ Ground rules:
 from . import (autograd, base, context, contrib, convert, error,  # noqa: F401
                gluon, initializer, kvstore, monitor, ndarray, ops, optimizer,
                parallel, random, serve, step, telemetry, trace)
+from . import data, image, io, native, recordio  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .ndarray import NDArray, waitall  # noqa: F401
 from .optimizer import lr_scheduler  # noqa: F401  (mx.lr_scheduler)
 from .base import MXNetError  # noqa: F401
-from .context import (Context, cpu, current_context, gpu,  # noqa: F401
-                      num_gpus)
+from .context import (Context, cpu, cpu_pinned,  # noqa: F401
+                      current_context, gpu, num_gpus)

@@ -34,7 +34,7 @@ def load_jax_params(block, params):
     for name, p in own.items():
         a = np.array(params[name])  # a writable copy
         want = tuple(p.shape)
-        if not (_compatible(want, a.shape) if p._needs_shape()
+        if not (_compatible(p._partial, a.shape) if p._needs_shape()
                 else tuple(a.shape) == want):
             raise MXNetError("load_jax_params: %s has shape %s, the block "
                              "expects %s" % (name, tuple(a.shape),

@@ -13,9 +13,15 @@ only inside ``autograd.record()`` (outside it, it runs under
 A block called with ``mx.nd`` NDArrays takes their tensors and returns its
 outputs as NDArrays (a tuple or list of them for several); called with
 tensors it returns tensors.
+
+``collect_params(select)`` filters the structured names by a regular
+expression (``re.match``), and a parameter assigned under a default name
+(``weight``, ``bias``, ...) takes the attribute's name, as in the JAX
+package.
 """
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
 
 import torch
@@ -76,25 +82,39 @@ class Block(nn.Module):
         with torch.no_grad():   # not recording: no graph, as in JAX
             return super().__call__(*args, **kwargs)
 
-    def collect_params(self):
-        """Structured-name parameter dict ``{name: Parameter}``."""
-        return OrderedDict(self.named_parameters())
+    def __setattr__(self, name, value):
+        from .parameter import _DEFAULT_NAMES, Parameter
 
-    def initialize(self, init=None, ctx=None, force_reinit=False):
+        if isinstance(value, Parameter) and value._name in _DEFAULT_NAMES:
+            value._name = name
+        super().__setattr__(name, value)
+
+    def collect_params(self, select=None):
+        """Structured-name parameter dict ``{name: Parameter}``; with
+        ``select``, only the names the regular expression matches."""
+        out = OrderedDict(self.named_parameters())
+        if select:
+            pat = re.compile(select)
+            out = OrderedDict((k, v) for k, v in out.items()
+                              if pat.match(k))
+        return out
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
         """Place every parameter on ``ctx`` (default the card; raises
         without one unless ``ctx=mx.cpu()``) and fill those not yet
         initialized or set: a parameter's own ``init`` first, else
         ``init``, else ``initializer.Uniform()``.  The initializer sees
         the parameter's own name (``weight``, ``running_var``), as in the
         JAX package.  A parameter of deferred shape is filled at the
-        block's first call."""
+        block's first call.  ``verbose`` is accepted and prints nothing,
+        as in the JAX package."""
         from .. import initializer
 
         default = init or initializer.Uniform()
-        for name, param in self.collect_params().items():
+        for param in self.collect_params().values():
             param.initialize(ctx=ctx, default_init=default,
-                             force_reinit=force_reinit,
-                             name=name.rsplit(".", 1)[-1])
+                             force_reinit=force_reinit)
 
     def zero_grad(self, set_to_none=False):
         """Zero every parameter's gradient in place (Gluon semantics;

@@ -1,5 +1,5 @@
 """Basic layers: Dense, Dropout, BatchNorm (and SyncBatchNorm,
-BatchNormReLU), LayerNorm, Embedding, Flatten, Activation and
+BatchNormReLU), LayerNorm, Embedding, Flatten, Activation, Sequential and
 HybridSequential.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``.  Parameter names
@@ -21,10 +21,10 @@ from ... import autograd
 from ... import random as _random
 from ...base import MXNetError
 from ...ops import nn as F
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 from ..parameter import Parameter
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm",
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
            "SyncBatchNorm", "BatchNormReLU", "LayerNorm", "Embedding",
            "Flatten", "Activation"]
 
@@ -33,7 +33,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def _param(shape, dtype="float32", fill=0.0, init=None, grad_req="write"):
-    return Parameter(torch.full(tuple(shape), fill, dtype=_DTYPES[dtype]),
+    return Parameter(data=torch.full(tuple(shape), fill,
+                                     dtype=_DTYPES[dtype]),
                      grad_req=grad_req, init=init)
 
 
@@ -50,8 +51,10 @@ class _Resolving(HybridBlock):
         raise NotImplementedError
 
 
-class HybridSequential(HybridBlock):
-    """Stack of blocks; children are named "0", "1", ..."""
+class Sequential(Block):
+    """Stack of blocks; children are named "0", "1", ...  ``len``,
+    indexing and iteration reach the children; a slice is a new block of
+    the same type holding them."""
 
     def __init__(self, *blocks):
         super().__init__()
@@ -68,6 +71,21 @@ class HybridSequential(HybridBlock):
 
     def __iter__(self):
         return iter(self._modules.values())
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, key):
+        vals = list(self._modules.values())
+        if isinstance(key, slice):
+            net = type(self)()
+            net.add(*vals[key])
+            return net
+        return vals[key]
+
+
+class HybridSequential(Sequential, HybridBlock):
+    """A ``Sequential`` of hybrid blocks."""
 
 
 class Dense(_Resolving):

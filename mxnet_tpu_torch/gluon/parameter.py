@@ -1,9 +1,19 @@
 """Gluon Parameter over ``torch.nn.Parameter``, with deferred shapes.
 
 Counterpart of ``mxnet_tpu/gluon/parameter.py``.  A ``Parameter`` is a
-``torch.nn.Parameter`` that carries Gluon's attributes: ``grad_req``
-(``'write'`` by default, ``'add'``, or ``'null'`` for no gradient),
-``lr_mult``, ``wd_mult`` and ``init``.
+``torch.nn.Parameter`` that carries Gluon's attributes: ``name``,
+``grad_req`` (``'write'`` by default, ``'add'``, or ``'null'`` for no
+gradient), ``lr_mult``, ``wd_mult`` and ``init``.  It is declared the
+Gluon way, ``Parameter("alpha", shape=(1,), init="ones")``, with the JAX
+package's arguments; the port's own layers hand it its first values
+instead (``Parameter(data=tensor)``, or a tensor as the first argument).
+A parameter assigned to a block attribute under one of the default names
+(``weight``, ``bias``, ``gamma``, ``beta``, ``const``, ``param``) takes
+the attribute's name, as in the JAX package.  ``stype``/``grad_stype``
+other than ``'default'`` and a ``sharding`` are not ported (sparse
+storage and sharded parameters wait in ``ROADMAP.md`` Queue 1 items 6-7)
+and raise.  ``Constant`` is a parameter with ``grad_req='null'`` that
+keeps its value through ``initialize``.
 
 Two of the JAX package's methods are spelled the PyTorch way, because a
 tensor's own fields carry those names: the data is the parameter itself
@@ -23,13 +33,14 @@ of its partial shape.
 """
 from __future__ import annotations
 
+import numpy as _np
 import torch
 
 from .. import autograd
-from ..base import MXNetError
+from ..base import MXNetError, _as_torch_dtype
 from ..context import device_of
 
-__all__ = ["Parameter", "DeferredInitializationError"]
+__all__ = ["Parameter", "Constant", "DeferredInitializationError"]
 
 _GRAD_REQS = ("write", "add", "null")
 
@@ -38,25 +49,57 @@ class DeferredInitializationError(MXNetError):
     """A parameter is used before its shape is known."""
 
 
+_DEFAULT_NAMES = ("weight", "bias", "gamma", "beta", "const", "param")
+
+
 def _compatible(partial, shape):
-    """Whether ``shape`` completes ``partial`` (a 0 there is unknown)."""
+    """Whether ``shape`` completes ``partial`` (a 0 there is unknown; None
+    is a shape not declared at all)."""
+    if partial is None:
+        return True
     return len(partial) == len(shape) and all(
         s in (0, n) for s, n in zip(partial, shape))
 
 
 class Parameter(torch.nn.Parameter):
-    def __new__(cls, data=None, requires_grad=True, grad_req=None,
-                lr_mult=1.0, wd_mult=1.0, init=None):
-        if grad_req is None:
-            grad_req = "write" if requires_grad else "null"
+    def __new__(cls, name="weight", grad_req="write", shape=None,
+                dtype="float32", lr_mult=1.0, wd_mult=1.0, init=None,
+                allow_deferred_init=False, differentiable=True,
+                stype="default", grad_stype="default", sharding=None,
+                data=None):
+        if isinstance(name, (torch.Tensor, _np.ndarray)):
+            name, data = "weight", name      # the port's own spelling
+        if isinstance(grad_req, bool):       # torch's (data, requires_grad)
+            grad_req = "write" if grad_req else "null"
+        if stype != "default" or grad_stype != "default":
+            raise MXNetError("Parameter(stype=%r, grad_stype=%r): sparse "
+                             "storage is not ported" % (stype, grad_stype))
+        if sharding is not None:
+            raise MXNetError("Parameter(sharding=...): sharded parameters "
+                             "are not ported")
+        if not differentiable:
+            grad_req = "null"
         if grad_req not in _GRAD_REQS:
             raise MXNetError("grad_req must be one of %s, got %r"
                              % (_GRAD_REQS, grad_req))
+        partial = tuple(int(s) for s in shape) if shape is not None \
+            else None
+        if data is None:
+            data = torch.zeros(partial if partial is not None else (0,),
+                               dtype=_as_torch_dtype(dtype))
+        else:
+            data = torch.as_tensor(data)
+            partial = tuple(data.shape)
         self = super().__new__(cls, data, grad_req != "null")
+        self._name = name
+        self._partial = partial     # the declared shape (0 = unknown)
         self._grad_req = grad_req
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self.init = init
+        self.allow_deferred_init = allow_deferred_init
+        self.stype = stype
+        self.grad_stype = grad_stype
         self._initialized = False   # zeros from the constructor until set
         self._deferred = None       # (init, default_init, name) until shaped
         autograd._register_leaf(self)
@@ -64,6 +107,11 @@ class Parameter(torch.nn.Parameter):
 
     def __init__(self, *args, **kwargs):  # all set in __new__
         pass
+
+    @property
+    def name(self):
+        """The parameter's own name (``'weight'``, ``'alpha'``)."""
+        return self._name
 
     @property
     def grad_req(self):
@@ -80,18 +128,22 @@ class Parameter(torch.nn.Parameter):
             self.grad = None
 
     def _needs_shape(self):
-        return 0 in self.shape
+        return self._partial is None or 0 in self.shape
 
     def initialize(self, init=None, ctx=None, default_init=None,
-                   force_reinit=False, name="weight"):
+                   force_reinit=False, name=None):
         """Move to ``device_of(ctx)`` (the card unless ``ctx=mx.cpu()``)
         and, unless already initialized or set, fill with ``init``, else
         this parameter's own ``init``, else ``default_init``
-        (``initializer.Uniform()``); ``name`` picks the rule
+        (``initializer.Uniform()``); ``name`` (default the parameter's
+        own) picks the rule
         (``*bias``/``*beta`` zeros, ``*gamma`` ones, running means zeros
         and variances ones).  A parameter of unknown shape keeps the
         choice until its shape is known.  The device moves in place, so
         the object stays the one the block holds."""
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0]
+        name = name or self._name
         device = device_of(ctx)
         if self.device != device:
             self.data = self.data.to(device)
@@ -115,10 +167,11 @@ class Parameter(torch.nn.Parameter):
         """Give a parameter of partial shape its full ``shape`` (values
         undefined until filled)."""
         shape = tuple(int(s) for s in shape)
-        if not _compatible(tuple(self.shape), shape) or 0 in shape:
+        if not _compatible(self._partial, shape) or 0 in shape:
             raise MXNetError("cannot give parameter of shape %s the shape %s"
-                             % (tuple(self.shape), shape))
+                             % (self._partial, shape))
         self.data = torch.empty(shape, dtype=self.dtype, device=self.device)
+        self._partial = shape
         self.grad = None
 
     def _finish_deferred_init(self, shape):
@@ -162,3 +215,23 @@ class Parameter(torch.nn.Parameter):
     def zero_grad(self):
         if self.grad is not None:
             self.grad.zero_()
+
+
+class Constant(Parameter):
+    """A parameter that is not learned (``grad_req='null'``) and holds
+    ``value`` from the start; ``initialize`` keeps it."""
+
+    def __new__(cls, value, name="const"):
+        value = value._data if hasattr(value, "_data") else value
+        arr = torch.as_tensor(_np.asarray(value, dtype=_np.float32)
+                              if not isinstance(value, torch.Tensor)
+                              else value)
+        self = super().__new__(cls, name, grad_req="null",
+                               data=arr.detach().clone())
+        self._initialized = True
+        return self
+
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False, name=None):
+        """Move to ``device_of(ctx)``; the value stays."""
+        super().initialize(ctx=ctx)

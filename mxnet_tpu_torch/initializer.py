@@ -94,7 +94,7 @@ class Uniform(Initializer):
         self.scale = scale
 
     def _init_weight(self, name, arr):
-        _random.uniform(-self.scale, self.scale, out=arr)
+        _random.uniform_tensor(-self.scale, self.scale, out=arr)
 
 
 @register
@@ -104,7 +104,7 @@ class Normal(Initializer):
         self.sigma = sigma
 
     def _init_weight(self, name, arr):
-        _random.normal(0.0, self.sigma, out=arr)
+        _random.normal_tensor(0.0, self.sigma, out=arr)
 
 
 @register
@@ -152,9 +152,9 @@ class Xavier(Initializer):
                   "out": fan_out}[self.factor_type]
         scale = math.sqrt(self.magnitude / factor)
         if self.rnd_type == "uniform":
-            _random.uniform(-scale, scale, out=arr)
+            _random.uniform_tensor(-scale, scale, out=arr)
         else:
-            _random.normal(0.0, scale, out=arr)
+            _random.normal_tensor(0.0, scale, out=arr)
 
 
 @register
@@ -181,9 +181,9 @@ class Orthogonal(Initializer):
         nout = arr.shape[0]
         nin = math.prod(arr.shape[1:])
         if self.rand_type == "uniform":
-            tmp = _random.uniform(-1.0, 1.0, (nout, nin), torch.float64)
+            tmp = _random.uniform_tensor(-1.0, 1.0, (nout, nin), torch.float64)
         else:
-            tmp = _random.normal(0.0, 1.0, (nout, nin), torch.float64)
+            tmp = _random.normal_tensor(0.0, 1.0, (nout, nin), torch.float64)
         u, _, v = np.linalg.svd(tmp.numpy(), full_matrices=False)
         q = u if u.shape == tmp.shape else v
         _fill(arr, (self.scale * q).reshape(arr.shape))

@@ -19,7 +19,7 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError, _as_torch_dtype
-from ..context import device_of
+from ..context import current_context, device_of
 from ..ops.registry import apply_op, get_op, list_ops
 from .ndarray import NDArray, concatenate, from_torch, waitall
 
@@ -66,7 +66,11 @@ def array(source_array, ctx=None, dtype=None):
         else:
             t = torch.from_numpy(_np.ascontiguousarray(arr))
     dt = _as_torch_dtype(t.dtype if dtype is None else dtype)
-    return NDArray(t.to(device_of(ctx), dt, copy=True))
+    return NDArray(_ctx(ctx).place(t.to(dtype=dt), copy=True))
+
+
+def _ctx(ctx):
+    return ctx if ctx is not None else current_context()
 
 
 def _shape(shape):
@@ -74,13 +78,15 @@ def _shape(shape):
 
 
 def zeros(shape, ctx=None, dtype="float32", **kw):
-    return NDArray(torch.zeros(_shape(shape), dtype=_dtype(dtype),
-                               device=device_of(ctx)))
+    c = _ctx(ctx)
+    return NDArray(c.place(torch.zeros(_shape(shape), dtype=_dtype(dtype),
+                                    device=c.torch_device)))
 
 
 def ones(shape, ctx=None, dtype="float32", **kw):
-    return NDArray(torch.ones(_shape(shape), dtype=_dtype(dtype),
-                              device=device_of(ctx)))
+    c = _ctx(ctx)
+    return NDArray(c.place(torch.ones(_shape(shape), dtype=_dtype(dtype),
+                                    device=c.torch_device)))
 
 
 def full(shape, val, ctx=None, dtype="float32", **kw):
@@ -177,7 +183,8 @@ def load(fname, ctx=None):
         return {k: array(npz[k], ctx=ctx) for k in keys}
 
 
-from . import contrib, random  # noqa: E402  (mx.nd.contrib, mx.nd.random)
+from . import contrib  # noqa: E402  (mx.nd.contrib)
+from .. import random  # noqa: E402  (mx.nd.random is mx.random)
 
 __all__ = ["NDArray", "waitall", "array", "zeros", "ones", "full", "empty",
            "arange", "linspace", "eye", "zeros_like", "ones_like", "moveaxis",

@@ -54,7 +54,7 @@ class NDArray:
         if isinstance(data, NDArray):
             data = data._data
         if ctx is not None:
-            data = data.to(ctx.torch_device)
+            data = ctx.place(data)
         self._data = data
 
     # ---- basic properties -------------------------------------------------
@@ -81,7 +81,7 @@ class NDArray:
 
     @property
     def context(self):
-        return Context.from_device(self._data.device)
+        return Context.of(self._data)
 
     ctx = context
     device = context
@@ -166,8 +166,7 @@ class NDArray:
         """A copy on context ``other``, or written into NDArray ``other``
         (its shape, dtype and device kept)."""
         if isinstance(other, Context):
-            return NDArray(self._data.detach().to(other.torch_device,
-                                                  copy=True))
+            return NDArray(other.place(self._data.detach(), copy=True))
         if isinstance(other, NDArray):
             if other.shape != self.shape:
                 raise MXNetError("copyto shape mismatch %s vs %s"

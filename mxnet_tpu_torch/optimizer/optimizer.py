@@ -685,7 +685,7 @@ def _sgld_noise(w):
     generator of their device."""
     from .. import random as _random
 
-    return [_random.normal(shape=x.shape, ctx=x.device) for x in w]
+    return [_random.normal_tensor(shape=x.shape, ctx=x.device) for x in w]
 
 
 @register

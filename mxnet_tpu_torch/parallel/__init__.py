@@ -41,6 +41,7 @@ import torch
 from .. import autograd
 from ..base import MXNetError
 from ..contrib.amp import keeps_fp32
+from ..ops import registry as _registry
 from .optim import make_optimizer
 
 __all__ = ["FusedTrainer", "make_train_step", "make_optimizer",
@@ -160,11 +161,14 @@ class FusedTrainer:
     def step(self, x, y):
         """One training step: forward, loss, gradients (over
         ``grad_accum`` microbatches) and the update.  ``x``/``y`` may each
-        be one tensor (or array) or a tuple; every leading dim is the
-        batch.  Returns the loss, a 0-d tensor."""
+        be one tensor (or NDArray, or array) or a tuple; every leading dim
+        is the batch.  Returns the loss, a 0-d tensor."""
         device = self._device()
+        NDArray = _registry.NDArray
 
         def as_tensor(v):
+            if NDArray is not None and isinstance(v, NDArray):
+                v = v._data
             return torch.as_tensor(v, device=device)
 
         xs = tuple(map(as_tensor, x)) if isinstance(x, (tuple, list)) \

@@ -4,8 +4,10 @@ A cut copy of ``mxnet_tpu/telemetry.py``: the registry and metric kinds,
 ``totals``/``value`` readers, and only the metrics the port feeds: those
 of ``serve/{batching,runner,server,breaker}.py``, of the imperative
 ``gluon.Trainer``'s grouped apply (``optimizer/multi_tensor.py``), of the
-bucket planner (``kvstore/collective.py``), of ``monitor/`` and of the
-whole-step capture (``step/capture.py``), under the JAX package's names.  Disabled cost is one
+bucket planner (``kvstore/collective.py``), of ``monitor/``, of the
+whole-step capture (``step/capture.py``) and of the input pipeline
+(``gluon/data/dataloader.py``, ``io``, ``data/``), under the JAX package's
+names.  Disabled cost is one
 boolean check per hook (``if telemetry.ENABLED:``);
 ``MXNET_TELEMETRY_DISABLE=1`` flips it at import.
 """
@@ -120,7 +122,13 @@ class Metric:
         self._default = None if self.labelnames \
             else _CHILD_FACTORY[kind](self)
 
-    def labels(self, **kwargs):
+    def labels(self, *values, **kwargs):
+        """The child of these label values, by position or by name."""
+        if values:
+            if kwargs or len(values) != len(self.labelnames):
+                raise ValueError("%s takes labels %s, got %s"
+                                 % (self.name, self.labelnames, values))
+            kwargs = dict(zip(self.labelnames, values))
         if set(kwargs) != set(self.labelnames):
             raise ValueError("%s takes labels %s, got %s"
                              % (self.name, self.labelnames, sorted(kwargs)))
@@ -370,3 +378,47 @@ STEP_PROGRAM_SECONDS = histogram(
     "step_program_seconds",
     "captured whole-step host latency per step (slots, input copies, "
     "replay and bookkeeping; the card runs asynchronously)")
+
+# ---- the input pipeline: gluon.data.DataLoader, io, data.{reader,ring} ---
+TRANSFER_BYTES = counter(
+    "transfer_bytes_total", "host<->device transfer volume",
+    ("direction",))
+TRANSFER_D2H = TRANSFER_BYTES.labels(direction="d2h")
+TRANSFER_H2D = TRANSFER_BYTES.labels(direction="h2d")
+DATALOADER_WAIT_SECONDS = histogram(
+    "dataloader_batch_wait_seconds",
+    "time the training loop blocked waiting for the next batch")
+# mx.data: the ring gauges are the pipeline's health signal; steady
+# state is occupancy ~ depth and a flat stall counter, and a climbing
+# stall count means reads or decode (not H2D) bound the pipeline
+DATA_RING_DEPTH = gauge(
+    "data_ring_depth",
+    "configured prefetch ring depth (batches staged ahead; "
+    "MXNET_DATA_PREFETCH)")
+DATA_RING_OCCUPANCY = gauge(
+    "data_ring_occupancy",
+    "device-staged batches currently waiting in the prefetch ring")
+DATA_RING_STALLS = counter(
+    "data_ring_stalls_total",
+    "times the training loop arrived at an EMPTY prefetch ring "
+    "(the reader/decode stage fell behind the step)")
+DATA_READ_SECONDS = histogram(
+    "data_read_seconds",
+    "shard record-read time per batch (worker-side, after retries)")
+DATA_DECODE_SECONDS = histogram(
+    "data_decode_seconds",
+    "decode + batchify time per batch (worker-side)")
+DATA_STAGE_SECONDS = histogram(
+    "data_stage_seconds",
+    "host batch -> device staging time (the copy itself runs "
+    "asynchronously on a side stream)")
+DATA_BATCHES = counter(
+    "data_batches_total", "batches staged through the prefetch ring")
+DATA_RECORDS = counter(
+    "data_records_total", "records read + decoded by reader workers")
+DATA_READ_RETRIES = counter(
+    "data_read_retries_total",
+    "reader IO attempts retried after an OSError")
+DATA_RESUMES = counter(
+    "data_resumes_total",
+    "mid-epoch cursor restores (checkpoint resume of the stream)")

@@ -19,8 +19,8 @@ from .. import telemetry
 from ..base import get_env
 
 __all__ = ["ENABLED", "enable", "disable", "TraceContext", "new_request",
-           "sanitize_request_id", "use", "span", "instant", "record_span",
-           "events"]
+           "sanitize_request_id", "current", "use", "span", "instant",
+           "record_span", "events"]
 
 ENABLED = not get_env("MXNET_TRACE_DISABLE", bool, False)
 
@@ -65,6 +65,11 @@ def new_request(request_id=None):
     trace_id = sanitize_request_id(request_id) if request_id is not None \
         else (cur.trace_id if cur is not None else _new_id())
     return TraceContext(str(trace_id), _new_id())
+
+
+def current():
+    """The active trace context of this thread, or None."""
+    return _CTX.get()
 
 
 class use:

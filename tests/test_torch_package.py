@@ -5,9 +5,16 @@
 - No fallback: entry points without a ctx want the card and raise where
   there is none; a tensor that is not on the CPU never reaches a kernel's
   plain version.
+- Signatures: every public callable the two packages share (module-level
+  functions and classes, and the public methods of shared classes) takes
+  every argument of the JAX package's, but for the spellings listed in
+  ``SPELLINGS``, each documented and pointing to its ``ROADMAP.md`` item.
 """
 import ctypes
+import importlib
+import inspect
 import json
+import pkgutil
 import os
 import re
 import subprocess
@@ -49,11 +56,17 @@ def test_import_pulls_in_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "mxnet_tpu_torch.serve.server" in res["modules"]
     assert "mxnet_tpu_torch.ops._ext" in res["modules"]
-    for mod in ("error", "ndarray", "ndarray.ndarray", "ndarray.random",
+    for mod in ("error", "ndarray", "ndarray.ndarray", "random",
                 "ops.registry", "ops.core", "ops.tensor_tail",
                 "ops.legacy", "ops.random_ops", "ndarray.contrib",
                 "gluon.rnn", "gluon.rnn.rnn_layer", "gluon.rnn.rnn_cell",
-                "gluon.model_zoo.language_model"):
+                "gluon.model_zoo.language_model", "native", "recordio",
+                "image", "io", "data", "data.reader", "data.ring",
+                "data.loader", "gluon.data", "gluon.data.dataset",
+                "gluon.data.sampler", "gluon.data.batchify",
+                "gluon.data.dataloader", "gluon.data.vision",
+                "gluon.data.vision.datasets",
+                "gluon.data.vision.transforms"):
         assert "mxnet_tpu_torch." + mod in res["modules"]
     assert res["bad"] == []
 
@@ -433,3 +446,116 @@ def test_dropout_seed_reaches_the_kernels_by_address(monkeypatch, kind):
         assert got & (2 ** 64 - 1) == value
         if kind == "tensor":
             assert addr == seed.data_ptr()
+
+
+# JAX arguments the port lacks on purpose: {"module.name": (arguments,
+# where it is written down)}
+SPELLINGS = {
+    ".serve.server.Server": (["decode", "decode_config", "tenant"],
+                             "ROADMAP.md Queue 1 item 5"),
+    ".serve.server.ServeConfig": (["retry_after_s"],
+                                  "ROADMAP.md Queue 1 item 5"),
+    ".monitor.stats.group_stats": (["g_arrs", "w_arrs"],
+                                   "ROADMAP.md Queue 1 item 8"),
+    ".telemetry.totals": (["nonzero", "quantiles"],
+                          "ROADMAP.md Queue 1 item 8"),
+    ".trace.span": (["anomaly"], "ROADMAP.md Queue 1 item 8"),
+    # batch statistics are kept in float32 (ops/nn.py batch_norm)
+    ".ops.nn.batch_norm": (["stat_dtype"], "ROADMAP.md Queue 1 item 6"),
+    ".ndarray.batch_norm": (["stat_dtype"], "ROADMAP.md Queue 1 item 6"),
+    ".ndarray.BatchNorm": (["stat_dtype"], "ROADMAP.md Queue 1 item 6"),
+    # dropout draws from the port's generators, not threefry keys
+    # (random.py; ROADMAP.md Rules, "RNG")
+    ".ops.nn.dropout": (["key", "mode"], "ROADMAP.md Rules, RNG"),
+    ".ops.nn.multi_head_attention": (["dropout_key"],
+                                     "ROADMAP.md Rules, RNG"),
+    ".ndarray.multi_head_attention": (["dropout_key"],
+                                      "ROADMAP.md Rules, RNG"),
+}
+
+
+def _params(obj):
+    obj = getattr(obj, "fn", obj)       # a registry Operator: its function
+    try:
+        return inspect.signature(obj).parameters
+    except (TypeError, ValueError):
+        return None
+
+
+def _lacks(jax_obj, port_obj):
+    """The JAX arguments ``port_obj`` does not take (a ``**kwargs`` takes
+    any keyword; ``*args`` needs one of its own)."""
+    jp, tp = _params(jax_obj), _params(port_obj)
+    if jp is None or tp is None:
+        return []
+    kinds = {p.kind for p in tp.values()}
+    out = []
+    for name, p in jp.items():
+        if p.kind == p.VAR_POSITIONAL:
+            if p.VAR_POSITIONAL not in kinds:
+                out.append("*" + name)
+        elif p.kind != p.VAR_KEYWORD and name not in tp \
+                and p.VAR_KEYWORD not in kinds:
+            out.append(name)
+    return sorted(out)
+
+
+def _shared_callables():
+    """(dotted name, JAX object, port object) for every public callable
+    of a port module that its JAX counterpart also has."""
+    import torch.nn as tnn
+
+    module_methods = set(dir(tnn.Module))
+    mods = ["mxnet_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+        mx.__path__, "mxnet_tpu_torch.")]
+    for mod in mods:
+        rel = mod[len("mxnet_tpu_torch"):]
+        try:
+            jmod = importlib.import_module("mxnet_tpu" + rel)
+        except ImportError:
+            continue
+        tmod = importlib.import_module(mod)
+        for name in dir(tmod):
+            tobj, jobj = getattr(tmod, name), getattr(jmod, name, None)
+            if name.startswith("_") or jobj is None or inspect.ismodule(
+                    tobj) or not (callable(tobj) and callable(jobj)):
+                continue
+            if getattr(tobj, "__module__", mod) != mod \
+                    and not mod.endswith("ndarray"):
+                continue                  # checked where it is defined
+            yield "%s.%s" % (rel, name), jobj, tobj
+            if not (inspect.isclass(tobj) and inspect.isclass(jobj)):
+                continue
+            for meth in dir(tobj):
+                tm, jm = getattr(tobj, meth, None), getattr(jobj, meth, None)
+                if meth.startswith("_") or jm is None or not callable(tm) \
+                        or not callable(jm):
+                    continue
+                if meth in module_methods and not meth.startswith(
+                        ("initialize", "collect_params", "cast",
+                         "zero_grad", "register_child", "hybridize")):
+                    continue              # nn.Module's own, not Gluon's
+                yield "%s.%s.%s" % (rel, name, meth), jm, tm
+
+
+def test_shared_callables_take_the_jax_arguments():
+    """The signature guard: a JAX argument the port lacks fails, unless it
+    is a documented spelling (``SPELLINGS``); a listed spelling the port
+    has since taken up fails too, so the list stays true."""
+    seen, bad = set(), []
+    for name, jobj, tobj in _shared_callables():
+        lacks = _lacks(jobj, tobj)
+        allowed = SPELLINGS.get(name, ([], None))[0]
+        if lacks:
+            seen.add(name)
+        if sorted(lacks) != sorted(allowed) and lacks:
+            bad.append((name, lacks))
+    assert bad == []
+    assert sorted(seen) == sorted(SPELLINGS)
+    names = {n for n, _, _ in _shared_callables()}
+    for must in (".gluon.parameter.Parameter", ".gluon.block.Block.initialize",
+                 ".gluon.block.Block.collect_params", ".random.uniform",
+                 ".random.categorical", ".io.ImageRecordIter",
+                 ".gluon.data.dataloader.DataLoader",
+                 ".data.loader.StreamLoader", ".image.imresize"):
+        assert must in names, must
