@@ -184,6 +184,39 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    one ``StreamLoader`` epoch over the 4 shards in a world of one that
    sees every record once.  No flash kernel launches.
 
+15. train_vision -- MobileNetV2-1.0 (``vision.get_model(
+   'mobilenet_v2_1_0', classes=1000)``, 3x224x224, B=128, 3 + 10 steps)
+   and Inception-v3 (3x299x299, B=64, 3 + 5 steps) through
+   ``parallel.FusedTrainer(softmax_ce, sgd 0.05 m 0.9, dtype='bfloat16')``
+   on one synthetic batch each, channels-last: falling losses, f32
+   masters, no flash launch; the step median, img/s, MFU against 989
+   TFLOP/s from the FLOPs counted off the layers' shapes (x3), peak
+   memory, a ``torch.profiler`` split (conv forward, backward, ATen's
+   depthwise kernels apart, batch norm, element-wise, update) with the
+   idle share and kernels a step, and which library ran the convs
+   (``conv_route``: cuDNN's kernels by name, or ATen's
+   ``conv_depthwise2d``).
+16. vision_zoo -- ``vgg16``, ``vgg16_bn``, ``alexnet``, ``mobilenet1_0``,
+   ``squeezenet1_1``, ``densenet121`` (224x224) and ``inception_v3``
+   (299x299), 1000 classes, random weights from ``--seed``: a B=8
+   forward on the card (f32, TF32 off) against the same weights on the
+   CPU within 1e-3 x max(1, max|ref|), each with its forward time; then
+   ``MoE(num_experts=8, hidden_size=3072, units=768, top_k=2)`` on 8 x 512
+   tokens (routed far from any tie), forward and backward on the card
+   against the CPU, outputs and every gradient within the same 1e-3.
+17. train_amp_fp16 -- the ``train`` recipe (BERT-base pretraining through
+   ``gluon.Trainer``, Adam 1e-4, B=8, T=512, dropout 0.1, 10 steps) the
+   Gluon amp way: ``amp.init('float16')``, ``amp.init_trainer(trainer)``,
+   and each step ``scaler.scale(loss)``, ``autograd.backward``,
+   ``has_overflow``, ``unscale`` and ``trainer.step(1)`` unless it
+   overflowed, ``update_scale``.  The three kernels see float16 and each
+   launches exactly 12 times a step; the forward's matrix products are
+   float16 (a dispatch-mode count) and the profile splits the GEMMs by
+   the type their names carry; parameters and gradients stay float32; the
+   loss falls; an inf put into step 5's first gradient halves the loss
+   scale and leaves the weights as they were.  Prints the step median and
+   its forward / backward (with the overflow check) / update split.
+
 Then the ``{"kernels": [...]}`` summary (gpt_lm's causal D=32 bf16 route
 as ``routes["bfloat16_causal_d32"]``), the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -971,7 +1004,11 @@ def phase_train(torch, mx, fa, seed, smi):
           "max_memory_allocated_bytes": peak,
           "grad_parity_b1_max_rel_err": grad_err, "grad_tol": TOL_GRAD,
           "model_build_s": t_build, "card": smi})
-    return launches
+    figures = {"step_ms_median": med,
+               "forward_ms_median": float(np.median(fwd_ms)),
+               "backward_ms_median": float(np.median(bwd_ms)),
+               "update_ms_median": float(np.median(upd_ms))}
+    return launches, figures
 
 
 def _train_grad_parity(torch, mx, bert, net, host, vocab, T):
@@ -1045,12 +1082,14 @@ def _kernel_class(name):
     return "other"
 
 
-def profile_split(torch, fn, steps, classify=_kernel_class):
+def profile_split(torch, fn, steps, classify=_kernel_class,
+                  named=("other", "rest", "elementwise", "cudnn_rnn")):
     """Device time of ``steps`` calls of ``fn`` (each ending in a
     synchronize) under ``torch.profiler`` tracing the card only, split by
     kernel class (``classify``: by default GEMMs, each flash kernel, the
     foreach update, the rest; kernels a step by class; the largest kernels
-    of the catch-all, element-wise and cuDNN RNN classes by name), and the
+    of the classes in ``named`` by name: by default the catch-all,
+    element-wise and cuDNN RNN ones), and the
     device's idle share: 1 - the union of device activity over the calls'
     wall time (host clock).  Tracing the host too would stretch
     the wall time with the profiler's own work.  None where the profiler
@@ -1081,7 +1120,7 @@ def profile_split(torch, fn, steps, classify=_kernel_class):
         cls = classify(name)
         split[cls] = split.get(cls, 0.0) + (t1 - t0) / 1e3 / steps
         counts[cls] = counts.get(cls, 0) + 1.0 / steps
-        if cls in ("other", "rest", "elementwise", "cudnn_rnn"):
+        if cls in named:
             other[name] = other.get(name, 0.0) + (t1 - t0) / 1e3 / steps
     busy, end = 0.0, dev[0][0]
     for t0, t1, _ in dev:          # the union of the device intervals
@@ -1090,7 +1129,7 @@ def profile_split(torch, fn, steps, classify=_kernel_class):
             busy += t1 - t0
             end = t1
     busy_ms = busy / 1e3 / steps
-    top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:12]
     return dict(out, split_ms=split, device_busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / out["wall_ms"],
                 kernels_per_step=len(dev) / steps,
@@ -3090,6 +3129,431 @@ def phase_data_pipeline(torch, mx, fa, seed, smi, cfg=DATA_CFG):
     return launches
 
 
+# ---- the vision families, MoE, and fp16 BERT under amp ---------------------
+
+VISION_CFG = {  # model: (batch, side, warm-up steps, timed steps)
+    "mobilenet_v2_1_0": (128, 224, 3, 10),
+    "inception_v3": (64, 299, 3, 5)}
+ZOO_MODELS = (("vgg16", 224), ("vgg16_bn", 224), ("alexnet", 224),
+              ("mobilenet1_0", 224), ("squeezenet1_1", 224),
+              ("densenet121", 224), ("inception_v3", 299))
+TOL_ZOO = 1e-3       # card vs CPU, x max(1, max|ref|)
+
+
+def _vision_kernel_class(name):
+    """``_resnet_kernel_class``, with the depthwise conv kernels apart:
+    ATen's (``conv_depthwise2d_*``) and cuDNN's (``*_c1_k1_*``: one input
+    channel a group, one output)."""
+    low = name.lower()
+    if "depthwise" in low or "_c1_k1" in low:
+        return "conv_depthwise"
+    return _resnet_kernel_class(name)
+
+
+def _vision_net(torch, mx, vision, name, hw, seed, ctx=None):
+    """``vision.get_model(name, classes=1000)`` on ``ctx`` (the card by
+    default), shaped by one hw x hw probe outside autograd, with
+    ``resnet_params`` weights by name (He-normal convs, unit gamma)."""
+    net = vision.get_model(name, classes=1000)
+    net.initialize(ctx=ctx)
+    with mx.autograd.pause():
+        net(torch.zeros(1, 3, hw, hw, device=mx.context.device_of(ctx)))
+    mx.convert.load_jax_params(net, resnet_params(net, seed))
+    return net
+
+
+def _depthwise_route(split):
+    """Which library ran the depthwise convs, by the kernels the profile
+    names: ATen's ``conv_depthwise2d_*`` or cuDNN's ``*_c1_k1_*``; "none"
+    for a net without depthwise convs."""
+    names = [n for n, _ in split.get("top_other_ms", [])]
+    dw = [n for n in names if _vision_kernel_class(n) == "conv_depthwise"]
+    aten = any("depthwise" in n.lower() for n in dw)
+    return {"depthwise_route": ("aten conv_depthwise2d" if aten else
+                                "cudnn" if dw else "none"),
+            "depthwise_kernels": dw,
+            "conv_kernels": [n for n in names if n not in dw
+                             and "conv" in _vision_kernel_class(n)][:6],
+            "depthwise_ms": (split.get("split_ms") or {}).get(
+                "conv_depthwise", 0.0)}
+
+
+def phase_train_vision(torch, mx, fa, seed, smi):
+    """MobileNetV2-1.0 (B=128, 224x224) and Inception-v3 (B=64, 299x299),
+    1000 classes, through ``parallel.FusedTrainer(softmax_ce, sgd 0.05
+    m 0.9, dtype='bfloat16')``, channels-last on the card."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    counters = [getattr(fa, n) for n in ("flash_attention", "flash_bwd_dq",
+                                         "flash_bwd_dkv")]
+    out = {"phase": "train_vision", "trainer": "parallel.FusedTrainer",
+           "dtype": "bfloat16", "optimizer": "sgd", "lr": 0.05,
+           "momentum": 0.9, "classes": 1000, "card": smi, "models": {}}
+    launches = {c.__name__: 0 for c in counters}
+    for name, (B, hw, warm, steps) in VISION_CFG.items():
+        t0 = time.perf_counter()
+        net = _vision_net(torch, mx, vision, name, hw, seed)
+        flops_img, bn_img = resnet_fwd_counts(torch, mx, net, hw, "cuda")
+        flops = 3 * flops_img * B
+        rng = np.random.default_rng(seed + 11)
+        x = torch.from_numpy(rng.random((B, 3, hw, hw), np.float32)).cuda()
+        y = torch.from_numpy(rng.integers(0, 1000, B)).cuda()
+        trainer = mx.parallel.FusedTrainer(
+            net, loss="softmax_ce", optimizer="sgd",
+            optimizer_params={"learning_rate": 0.05, "momentum": 0.9},
+            dtype="bfloat16")
+        t_build = time.perf_counter() - t0
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first_ms, losses, timed, step_ms = _timed_steps(
+            torch, trainer, x, y, warm, steps)
+        losses += timed
+        for c in counters:
+            launches[c.__name__] += c.launches
+        peak = torch.cuda.max_memory_allocated()
+        if not all(np.isfinite(losses)):
+            fail("nonfinite %s loss: %s" % (name, losses))
+        if not losses[-1] < losses[0]:
+            fail("%s loss did not fall: %s" % (name, losses))
+        masters = {p.dtype for p in net.collect_params().values()}
+        if masters != {torch.float32}:
+            fail("%s master weights are not float32: %s" % (name, masters))
+        med = float(np.median(step_ms))
+        split = profile_split(
+            torch, lambda: trainer.step(x, y), 2, _vision_kernel_class,
+            named=("conv_forward", "conv_backward", "conv_depthwise",
+                   "rest"))
+        out["models"][name] = {
+            "batch": B, "image": [3, hw, hw], "warm_up_steps": warm,
+            "steps": steps, "losses": losses, "first_step_ms": first_ms,
+            "step_ms": step_ms, "step_ms_median": med,
+            "step_ms_range": [min(step_ms), max(step_ms)],
+            "img_per_s": B / (med / 1e3),
+            "fwd_flops_per_image": flops_img, "flops_per_step": flops,
+            "mfu": flops / (med / 1e3) / PEAK_FLOPS["bfloat16"],
+            "batch_norm_elements_per_image": bn_img,
+            "max_memory_allocated_bytes": peak, "profile": split,
+            "kernels_per_step": split.get("kernels_per_step"),
+            "idle_share_at_median": (
+                None if split.get("device_busy_ms") is None
+                else 1.0 - split["device_busy_ms"] / med),
+            "conv_route": _depthwise_route(split),
+            "model_build_s": t_build}
+        del trainer, net, x, y
+        torch.cuda.empty_cache()
+    if any(launches.values()):
+        fail("the vision steps launched flash kernels: %s" % launches)
+    out["launches"] = launches
+    emit(out)
+    return launches
+
+
+def _moe_inputs(rng, E, d, T):
+    """Tokens with a clear top-2 routing: each token is 4x one gate row
+    plus 2x another plus small noise, so the top-k boundary of every
+    token's gate logits is far from a tie (``jax.lax.top_k`` and
+    ``torch.topk`` break ties differently, and so could the card and the
+    CPU on near-equal logits)."""
+    gate = rng.standard_normal((E, d)).astype(np.float32) / np.sqrt(d)
+    a = rng.integers(0, E, T)
+    b = (a + rng.integers(1, E, T)) % E
+    x = (4.0 * gate[a] + 2.0 * gate[b]
+         + 0.1 * rng.standard_normal((T, d))).astype(np.float32)
+    logits = np.sort(x @ gate.T, axis=1)[:, ::-1]
+    return x, gate, float((logits[:, 1] - logits[:, 2]).min())
+
+
+def _moe_case(torch, mx, seed, activation):
+    """``MoE(num_experts=8, hidden_size=3072, units=768, top_k=2,
+    activation=...)`` on 8 x 512 tokens, forward and backward on the card
+    against the CPU with the same weights.  Returns the largest error of
+    the output and each gradient, elementwise (/ max(1, max|ref|)) and
+    in norm (||card - cpu|| / ||cpu||), and the card's fwd+bwd time."""
+    from mxnet_tpu_torch.gluon import nn
+
+    E, hidden, units, B, T = 8, 3072, 768, 8, 512
+    rng = np.random.default_rng(seed + 13)
+    x, gate, gap = _moe_inputs(rng, E, units, B * T)
+    if gap < 0.1:
+        fail("MoE inputs come within %g of a routing tie" % gap)
+    w = {"w1": rng.standard_normal((E, units, hidden)) / np.sqrt(units),
+         "b1": 0.1 * rng.standard_normal((E, hidden)),
+         "w2": rng.standard_normal((E, hidden, units)) / np.sqrt(hidden),
+         "b2": 0.1 * rng.standard_normal((E, units)), "gate": gate}
+    w = {k: v.astype(np.float32) for k, v in w.items()}
+    ct = rng.standard_normal((B, T, units)).astype(np.float32)
+    res = {}
+    for where, ctx in (("card", None), ("cpu", mx.cpu())):
+        blk = nn.MoE(E, hidden, units, top_k=2, activation=activation)
+        blk.initialize(ctx=ctx)
+        mx.convert.load_jax_params(blk, w)
+        dev = mx.context.device_of(ctx)
+        xt = torch.from_numpy(x.reshape(B, T, units)).to(dev)
+        xt.requires_grad_()
+        ctt = torch.from_numpy(ct).to(dev)
+
+        def run():
+            with mx.autograd.record():
+                out = blk(xt)
+            (out * ctt).sum().backward()
+            return out
+
+        out = run()
+        res[where] = [out.detach()] + [xt.grad] + [
+            p.grad for p in blk.collect_params().values()]
+        if where == "card":
+            def again():
+                xt.grad = None
+                blk.zero_grad(set_to_none=True)
+                run()
+            fwd_bwd_ms = cuda_ms(again, 5)
+    names = ["out", "x_grad"] + ["%s_grad" % n for n in w]
+    elem, norm = {}, {}
+    for n, got, ref in zip(names, res["card"], res["cpu"]):
+        diff = got.cpu().double() - ref.double()
+        elem[n] = float(diff.abs().max()) / max(1.0, float(ref.abs().max()))
+        norm[n] = float(diff.norm() / ref.double().norm())
+    flops = 3 * 2 * E * B * T * 2 * units * hidden
+    return {"num_experts": E, "hidden_size": hidden, "units": units,
+            "top_k": 2, "activation": activation, "tokens": [B, T],
+            "min_routing_gap": gap, "max_rel_err": elem,
+            "norm_rel_err": norm, "fwd_bwd_ms": fwd_bwd_ms,
+            "fwd_bwd_flops": flops,
+            "fwd_bwd_bound_ms": flops / PEAK_FLOPS["float32"] * 1e3}
+
+
+def phase_vision_zoo(torch, mx, fa, seed, smi):
+    """One full-width member of each family: a B=8 forward on the card (f32,
+    TF32 off) and on the CPU with the same weights, within TOL_ZOO; then
+    ``_moe_case``."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    counters = [getattr(fa, n) for n in ("flash_attention", "flash_bwd_dq",
+                                         "flash_bwd_dkv")]
+    for c in counters:
+        c.launches = 0
+    rng = np.random.default_rng(seed + 12)
+    models = {}
+    for name, hw in ZOO_MODELS:
+        x = rng.random((8, 3, hw, hw), np.float32)
+        net = _vision_net(torch, mx, vision, name, hw, seed)
+        xc = torch.from_numpy(x).cuda()
+        got = net(xc)
+        torch.cuda.synchronize()
+        fwd_ms = cuda_ms(lambda: net(xc), 3)
+        got = got.cpu()
+        cpu = vision.get_model(name, classes=1000)
+        cpu.initialize(ctx=mx.cpu())
+        mx.convert.load_jax_params(cpu, {k: p.detach().cpu().numpy()
+                                         for k, p in
+                                         net.collect_params().items()})
+        want = cpu(torch.from_numpy(x))
+        err = float((got - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+        if got.shape != (8, 1000) or not torch.isfinite(got).all():
+            fail("%s: card output %s" % (name, tuple(got.shape)))
+        if err > TOL_ZOO:
+            fail("%s: card vs CPU %.3g" % (name, err))
+        models[name] = {"image": [3, hw, hw], "max_rel_err": err,
+                        "params": sum(p.numel() for p in
+                                      net.collect_params().values()),
+                        "fwd_ms_b8": fwd_ms}
+        del net, cpu, xc
+        torch.cuda.empty_cache()
+    moe = [_moe_case(torch, mx, seed, act) for act in ("relu", "gelu")]
+    launches = {c.__name__: c.launches for c in counters}
+    emit({"phase": "vision_zoo", "batch": 8, "dtype": "float32",
+          "tf32": False, "tol": TOL_ZOO, "models": models, "moe": moe,
+          "launches": launches, "card": smi})
+    if any(launches.values()):
+        fail("the zoo forwards launched flash kernels: %s" % launches)
+    # the output elementwise; the gradients elementwise for the smooth
+    # gelu experts and in norm for relu ones: there a few hidden units
+    # whose pre-activation is within rounding of 0 take the other branch
+    # on the card, and each moves its token's input gradient by a w1 row
+    for case in moe:
+        checks = {n: case["max_rel_err"][n] for n in case["max_rel_err"]}
+        if case["activation"] == "relu":
+            checks = {n: (case["norm_rel_err"][n] if n != "out" else e)
+                      for n, e in checks.items()}
+        bad = {n: e for n, e in checks.items() if e > TOL_ZOO}
+        if bad:
+            fail("MoE (%s) card vs CPU: %s" % (case["activation"], bad))
+    return launches
+
+
+_GEMM_OPS = ("mm", "addmm", "bmm", "baddbmm", "matmul", "linear",
+             "addmv", "mv", "dot")
+
+
+def _gemm_dtypes(torch, fn):
+    """{dtype: count} of the matrix-product ops ``fn`` dispatches (aten
+    ``mm``, ``addmm``, ``bmm``, ...), read by a ``TorchDispatchMode``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ in _GEMM_OPS:
+                dt = str(args[0].dtype).replace("torch.", "")
+                seen[dt] = seen.get(dt, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return seen
+
+
+def _gemm_dtype_class(name):
+    """``_kernel_class`` with the GEMMs split by the type their cuBLAS or
+    CUTLASS name carries: ``gemm_f16`` (f16/h16/hgemm/``_hsh``/``_hss``),
+    ``gemm_f32`` (f32/sgemm/``_sss``), else ``gemm``."""
+    cls = _kernel_class(name)
+    if cls != "gemm":
+        return cls
+    low = name.lower()
+    if any(t in low for t in ("f16", "h16", "hgemm", "_hsh", "_hss", "fp16",
+                              "half")):
+        return "gemm_f16"
+    if any(t in low for t in ("f32f32", "sgemm", "_sss", "fp32")):
+        return "gemm_f32"
+    return "gemm"
+
+
+def phase_train_amp_fp16(torch, mx, fa, seed, smi, fp32=None):
+    """``phase_train``'s BERT-base pretraining (``gluon.Trainer``, Adam
+    1e-4, B=8, T=512, dropout 0.1, 10 steps) the Gluon amp way:
+    ``amp.init('float16')``, ``amp.init_trainer``, and each step
+    ``scale(loss)``, backward, ``has_overflow``, ``unscale``, the update
+    unless it overflowed, ``update_scale``; step 5's first gradient gets an
+    inf, which must halve the scale and skip that update.  ``fp32``:
+    ``phase_train``'s medians, printed beside this phase's."""
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    B, T, M, vocab, steps, inject = 8, 512, 76, 30522, 10, 5
+    net = bert.bert_12_768_12(pretraining=True, vocab_size=vocab,
+                              max_length=T, dropout=DROPOUT_P)
+    net.initialize()
+    mx.convert.load_jax_params(net, bert_params(net, seed))
+    params = net.collect_params()
+    trainable = [p for p in params.values() if p.grad_req != "null"]
+    trainer = mx.gluon.Trainer(params, "adam", {"learning_rate": 1e-4})
+    rng = np.random.default_rng(seed + 2)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _train_batch(rng, B, T, M, vocab).items()}
+    amp.init("float16")
+    try:
+        amp.init_trainer(trainer)
+        scaler = trainer._amp_loss_scaler
+        mx.random.seed(seed)
+
+        def forward():
+            with mx.autograd.record():
+                mlm, nsp = net(batch["ids"], batch["types"], None,
+                               batch["pos"])
+                loss = bert.pretraining_loss(mlm, nsp, batch["labels"],
+                                             batch["weights"], batch["nsp"])
+                scaled = scaler.scale(loss)
+            return loss, scaled
+
+        names = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")
+        counters = [getattr(fa, n) for n in names]
+        seen, check = {}, fa._check_cuda
+
+        def spy(name, ts, shapes):
+            seen.setdefault(name, set()).add(str(ts[0].dtype))
+            return check(name, ts, shapes)
+
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, scales, skipped, rows = [], [], [], []
+        fa._check_cuda = spy
+        try:
+            for i in range(steps):
+                t0 = time.perf_counter()
+                loss, scaled = forward()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                mx.autograd.backward(scaled)
+                grads = [p.grad for p in trainable]
+                if i == inject:
+                    grads[0].view(-1)[0] = float("inf")
+                    snap = trainable[0].detach().clone()
+                    scale_before = scaler.loss_scale
+                overflow = scaler.has_overflow(grads)
+                t2 = time.perf_counter()
+                if not overflow:
+                    scaler.unscale(grads)
+                    trainer.step(1)
+                scaler.update_scale(overflow)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                if i == inject:
+                    if not overflow:
+                        fail("the injected inf gradient was not seen")
+                    if scaler.loss_scale != scale_before / 2:
+                        fail("loss scale %g -> %g on the overflow"
+                             % (scale_before, scaler.loss_scale))
+                    if not torch.equal(trainable[0].detach(), snap):
+                        fail("the overflowed step updated the weights")
+                    dtypes = {(str(p.dtype), str(p.grad.dtype))
+                              for p in trainable}
+                    if dtypes != {("torch.float32", "torch.float32")}:
+                        fail("parameters and gradients: %s" % dtypes)
+                losses.append(loss.item())
+                scales.append(scaler.loss_scale)
+                skipped.append(bool(overflow))
+                rows.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                             (t3 - t2) * 1e3))
+        finally:
+            fa._check_cuda = check
+        launches = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated()
+        gemms = _gemm_dtypes(torch, forward)
+        split = profile_split(
+            torch, lambda: mx.autograd.backward(forward()[1]), 2,
+            _gemm_dtype_class, named=("gemm", "gemm_f16", "gemm_f32",
+                                      "other"))
+    finally:
+        amp.disable()
+
+    if seen != {n: {"torch.float16"} for n in names}:
+        fail("the amp step handed the kernels %s" % seen)
+    for name, n in launches.items():
+        if n != 12 * steps:
+            fail("%s launched %d times in %d amp steps (want 12 per step)"
+                 % (name, n, steps))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("amp fp16 losses: %s" % losses)
+    if set(gemms) != {"float16"}:
+        fail("the amp forward's matrix products ran in %s" % gemms)
+    step_ms = [sum(r) for r in rows]
+    med = float(np.median(step_ms))
+    emit({"phase": "train_amp_fp16", "model": "bert_12_768_12",
+          "head": "BERTForPretraining", "trainer": "gluon.Trainer",
+          "amp": "float16", "batch": B, "seq_len": T, "masked_positions": M,
+          "dropout": DROPOUT_P, "optimizer": "adam", "lr": 1e-4,
+          "steps": steps, "losses": losses, "loss_scales": scales,
+          "skipped": skipped, "injected_overflow_step": inject,
+          "launches": launches,
+          "kernel_dtypes": {n: sorted(v) for n, v in seen.items()},
+          "forward_gemm_dtypes": gemms, "profile": split,
+          "step_ms": step_ms, "step_ms_median": med,
+          "forward_ms_median": float(np.median([r[0] for r in rows])),
+          "backward_ms_median": float(np.median([r[1] for r in rows])),
+          "update_ms_median": float(np.median([r[2] for r in rows])),
+          "tokens_per_s": B * T / (med / 1e3),
+          "train_fp32_same_run": fp32,
+          "max_memory_allocated_bytes": peak, "card": smi})
+    return launches
+
+
 def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
     """One kernel route's summary from its case: ``bound_key`` None for
     the forward's bound (``bound_ms``), else "dq"/"dkv"; ``errs`` the
@@ -3148,7 +3612,7 @@ def main():
 
     fwd_cases, bwd_cases = phase_kernels(torch, fa, args.seed)
     serve_launches = phase_serve(torch, mx, fa, args.seed, smi)
-    train_launches = phase_train(torch, mx, fa, args.seed, smi)
+    train_launches, train_fp32 = phase_train(torch, mx, fa, args.seed, smi)
     bf16_launches = phase_train_bf16(torch, mx, fa, args.seed, smi)
     resnet_launches = phase_train_resnet(torch, mx, fa, args.seed, smi)
     captured_launches = phase_train_captured(torch, mx, fa, args.seed, smi)
@@ -3159,19 +3623,22 @@ def main():
                                                         args.seed, smi)
     phase_rnn_parts(torch, mx, fa, args.seed, smi)
     data_launches = phase_data_pipeline(torch, mx, fa, args.seed, smi)
+    vision_launches = phase_train_vision(torch, mx, fa, args.seed, smi)
+    zoo_launches = phase_vision_zoo(torch, mx, fa, args.seed, smi)
+    amp_launches = phase_train_amp_fp16(torch, mx, fa, args.seed, smi,
+                                        train_fp32)
 
     # each route's numbers at its main path's shape, not causal: f32 at
     # (8, 12, 512, 512, 64), the forward as served (no dropout), the
     # backward as trained (p = 0.1); bf16 at the bf16 recipe's B=16 with
-    # p = 0.1; fp16 (no main path: FusedTrainer's fp16 mode attends in f32,
-    # as the JAX package does) as f32
+    # p = 0.1; fp16 as train_amp_fp16 runs it, B=8 with p = 0.1
     def case(cases, B, dname, p):
         return next(c for c in cases if c["shape"] == [B, 12, 512, 512, 64]
                     and c["dtype"] == dname and not c["causal"]
                     and c["dropout_p"] == p)
 
     route_cases = {"float32": (8, 0.0), "bfloat16": (16, DROPOUT_P),
-                   "float16": (8, 0.0)}
+                   "float16": (8, DROPOUT_P)}
     nd_fwd = nd_launches["flash_attention"]
     fwd_launches = {"float32": serve_launches
                     + train_launches["flash_attention"]
@@ -3180,7 +3647,7 @@ def main():
                     "bfloat16": bf16_launches["flash_attention"]
                     + nd_fwd["bfloat16"]
                     + gpt_launches["flash_attention"],
-                    "float16": 0}
+                    "float16": amp_launches["flash_attention"]}
     routes = {dname: _kernel_entry(
         "flash_fwd", fwd_launches[dname], case(fwd_cases, B, dname, p),
         "ms", "plain_ms", None, "max_abs_err_o")
@@ -3199,7 +3666,10 @@ def main():
         "nd_imperative": sum(nd_fwd.values()),
         "train_lstm": lstm_launches["flash_attention"],
         "train_gpt_lm": gpt_launches["flash_attention"],
-        "data_pipeline": data_launches["flash_attention"]}
+        "data_pipeline": data_launches["flash_attention"],
+        "train_vision": vision_launches["flash_attention"],
+        "vision_zoo": zoo_launches["flash_attention"],
+        "train_amp_fp16": amp_launches["flash_attention"]}
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
         nd_k = nd_launches[kname]
@@ -3207,7 +3677,7 @@ def main():
                     + captured_launches[kname] + nd_k["float32"],
                     "bfloat16": bf16_launches[kname] + nd_k["bfloat16"]
                     + gpt_launches[kname],
-                    "float16": 0}
+                    "float16": amp_launches[kname]}
         routes = {dname: _kernel_entry(
             kname, launches[dname],
             case(bwd_cases, B, dname, DROPOUT_P), short + "_ms",
@@ -3226,7 +3696,10 @@ def main():
             "nd_imperative": sum(nd_k.values()),
             "train_lstm": lstm_launches[kname],
             "train_gpt_lm": gpt_launches[kname],
-            "data_pipeline": data_launches[kname]}
+            "data_pipeline": data_launches[kname],
+            "train_vision": vision_launches[kname],
+            "vision_zoo": zoo_launches[kname],
+            "train_amp_fp16": amp_launches[kname]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

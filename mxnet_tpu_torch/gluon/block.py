@@ -17,10 +17,21 @@ tensors it returns tensors.
 ``collect_params(select)`` filters the structured names by a regular
 expression (``re.match``), and a parameter assigned under a default name
 (``weight``, ``bias``, ...) takes the attribute's name, as in the JAX
-package.
+package.  A parameter held under several names (``share_parameters``)
+is listed once, under its first name (``nn.Module``'s rule).
+
+Forward hooks take the JAX package's form: ``register_forward_pre_hook(
+hook)`` calls ``hook(block, args)`` and ``register_forward_hook(hook)``
+calls ``hook(block, args, output)`` around each call, with the arguments
+and output the caller passed and got (NDArrays where those were given);
+what a hook returns is ignored, and the handle's ``detach()`` (or
+``remove()``) takes it off.  ``apply(fn)`` is ``nn.Module``'s, which
+visits the children first and then the block, as the JAX package's does.
 """
 from __future__ import annotations
 
+import itertools
+import math
 import re
 from collections import OrderedDict
 
@@ -65,13 +76,39 @@ def _call_with_ndarrays(block, NDArray, args, kwargs):
     wrapped as NDArrays."""
     args = _unwrap(args, NDArray)
     kwargs = {k: _unwrap(v, NDArray) for k, v in kwargs.items()}
-    return _wrap(block(*args, **kwargs), NDArray)
+    return _wrap(block._call(*args, **kwargs), NDArray)
+
+
+_HOOK_IDS = itertools.count(1)
+
+
+class _HookHandle:
+    def __init__(self, hooks, hid):
+        self._hooks, self._hid = hooks, hid
+
+    def detach(self):
+        self._hooks.pop(self._hid, None)
+
+    remove = detach
 
 
 class Block(nn.Module):
     """Base block: an ``nn.Module`` with Gluon's parameter naming."""
 
+    _pre_hooks = None    # {id: hook(block, args)}, made at the first one
+    _post_hooks = None   # {id: hook(block, args, output)}
+
     def __call__(self, *args, **kwargs):
+        if self._pre_hooks is None and self._post_hooks is None:
+            return self._call(*args, **kwargs)
+        for hook in list((self._pre_hooks or {}).values()):
+            hook(self, args)
+        out = self._call(*args, **kwargs)
+        for hook in list((self._post_hooks or {}).values()):
+            hook(self, args, out)
+        return out
+
+    def _call(self, *args, **kwargs):
         NDArray = _registry.NDArray
         if NDArray is not None and (
                 _has_ndarray(args, NDArray)
@@ -81,6 +118,25 @@ class Block(nn.Module):
             return super().__call__(*args, **kwargs)
         with torch.no_grad():   # not recording: no graph, as in JAX
             return super().__call__(*args, **kwargs)
+
+    def _add_hook(self, table, hook):
+        hooks = getattr(self, table)
+        if hooks is None:
+            hooks = OrderedDict()
+            object.__setattr__(self, table, hooks)
+        hid = next(_HOOK_IDS)
+        hooks[hid] = hook
+        return _HookHandle(hooks, hid)
+
+    def register_forward_pre_hook(self, hook):
+        """Call ``hook(block, args)`` before each call; returns a handle
+        whose ``detach()`` takes it off."""
+        return self._add_hook("_pre_hooks", hook)
+
+    def register_forward_hook(self, hook):
+        """Call ``hook(block, args, output)`` after each call; returns a
+        handle whose ``detach()`` takes it off."""
+        return self._add_hook("_post_hooks", hook)
 
     def __setattr__(self, name, value):
         from .parameter import _DEFAULT_NAMES, Parameter
@@ -98,6 +154,53 @@ class Block(nn.Module):
             out = OrderedDict((k, v) for k, v in out.items()
                               if pat.match(k))
         return out
+
+    @property
+    def params(self):
+        """``collect_params()``."""
+        return self.collect_params()
+
+    def share_parameters(self, shared):
+        """Hold the parameters of ``shared`` ({structured name:
+        Parameter}, as ``collect_params`` gives) in place of this block's
+        own of the same names; returns the block."""
+        own = self.collect_params()
+        for name, param in shared.items():
+            if name not in own:
+                continue
+            *path, leaf = name.split(".")
+            blk = self
+            for part in path:
+                blk = blk._modules[part]
+            nn.Module.__setattr__(blk, leaf, param)
+        return self
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` (``grad_req``, ``lr_mult``, ...) of every
+        parameter to ``value``."""
+        for param in self.collect_params().values():
+            setattr(param, name, value)
+
+    def reset_ctx(self, ctx):
+        """Move every parameter to ``ctx``, keeping its values."""
+        for param in self.collect_params().values():
+            param.reset_ctx(ctx)
+
+    def infer_shape(self, *args):
+        """Shape-propagation hook; the layers with deferred shapes
+        override it."""
+
+    def summary(self, *inputs):
+        """The JAX package's text table: each parameter's structured name
+        and shape (``Layer``, ``Params``), then ``Total params``."""
+        lines = ["%-44s %-20s" % ("Layer", "Params")]
+        total = 0
+        for name, p in self.collect_params().items():
+            shape = tuple(p.shape)
+            total += math.prod(shape)
+            lines.append("%-44s %-20s" % (name, shape))
+        lines.append("Total params: %d" % total)
+        return "\n".join(lines)
 
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):

@@ -4,7 +4,11 @@ Counterpart of ``mxnet_tpu/gluon/loss.py``: every loss there.  Each loss
 is a block ``loss(pred, label, [sample_weight])`` that returns one value
 per example (the mean over every axis but ``batch_axis``), weighted by
 ``weight`` and ``sample_weight``; ``PoissonNLLLoss`` returns the mean over
-everything, as there, and ``CTCLoss`` one loss a sequence.
+everything, as there, and ``CTCLoss`` one loss a sequence.  Where the JAX
+losses call an op that amp rewrites (``log``, ``exp``, ``sum``, ``mean``,
+``log_softmax``), these call the port's registered op of that name, so
+under ``amp.init`` a loss of fp16 or bf16 predictions computes in float32
+there too.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import math
 
 import torch
 
+from ..ops import core as C
 from ..ops import nn as F
 from .block import HybridBlock
 
@@ -36,7 +41,7 @@ def _reshape_like(pred, label):
 
 def _log1p_exp_neg_abs(x):
     """log(1 + exp(-|x|)), as the JAX package writes it."""
-    return torch.log(1.0 + torch.exp(-torch.abs(x)))
+    return C.log(1.0 + C.exp(-torch.abs(x)))
 
 
 class Loss(HybridBlock):
@@ -47,7 +52,7 @@ class Loss(HybridBlock):
 
     def _mean_nonbatch(self, loss):
         axes = tuple(i for i in range(loss.dim()) if i != self._batch_axis)
-        return loss.mean(dim=axes) if axes else loss
+        return C.mean(loss, axis=axes) if axes else loss
 
     def __repr__(self):
         return "%s(batch_axis=%s, w=%s)" % (type(self).__name__,
@@ -90,8 +95,8 @@ class SigmoidBinaryCrossEntropyLoss(Loss):
                 loss = (1 - label) * pred + log_weight * softplus_neg
         else:
             eps = 1e-12
-            loss = -(torch.log(pred + eps) * label
-                     + torch.log(1 - pred + eps) * (1 - label))
+            loss = -(C.log(pred + eps) * label
+                     + C.log(1 - pred + eps) * (1 - label))
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return self._mean_nonbatch(loss)
 
@@ -113,7 +118,7 @@ class SoftmaxCrossEntropyLoss(Loss):
         if self._sparse_label:
             loss = -F.pick(pred, label, axis=self._axis)
         else:
-            loss = -(pred * _reshape_like(pred, label)).sum(dim=self._axis)
+            loss = -C.sum(pred * _reshape_like(pred, label), axis=self._axis)
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return self._mean_nonbatch(loss)
 
@@ -131,7 +136,7 @@ class KLDivLoss(Loss):
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
             pred = F.log_softmax(pred, axis=self._axis)
-        loss = label * (torch.log(label + 1e-12) - pred)
+        loss = label * (C.log(label + 1e-12) - pred)
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return self._mean_nonbatch(loss)
 
@@ -217,9 +222,9 @@ class TripletLoss(Loss):
     def forward(self, pred, positive, negative, sample_weight=None):
         positive = _reshape_like(pred, positive)
         negative = _reshape_like(pred, negative)
-        loss = (torch.square(pred - positive)
-                - torch.square(pred - negative)).sum(
-                    dim=tuple(range(1, pred.dim())))
+        loss = C.sum(torch.square(pred - positive)
+                     - torch.square(pred - negative),
+                     axis=tuple(range(1, pred.dim())))
         loss = torch.relu(loss + self._margin)
         return _apply_weighting(loss, self._weight, sample_weight)
 
@@ -234,17 +239,17 @@ class PoissonNLLLoss(Loss):
     def forward(self, pred, target, sample_weight=None, epsilon=1e-08):
         target = _reshape_like(pred, target)
         if self._from_logits:
-            loss = torch.exp(pred) - target * pred
+            loss = C.exp(pred) - target * pred
         else:
-            loss = pred - target * torch.log(pred + epsilon)
+            loss = pred - target * C.log(pred + epsilon)
         if self._compute_full:
-            stirling = target * torch.log(target + 1e-12) - target + \
-                0.5 * torch.log(2 * math.pi * (target + 1e-12))
+            stirling = target * C.log(target + 1e-12) - target + \
+                0.5 * C.log(2 * math.pi * (target + 1e-12))
             stirling = torch.where(target <= 1, torch.zeros_like(stirling),
                                    stirling)
             loss = loss + stirling
         loss = _apply_weighting(loss, self._weight, sample_weight)
-        return loss.mean()
+        return C.mean(loss)
 
 
 class CosineEmbeddingLoss(Loss):
@@ -253,9 +258,9 @@ class CosineEmbeddingLoss(Loss):
         self._margin = margin
 
     def forward(self, input1, input2, label, sample_weight=None):
-        cos = (input1 * input2).sum(dim=-1) / (
-            torch.sqrt(torch.square(input1).sum(dim=-1))
-            * torch.sqrt(torch.square(input2).sum(dim=-1)) + 1e-12)
+        cos = C.sum(input1 * input2, axis=-1) / (
+            torch.sqrt(C.sum(torch.square(input1), axis=-1))
+            * torch.sqrt(C.sum(torch.square(input2), axis=-1)) + 1e-12)
         label = label.reshape(cos.shape)
         loss = torch.where(label == 1, 1 - cos,
                            torch.relu(cos - self._margin))
@@ -273,9 +278,9 @@ class SDMLLoss(Loss):
 
     def forward(self, x1, x2):
         batch = x1.shape[0]
-        d = torch.sqrt(torch.square(x1.unsqueeze(1) - x2.unsqueeze(0))
-                       .sum(dim=-1) + 1e-12)
+        d = torch.sqrt(C.sum(torch.square(x1.unsqueeze(1) - x2.unsqueeze(0)),
+                             axis=-1) + 1e-12)
         eye = torch.eye(batch, dtype=x1.dtype, device=x1.device)
         labels = eye * (1 - self._sp - self._sp / (batch - 1)) + \
             self._sp / (batch - 1)
-        return -(labels * F.log_softmax(-d, axis=-1)).sum(dim=-1)
+        return -C.sum(labels * F.log_softmax(-d, axis=-1), axis=-1)

@@ -1,34 +1,42 @@
-"""Vision models of the port: the ResNets, and ``get_model``.
+"""Vision models of the port and ``get_model``.
 
-Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/__init__.py``.  The
-other families of the JAX package (vgg, alexnet, mobilenet, squeezenet,
-densenet, inception) are not ported yet: ``get_model`` names the family
-and raises.
+Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/__init__.py``: the
+ResNets, VGG, AlexNet, MobileNet v1/v2, SqueezeNet, DenseNet and
+Inception-v3.  ``get_model`` lower-cases the name and maps ``-`` to
+``_``, as the JAX package does, so the upstream dotted names
+(``mobilenet1.0``, ``squeezenet1.0``, ``inceptionv3``) are not found
+there or here: the constructors are ``mobilenet1_0``, ``squeezenet1_0``,
+``inception_v3`` and so on.
 """
 from __future__ import annotations
 
-from ....base import MXNetError
-from . import resnet
-from .resnet import *  # noqa: F401,F403
+import importlib
 
-_NOT_PORTED = ("vgg", "alexnet", "mobilenet", "squeezenet", "densenet",
-               "inception")
-_models = {name: getattr(resnet, name) for name in resnet.__all__
-           if name[0].islower() and name != "get_resnet"}
+from ....base import MXNetError
+
+_MODULE_NAMES = ("resnet", "vgg", "alexnet", "mobilenet", "squeezenet",
+                 "densenet", "inception")
+_models = {}
+for _mod_name in _MODULE_NAMES:
+    _mod = importlib.import_module("." + _mod_name, __name__)
+    for _name in _mod.__all__:
+        _obj = getattr(_mod, _name)
+        globals()[_name] = _obj
+        if callable(_obj) and _name[0].islower():
+            _models[_name] = _obj
 
 
 def get_model(name, **kwargs):
-    """The model called ``name`` (``resnet50_v1``, ...), not initialized."""
+    """The model called ``name`` (``resnet50_v1``, ``mobilenet_v2_1_0``,
+    ...), not initialized."""
     key = name.lower().replace("-", "_")
-    if key in _models:
-        return _models[key](**kwargs)
-    family = next((f for f in _NOT_PORTED if key.startswith(f)), None)
-    if family is not None:
-        raise MXNetError("model %s: the %s family is not ported yet "
-                         "(ported: %s)" % (name, family, sorted(_models)))
-    raise MXNetError("model %s not found; available: %s"
-                     % (name, sorted(_models)))
+    if key not in _models:
+        raise MXNetError("model %s not found; available: %s"
+                         % (name, sorted(_models)))
+    return _models[key](**kwargs)
 
 
-__all__ = ["get_model"] + sorted(_models) + [
-    n for n in resnet.__all__ if n[0].isupper() or n == "get_resnet"]
+__all__ = ["get_model"] + sorted(_models) + sorted(
+    n for m in _MODULE_NAMES
+    for n in importlib.import_module("." + m, __name__).__all__
+    if n[0].isupper())

@@ -15,6 +15,7 @@ import torch
 from ....base import MXNetError
 from ... import nn
 from ...block import HybridBlock
+from ._pretrained import check_pretrained
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "get_resnet", "resnet18_v1",
@@ -205,10 +206,7 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
         raise MXNetError("invalid resnet depth %d" % num_layers)
     if version not in (1, 2):
         raise MXNetError("resnet version must be 1 or 2")
-    if pretrained:
-        raise MXNetError("pretrained weights are not available (no "
-                         "download); load them with "
-                         "convert.load_jax_params")
+    check_pretrained(pretrained, "resnet%d_v%d" % (num_layers, version))
     block_type, layers, channels = resnet_spec[num_layers]
     block_class = resnet_block_versions[version - 1][block_type]
     return resnet_net_versions[version - 1](block_class, layers, channels,

@@ -2,3 +2,4 @@
 from .basic_layers import *  # noqa: F401,F403
 from .conv_layers import *  # noqa: F401,F403
 from .transformer import *  # noqa: F401,F403
+from .moe import *  # noqa: F401,F403

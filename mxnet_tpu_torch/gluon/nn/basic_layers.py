@@ -1,11 +1,17 @@
 """Basic layers: Dense, Dropout, BatchNorm (and SyncBatchNorm,
-BatchNormReLU), LayerNorm, Embedding, Flatten, Activation, Sequential and
-HybridSequential.
+BatchNormReLU), LayerNorm, GroupNorm, InstanceNorm, RMSNorm, Embedding,
+Flatten, Identity, Lambda/HybridLambda, Activation and the activation
+layers (LeakyReLU, PReLU, ELU, SELU, GELU, SiLU, Swish, Mish),
+Concatenate/HybridConcatenate, Sequential and HybridSequential.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``.  Parameter names
 and layouts match (Dense weight (units, in_units), BatchNorm gamma, beta,
-running_mean and running_var, LayerNorm gamma/beta, Embedding weight
-(input_dim, output_dim)).  Parameters are ``gluon.Parameter``s, created
+running_mean and running_var, LayerNorm/GroupNorm/InstanceNorm gamma and
+beta, RMSNorm gamma, PReLU alpha, Embedding weight (input_dim,
+output_dim)).  As in the JAX package, ``Swish`` is the later definition
+there (``x * sigmoid(beta * x)``, not ``SiLU``), ``GELU`` defaults to the
+exact erf form, and ``PReLU`` takes ``in_channels=1`` (its ``alpha`` is
+not deferred).  Parameters are ``gluon.Parameter``s, created
 zero-filled (LayerNorm gamma one) on the CPU; ``Block.initialize`` moves
 and fills them, or weights come in through ``convert.load_jax_params``.
 A size left 0 (``in_units``, ``in_channels``) is deferred: the layer's
@@ -25,8 +31,11 @@ from ..block import Block, HybridBlock
 from ..parameter import Parameter
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "SyncBatchNorm", "BatchNormReLU", "LayerNorm", "Embedding",
-           "Flatten", "Activation"]
+           "SyncBatchNorm", "BatchNormReLU", "LayerNorm", "GroupNorm",
+           "InstanceNorm", "RMSNorm", "Embedding", "Flatten", "Identity",
+           "Lambda", "HybridLambda", "Activation", "LeakyReLU", "PReLU",
+           "ELU", "SELU", "GELU", "SiLU", "Swish", "Mish", "Concatenate",
+           "HybridConcatenate"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -254,3 +263,191 @@ class Activation(HybridBlock):
 
     def __repr__(self):
         return "Activation(%s)" % self._act_type
+
+
+class RMSNorm(_Resolving):
+    """x / sqrt(mean(x^2) + eps) * gamma over ``axis``."""
+
+    def __init__(self, axis=-1, epsilon=1e-6, in_channels=0, **kwargs):
+        super().__init__()
+        self._axis = axis
+        self._eps = epsilon
+        self.gamma = _param((in_channels,), fill=1.0, init="ones")
+
+    def infer_shape(self, x, *args):
+        self.gamma._finish_deferred_init((x.shape[self._axis],))
+
+    def forward(self, x):
+        self._resolve(x)
+        return F.rms_norm(x, self.gamma, axis=self._axis, eps=self._eps)
+
+
+class GroupNorm(_Resolving):
+    """Normalisation over groups of channels (axis 1) and the spatial
+    axes, then a per-channel gamma and beta."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__()
+        self._num_groups = num_groups
+        self._eps = epsilon
+        self.gamma = _param((in_channels,), fill=1.0, init=gamma_initializer,
+                            grad_req="write" if scale else "null")
+        self.beta = _param((in_channels,), init=beta_initializer,
+                           grad_req="write" if center else "null")
+
+    def infer_shape(self, x, *args):
+        self.gamma._finish_deferred_init((x.shape[1],))
+        self.beta._finish_deferred_init((x.shape[1],))
+
+    def forward(self, x):
+        self._resolve(x)
+        return F.group_norm(x, self.gamma, self.beta,
+                            num_groups=self._num_groups, eps=self._eps)
+
+
+class InstanceNorm(_Resolving):
+    """Normalisation of each sample's channel over the spatial axes; as in
+    the JAX package, ``center``/``scale`` leave gamma and beta learned."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__()
+        self._eps = epsilon
+        self.gamma = _param((in_channels,), fill=1.0, init=gamma_initializer)
+        self.beta = _param((in_channels,), init=beta_initializer)
+
+    def infer_shape(self, x, *args):
+        self.gamma._finish_deferred_init((x.shape[1],))
+        self.beta._finish_deferred_init((x.shape[1],))
+
+    def forward(self, x):
+        self._resolve(x)
+        return F.instance_norm(x, self.gamma, self.beta, eps=self._eps)
+
+
+class Identity(HybridBlock):
+    def forward(self, x):
+        return x
+
+
+def _function(function):
+    """A ``Lambda``'s callable: a name is the ``mx.nd`` function of that
+    name, taken on tensors (a registry op's own function), as blocks run
+    on tensors."""
+    if not isinstance(function, str):
+        return function
+    from ... import ndarray as nd
+
+    fn = getattr(nd, function)
+    return getattr(fn, "fn", fn)
+
+
+class Lambda(Block):
+    """Wraps ``function`` (a callable, or the name of an ``mx.nd``
+    function) as a block."""
+
+    def __init__(self, function):
+        super().__init__()
+        self._func = _function(function)
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(Lambda, HybridBlock):
+    """A ``Lambda`` of a hybridizable function."""
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha=0.01, **kwargs):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return F.leaky_relu(x, slope=self._alpha)
+
+
+class PReLU(_Resolving):
+    """Leaky ReLU with a learned slope a channel (axis 1); ``alpha`` has
+    ``in_channels`` entries (1 by default) from the first, initialised to
+    0.25 unless ``alpha_initializer`` says otherwise."""
+
+    def __init__(self, alpha_initializer=None, in_channels=1, **kwargs):
+        super().__init__()
+        from ...initializer import Constant
+
+        self.alpha = _param((in_channels,),
+                            init=alpha_initializer or Constant(0.25))
+
+    def forward(self, x):
+        shape = [1] * x.dim()
+        if x.dim() > 1:
+            shape[1] = self.alpha.shape[0]
+        return F.prelu(x, self.alpha.reshape(shape))
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return F.elu(x, alpha=self._alpha)
+
+
+class SELU(HybridBlock):
+    def forward(self, x):
+        return F.selu(x)
+
+
+class GELU(HybridBlock):
+    """GELU, the exact erf form unless ``approximation`` is not
+    ``"erf"`` (then the tanh form)."""
+
+    def __init__(self, approximation="erf", **kwargs):
+        super().__init__()
+        self._approx = approximation != "erf"
+
+    def forward(self, x):
+        return F.gelu(x, approximate=self._approx)
+
+
+class SiLU(HybridBlock):
+    def forward(self, x):
+        return F.silu(x)
+
+
+class Swish(HybridBlock):
+    """x * sigmoid(beta * x)."""
+
+    def __init__(self, beta=1.0):
+        super().__init__()
+        self._beta = beta
+
+    def forward(self, x):
+        return x * torch.sigmoid(self._beta * x)
+
+
+class Mish(HybridBlock):
+    def forward(self, x):
+        return F.mish(x)
+
+
+class Concatenate(Sequential):
+    """Runs every child on the same input and concatenates their outputs
+    along ``axis``."""
+
+    def __init__(self, axis=-1):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return torch.cat([block(x) for block in self._modules.values()],
+                         dim=self._axis)
+
+
+class HybridConcatenate(Concatenate, HybridBlock):
+    """A ``Concatenate`` of hybrid blocks."""

@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/gluon/nn/transformer.py`` (``MultiHeadAttention``,
 ``PositionwiseFFN``, ``TransformerEncoderCell``, ``TransformerEncoder``,
-``PositionalEmbedding``), with the same children and parameter names.  The
+``PositionalEmbedding``, ``SinusoidalPositionalEmbedding``), with the same
+children and parameter names.  The
 attention core is ``ops.nn.multi_head_attention``: long sequences go to the
 hand-written CUDA flash kernel.
 """
@@ -20,7 +21,7 @@ from .basic_layers import Dense, Dropout, Embedding, HybridSequential, \
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN",
            "TransformerEncoderCell", "TransformerEncoder",
-           "PositionalEmbedding"]
+           "PositionalEmbedding", "SinusoidalPositionalEmbedding"]
 
 
 class MultiHeadAttention(HybridBlock):
@@ -154,3 +155,25 @@ class PositionalEmbedding(HybridBlock):
                 "positional table" % (T, self._max_length))
         pos = torch.arange(T, device=x.device)
         return x + self.embed(pos).reshape(1, T, -1)
+
+
+class SinusoidalPositionalEmbedding(HybridBlock):
+    """Fixed sin/cos positional encoding (Vaswani et al.): x (B, T, C) +
+    pe, pe[t, 2i] = sin(t / 10000^(2i/C)) and pe[t, 2i+1] the cos; an odd
+    ``units`` has one cos column fewer than sin."""
+
+    def __init__(self, units, **kwargs):
+        super().__init__()
+        self._units = units
+
+    def forward(self, x):
+        T, C = x.shape[1], self._units
+        pos = torch.arange(T, dtype=torch.float32,
+                           device=x.device)[:, None]
+        dim = torch.arange(0, C, 2, dtype=torch.float32,
+                           device=x.device)[None, :]
+        angle = pos / torch.pow(10000.0, dim / C)
+        pe = torch.zeros(T, C, dtype=x.dtype, device=x.device)
+        pe[:, 0::2] = torch.sin(angle).to(x.dtype)
+        pe[:, 1::2] = torch.cos(angle[:, :C // 2]).to(x.dtype)
+        return x + pe[None]

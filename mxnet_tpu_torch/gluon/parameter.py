@@ -38,7 +38,7 @@ import torch
 
 from .. import autograd
 from ..base import MXNetError, _as_torch_dtype
-from ..context import device_of
+from ..context import Context, device_of
 
 __all__ = ["Parameter", "Constant", "DeferredInitializationError"]
 
@@ -215,6 +215,28 @@ class Parameter(torch.nn.Parameter):
     def zero_grad(self):
         if self.grad is not None:
             self.grad.zero_()
+
+    def list_data(self):
+        """The data on each device: one card, so ``[p.data]``."""
+        return [self.data]
+
+    def list_grad(self):
+        """The gradient on each device: ``[p.grad]``; raises for
+        ``grad_req='null'``."""
+        if self._grad_req == "null":
+            raise MXNetError("Parameter %s has grad_req='null'" % self._name)
+        return [self.grad]
+
+    def list_ctx(self):
+        """The contexts the parameter lives on: ``[its context]``."""
+        return [Context.from_device(self.device)]
+
+    def reset_ctx(self, ctx):
+        """Move the values to ``ctx``'s device (the gradient is dropped)."""
+        device = device_of(ctx)
+        if self.device != device:
+            self.data = self.data.to(device)
+            self.grad = None
 
 
 class Constant(Parameter):

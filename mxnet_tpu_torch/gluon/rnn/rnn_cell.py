@@ -140,10 +140,10 @@ class LSTMCell(_BaseRNNCell):
         H = self._hidden_size
         i2h, h2h = self._gates(inputs, states[0])
         gates = i2h + h2h
-        i = torch.sigmoid(gates[..., :H])
-        f = torch.sigmoid(gates[..., H:2 * H])
+        i = F.sigmoid(gates[..., :H])
+        f = F.sigmoid(gates[..., H:2 * H])
         g = torch.tanh(gates[..., 2 * H:3 * H])
-        o = torch.sigmoid(gates[..., 3 * H:])
+        o = F.sigmoid(gates[..., 3 * H:])
         c = f * states[1] + i * g
         h = o * torch.tanh(c)
         return h, [h, c]
@@ -160,8 +160,8 @@ class GRUCell(_BaseRNNCell):
         H = self._hidden_size
         prev = states[0]
         i2h, h2h = self._gates(inputs, prev)
-        r = torch.sigmoid(i2h[..., :H] + h2h[..., :H])
-        z = torch.sigmoid(i2h[..., H:2 * H] + h2h[..., H:2 * H])
+        r = F.sigmoid(i2h[..., :H] + h2h[..., :H])
+        z = F.sigmoid(i2h[..., H:2 * H] + h2h[..., H:2 * H])
         n = torch.tanh(i2h[..., 2 * H:] + r * h2h[..., 2 * H:])
         h = (1 - z) * n + z * prev
         return h, [h]

@@ -11,10 +11,14 @@ cuBLAS/cuDNN calls PyTorch makes; the flash branch runs the hand-written
 CUDA kernel through ``flash_attention``.
 
 Every op of the JAX module is registered for ``mx.nd`` at the end of
-this module (``registry.register`` returns each function
-unchanged, so these names stay plain functions on tensors and the paths
-that call them pay no dispatch); the activations, norms, resizes and
-losses that only ``mx.nd`` calls are plain PyTorch here too.
+this module, and each name here is then the function the registry keeps
+(``registry.register``): the plain function, or for the ops automatic
+mixed precision rewrites (matrix products, normalisations, softmaxes,
+losses) its ``amp_rewritten`` wrapper, which with amp off calls it after
+one flag test.  So the Gluon layers, which call these names, pass the
+same amp rewrite as ``mx.nd`` and pay no dispatch; the activations,
+norms, resizes and losses that only ``mx.nd`` calls are plain PyTorch
+here too.
 
 Convolutions on the card run in ``torch.channels_last`` memory format
 (the logical layout stays NCHW): 4-D inputs are made channels-last at the
@@ -35,7 +39,7 @@ import torch.nn.functional as F
 from .. import random as _random
 from ..base import MXNetError
 from . import flash_attention as fa
-from .registry import register
+from .registry import amp_rewritten, register
 
 __all__ = ["fully_connected", "dot", "activation", "gelu", "layer_norm",
            "embedding", "dropout", "softmax", "log_softmax", "pick",
@@ -660,4 +664,9 @@ for _name, _fn, _n in (
         ("softmax_cross_entropy", softmax_cross_entropy, 1),
         ("smooth_l1", smooth_l1, 1), ("ctc_loss", ctc_loss, 1),
         ("multi_head_attention", multi_head_attention, 1)):
-    register(_name, num_outputs=_n)(_fn)
+    # the module's name becomes the registered function: amp's rewrite of
+    # the op (registry.amp_rewritten) then reaches the Gluon layers too
+    globals()[_fn.__name__] = register(_name, num_outputs=_n)(_fn)
+# ``dot`` is ``ops/core.py``'s op for ``mx.nd``; this one, which BERT's
+# and the LMs' tied decoders call, takes the same rewrite
+dot = amp_rewritten("dot", dot)

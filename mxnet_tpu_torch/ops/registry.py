@@ -2,10 +2,26 @@
 
 Counterpart of ``mxnet_tpu/ops/registry.py``.  An op is a plain function
 on tensors, ``fn(*tensors, **attrs)``, registered under its MXNet name with
-its dispatch metadata.  ``register`` returns the function unchanged, so a
-module's names stay plain functions on tensors: the serve, train, capture
-and ``FusedTrainer`` paths call ``ops.nn`` directly and never pass through
-``invoke``.  ``mx.nd`` exposes the registered ``Operator`` objects.
+its dispatch metadata.  ``register`` returns the function the registry
+keeps: the function itself, or for an op that automatic mixed precision
+rewrites (``contrib/amp/lists.py``: every op whose category is not
+``passthrough``) the ``amp_rewritten`` wrapper of it.  A module's names
+stay plain functions on tensors: the serve, train, capture and
+``FusedTrainer`` paths call ``ops.nn`` directly and never pass through
+``invoke``, and ``mx.nd`` exposes the registered ``Operator`` objects.
+
+Automatic mixed precision has one chokepoint, the wrapper, which both
+routes pass.  While ``amp.init`` is on (``AMP.dtype`` set), the outermost
+rewritten call of a thread casts its positional tensor inputs by the op's
+category before calling the function: ``target_dtype`` ops take float32
+inputs to the target dtype, ``fp32`` ops take bf16/fp16 inputs to float32,
+``widest`` ops promote mixed floating inputs to the widest.  The casts are
+``tensor.to`` inside the autograd graph, so each input's gradient comes
+back in its own dtype (float32 parameters get float32 gradients), as in
+the JAX package, whose ``invoke`` casts inside the differentiated
+function.  Rewritten ops called from inside one run as they are, as the
+JAX ops' own bodies do.  With amp off, the wrapper costs one test of
+``AMP.dtype``.
 
 ``invoke`` unwraps ``NDArray`` inputs (and NDArray-valued attrs) to their
 tensors, calls the function, and wraps the results.  The tape is torch's
@@ -26,6 +42,9 @@ writes the result into the caller's handle(s) and returns them.
 """
 from __future__ import annotations
 
+import functools
+import threading
+
 import numpy as np
 import torch
 
@@ -33,7 +52,7 @@ from .. import autograd as _ag
 from ..base import MXNetError, _canonical
 
 __all__ = ["Operator", "register", "alias", "get_op", "list_ops", "invoke",
-           "apply_op"]
+           "apply_op", "amp_rewritten", "AMP"]
 
 _OP_REGISTRY = {}
 # ndarray.NDArray, set when that module is imported (it imports this one);
@@ -63,9 +82,75 @@ class Operator:
         return "Operator(%s)" % self.name
 
 
+class _Amp:
+    """``amp.init``'s state: ``dtype`` the target (None while amp is off);
+    ``local.inside`` marks a thread inside a rewritten op."""
+
+    def __init__(self):
+        self.dtype = None
+        self.local = threading.local()
+
+
+AMP = _Amp()
+_LOW = (torch.bfloat16, torch.float16)
+
+
+def _to_target(args, to):
+    return [a.to(to) if isinstance(a, torch.Tensor)
+            and a.dtype == torch.float32 else a for a in args]
+
+
+def _to_fp32(args, to):
+    return [a.float() if isinstance(a, torch.Tensor) and a.dtype in _LOW
+            else a for a in args]
+
+
+def _to_widest(args, to):
+    dts = {a.dtype for a in args
+           if isinstance(a, torch.Tensor) and a.is_floating_point()}
+    if len(dts) < 2:
+        return args
+    wide = functools.reduce(torch.promote_types, dts)
+    return [a.to(wide) if isinstance(a, torch.Tensor)
+            and a.is_floating_point() else a for a in args]
+
+
+_CASTS = {"target_dtype": _to_target, "fp32": _to_fp32,
+          "widest": _to_widest}
+
+
+def amp_rewritten(name, fn):
+    """``fn`` as the op called ``name`` runs under amp: ``fn`` itself for a
+    ``passthrough`` op, else a wrapper that casts the positional tensor
+    inputs by the op's category while amp is on (``amp_category`` names
+    it; ``__wrapped__`` is ``fn``)."""
+    from ..contrib.amp import lists
+
+    cat = lists.category(name, fn.__module__)
+    if cat == "passthrough":
+        return fn
+    cast = _CASTS[cat]
+    local = AMP.local
+
+    @functools.wraps(fn)
+    def rewritten(*args, **kwargs):
+        to = AMP.dtype
+        if to is None or getattr(local, "inside", False):
+            return fn(*args, **kwargs)
+        local.inside = True
+        try:
+            return fn(*cast(args, to), **kwargs)
+        finally:
+            local.inside = False
+
+    rewritten.amp_category = cat
+    return rewritten
+
+
 def register(name=None, num_outputs=1, differentiable=True, mutates=None):
-    """Register a function on tensors as a framework op; the function is
-    returned unchanged.
+    """Register a function on tensors as a framework op; returns the
+    function the registry keeps (``amp_rewritten``: the function itself
+    unless amp rewrites the op).
 
     Usage::
 
@@ -78,6 +163,7 @@ def register(name=None, num_outputs=1, differentiable=True, mutates=None):
         opname = name or fn.__name__
         if opname in _OP_REGISTRY:
             raise MXNetError("op '%s' registered twice" % opname)
+        fn = amp_rewritten(opname, fn)
         _OP_REGISTRY[opname] = Operator(opname, fn, num_outputs,
                                         differentiable, mutates=mutates)
         return fn

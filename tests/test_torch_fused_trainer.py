@@ -232,5 +232,10 @@ def test_convert_model_casts_what_jax_casts(dtype):
            for k, p in tnet.collect_params().items()}
     assert got == want
     assert got["1.gamma"] == "float32" and got["0.weight"] == dtype
-    with pytest.raises(MXNetError, match="not ported"):
-        amp.init()
+    # the op half is ported: init turns the rewrite on, disable off
+    amp.init()
+    try:
+        assert amp.is_active() and amp.target_dtype() == "bfloat16"
+    finally:
+        amp.disable()
+    assert not amp.is_active()

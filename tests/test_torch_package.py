@@ -66,7 +66,13 @@ def test_import_pulls_in_no_jax():
                 "gluon.data.sampler", "gluon.data.batchify",
                 "gluon.data.dataloader", "gluon.data.vision",
                 "gluon.data.vision.datasets",
-                "gluon.data.vision.transforms"):
+                "gluon.data.vision.transforms", "gluon.nn.moe",
+                "contrib.amp.lists", "gluon.model_zoo.vision.vgg",
+                "gluon.model_zoo.vision.alexnet",
+                "gluon.model_zoo.vision.mobilenet",
+                "gluon.model_zoo.vision.squeezenet",
+                "gluon.model_zoo.vision.densenet",
+                "gluon.model_zoo.vision.inception"):
         assert "mxnet_tpu_torch." + mod in res["modules"]
     assert res["bad"] == []
 
@@ -402,8 +408,9 @@ def test_chip_smoke_and_step_modules_pull_in_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert {"phase_train_captured", "phase_train_captured_resnet",
-            "phase_train_lstm", "phase_train_gpt_lm", "phase_rnn_parts"} \
-        <= set(res["phases"])
+            "phase_train_lstm", "phase_train_gpt_lm", "phase_rnn_parts",
+            "phase_train_vision", "phase_vision_zoo",
+            "phase_train_amp_fp16"} <= set(res["phases"])
 
 
 @pytest.mark.parametrize("kind", ["int", "tensor"])
@@ -533,7 +540,8 @@ def _shared_callables():
                     continue
                 if meth in module_methods and not meth.startswith(
                         ("initialize", "collect_params", "cast",
-                         "zero_grad", "register_child", "hybridize")):
+                         "zero_grad", "register_child", "hybridize",
+                         "register_forward", "apply")):
                     continue              # nn.Module's own, not Gluon's
                 yield "%s.%s.%s" % (rel, name, meth), jm, tm
 
@@ -557,5 +565,14 @@ def test_shared_callables_take_the_jax_arguments():
                  ".gluon.block.Block.collect_params", ".random.uniform",
                  ".random.categorical", ".io.ImageRecordIter",
                  ".gluon.data.dataloader.DataLoader",
-                 ".data.loader.StreamLoader", ".image.imresize"):
+                 ".data.loader.StreamLoader", ".image.imresize",
+                 ".contrib.amp.init", ".contrib.amp.LossScaler",
+                 ".contrib.amp.lists.classification", ".gluon.nn.moe.MoE",
+                 ".gluon.block.Block.share_parameters",
+                 ".gluon.block.Block.register_forward_hook",
+                 ".gluon.parameter.Parameter.reset_ctx",
+                 ".gluon.nn.basic_layers.GroupNorm",
+                 ".gluon.model_zoo.vision.vgg.get_vgg",
+                 ".gluon.model_zoo.vision.inception.inception_v3",
+                 ".optimizer.multi_tensor.register_fusable"):
         assert must in names, must

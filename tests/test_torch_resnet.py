@@ -21,8 +21,8 @@ Then, within 1e-4 x max(1, max|ref|):
 
 Plus the port's own deferred-shape behaviour: a first call fills
 deferred parameters with the recorded initializers, a deferred parameter
-never initialized raises, and ``vision.get_model`` raises for the
-families not ported.
+never initialized raises, and ``vision.get_model`` builds every family
+under the JAX package's names and finds no upstream dotted name.
 """
 import jax
 import jax.numpy as jnp
@@ -203,12 +203,34 @@ def test_deferred_parameter_not_initialized_raises():
     assert net(torch.ones(2, 4)).tolist() == [[5.0] * 3] * 2
 
 
+# upstream name: (the JAX package's name, the family's class)
+_FAMILIES = {"vgg16": ("vgg16", "VGG"), "alexnet": ("alexnet", "AlexNet"),
+             "mobilenet1.0": ("mobilenet1_0", "MobileNet"),
+             "squeezenet1.0": ("squeezenet1_0", "SqueezeNet"),
+             "densenet121": ("densenet121", "DenseNet"),
+             "inceptionv3": ("inception_v3", "Inception3")}
+
+
 @pytest.mark.parametrize("name", ["vgg16", "alexnet", "mobilenet1.0",
                                   "squeezenet1.0", "densenet121",
                                   "inceptionv3"])
 def test_get_model_names_the_family_not_ported(name):
-    with pytest.raises(MXNetError, match="not ported"):
-        tvision.get_model(name)
+    """Every family is ported: ``get_model`` builds it under the JAX
+    package's name, with the JAX parameter names; an upstream dotted name
+    is not found, as in the JAX package (``get_model`` only lower-cases
+    and maps ``-`` to ``_``)."""
+    from mxnet_tpu.gluon.model_zoo import vision as jvision
+
+    jname, cls = _FAMILIES[name]
+    net = tvision.get_model(jname, classes=7)
+    assert type(net).__name__ == cls
+    assert list(net.collect_params()) == list(
+        jvision.get_model(jname, classes=7).collect_params())
+    if jname != name:
+        with pytest.raises(MXNetError, match="not found"):
+            tvision.get_model(name)
+        with pytest.raises(jmx.base.MXNetError, match="not found"):
+            jvision.get_model(name)
 
 
 def test_get_model_builds_ported_resnets():
