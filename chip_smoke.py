@@ -216,9 +216,49 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    loss falls; an inf put into step 5's first gradient halves the loss
    scale and leaves the weights as they were.  Prints the step median and
    its forward / backward (with the overflow check) / update split.
+18. checkpoint_resume -- persistence at full width (BERT-base, random
+   weights from ``--seed``, checkpoints under a temporary directory,
+   removed after).  fp32: the ``train`` recipe (``gluon.Trainer``, Adam
+   1e-4, B=8, T=512, dropout 0.1, TF32 off) run 6 steps twice (run A,
+   ``mx.random`` seeded before steps 1 and 4), and run B: 3 steps,
+   ``trainer.save_checkpoint``, a fresh net and trainer,
+   ``load_checkpoint``, 3 steps; steps 4-6's losses and every final
+   weight bit-identical to A's (if the two A runs differ, the phase prints
+   by how much and where they part, and holds B to that spread); 12
+   launches of each kernel a step; bytes written, save, ``validate()`` and
+   restore seconds and GB/s, leaf and file counts.  Serving:
+   ``serve.Server(factory, root)`` (root positional, as in JAX) serves the
+   step-3 encoder to 32 concurrent requests of 64..512 tokens, each within
+   1e-4 x max(1, max|ref|) of that block's own forward; then
+   ``swap(step=6)`` while 32 clients keep requests in flight: none fails,
+   every answer matches step 3 or 6, every request submitted after
+   ``swap`` returned matches step 6; the swap's seconds (build, restore,
+   warm) and answers a second during it.  bf16: the ``train_bf16`` recipe
+   (``FusedTrainer``, B=16) saved with ``block=False`` after step 5 (the
+   snapshot's seconds on the calling thread, step medians with the save in
+   flight and without), restored into a fresh ``FusedTrainer``, twice: the
+   restored tree equals the saved state and each resumed step's loss the
+   uninterrupted run's step 6, bit for bit, and the weights after it too
+   (if the two restores differ, held to their spread).  Captured: the
+   ``train_captured`` recipe run 6 steps, and again with two steps off the
+   path after step 3, ``load_checkpoint`` of step 3 under the live
+   program (which recaptures) and steps 4-6, within 1e-5 of the
+   uninterrupted run.  Every leaf restored without ``ctx`` is a CUDA
+   tensor of its saved dtype.  Tied: a net holding one ``Dense(1024)``'s
+   parameters under two names, 3 Adam steps through ``gluon.Trainer`` on
+   the card, stitched and captured, within 1e-5 of the CPU run.  Lookups:
+   one backward of every lookup a main path runs with a gradient (BERT's
+   tables and masked-position gather in f32 at B=8 and bf16 at B=16,
+   ``gpt_lm``'s and the LSTM LMs' tables, and an f16 BERT case), the
+   port's fixed-order sums against PyTorch's own: device ms of each and
+   the difference a step, the same bits twice, and a 16-bit gradient
+   within one unit in its last place (at the largest value) of the f32
+   path on the same values.
 
 Then the ``{"kernels": [...]}`` summary (gpt_lm's causal D=32 bf16 route
-as ``routes["bfloat16_causal_d32"]``), the ``nvidia-smi`` line, and as
+as ``routes["bfloat16_causal_d32"]``; ``checkpoint_resume``'s launches in
+the f32 and bf16 routes and ``launches_by_path``), the ``nvidia-smi``
+line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero and prints no result line.  Without a card,
 or without the package beside it, it exits non-zero.
@@ -229,8 +269,11 @@ import argparse
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -351,7 +394,6 @@ def ptxas_report(log):
     ``-Xptxas -v`` output, names demangled with ``cu++filt`` or
     ``c++filt`` where the machine has one."""
     import re
-    import shutil
 
     out, name = [], None
     for ln in log.splitlines():
@@ -1094,7 +1136,6 @@ def profile_split(torch, fn, steps, classify=_kernel_class,
     wall time (host clock).  Tracing the host too would stretch
     the wall time with the profiler's own work.  None where the profiler
     sees no device activity."""
-    import tempfile
     from torch.profiler import ProfilerActivity, profile
 
     wall = 0.0
@@ -3055,9 +3096,6 @@ def phase_data_pipeline(torch, mx, fa, seed, smi, cfg=DATA_CFG):
     images, the native ``ImageRecordIter`` alone, ResNet-50 fed through
     ``data.PrefetchRing``, config 1's MNIST loop through
     ``gluon.data.DataLoader`` and a ``StreamLoader`` epoch over shards."""
-    import shutil
-    import tempfile
-
     counters = [getattr(fa, n) for n in ("flash_attention", "flash_bwd_dq",
                                          "flash_bwd_dkv")]
     for c in counters:
@@ -3554,6 +3592,859 @@ def phase_train_amp_fp16(torch, mx, fa, seed, smi, fp32=None):
     return launches
 
 
+CKPT_CFG = dict(B=8, T=512, M=76, vocab=30522, bf16_B=16, bf16_steps=10,
+                save_at=5, n_req=32, layers=12)
+CKPT_SEEDS = (1001, 1002)   # mx.random.seed before step 1 and step 4
+
+
+def _flash_counts(fa):
+    return {c.__name__: c.launches for c in (
+        fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)}
+
+
+def _reset_flash(fa):
+    for c in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        c.launches = 0
+
+
+def _want_launches(fa, per_step, steps, what):
+    got = _flash_counts(fa)
+    if got != {n: per_step * steps for n in got}:
+        fail("%s: flash launches %s in %d steps (want %d a step each)"
+             % (what, got, steps, per_step))
+    return got
+
+
+def _spread(torch, a, b):
+    """(worst |a - b| / max(1, max|b|) over paired tensors, bitwise)."""
+    worst, same = 0.0, True
+    for x, y in zip(a, b):
+        same &= bool(torch.equal(x, y))
+        worst = max(worst, (x.float() - y.float()).abs().max().item()
+                    / max(1.0, y.float().abs().max().item()))
+    return worst, same
+
+
+def _loss_spread(a, b):
+    return max(abs(x - y) / max(1.0, abs(y)) for x, y in zip(a, b))
+
+
+def _first_divergence(torch, make, step_fn):
+    """Where two identical steps of fresh ``make()`` nets first part: the
+    first module (in call order) whose output differs, else the first
+    parameter whose gradient differs, else None."""
+    runs = []
+    for _ in range(2):
+        net = make()
+        outs = []
+
+        def hook(block, args, out, outs=outs):
+            t = out[0] if isinstance(out, (tuple, list)) else out
+            if hasattr(t, "detach"):
+                outs.append((type(block).__name__, t.detach().clone()))
+
+        handles = [m.register_forward_hook(hook) for m in net.modules()]
+        step_fn(net)
+        for h in handles:
+            h.remove()
+        grads = [(n, p.grad.clone() if p.grad is not None else None)
+                 for n, p in net.collect_params().items()]
+        runs.append((outs, grads))
+        del net
+    (o1, g1), (o2, g2) = runs
+    for i, ((kind, x), (_, y)) in enumerate(zip(o1, o2)):
+        if x.shape != y.shape or not torch.equal(x, y):
+            return "forward: module %d (%s)" % (i, kind)
+    for (n, x), (_, y) in zip(g1, g2):
+        if x is not None and not torch.equal(x, y):
+            return "backward: gradient of %s" % n
+    return None
+
+
+def _lookup_paths(rng):
+    """The lookups each main path runs with a gradient on the card, at
+    its shapes, indices and dtype: ``[(path, phases, dtype, lookups)]``,
+    a lookup ``(name, table rows, width, indices)``, rows None for the
+    gather of the masked positions ((B, T, width) by (B, M))."""
+    c, lstm, lstm650, gpt = CKPT_CFG, LSTM_CFG, LSTM_650_CFG, GPT_CFG
+    V, T, M = c["vocab"], c["T"], c["M"]
+
+    def bert(B, replace, types):
+        pos = rng.choice(T, (B, M)) if replace else np.stack(
+            [rng.choice(T, M, replace=False) for _ in range(B)])
+        return [("word", V, 768, rng.integers(0, V, (B, T))),
+                ("token_type", 2, 768, types), ("gather", None, 768, pos)]
+
+    half = (np.arange(T)[None, :] >= T // 2).repeat(c["B"], 0)
+    zipf = _zipf_stream(int(rng.integers(1 << 30)), 50257,
+                        gpt["B"] * gpt["T"]).reshape(gpt["B"], gpt["T"])
+    zipf650 = _zipf_stream(int(rng.integers(1 << 30)), lstm650["vocab"],
+                           lstm650["B"] * lstm650["T"])
+    return [
+        ("bert B=8", "train, train_captured, train_amp_fp16 (the lookups "
+         "run in float32 there), checkpoint_resume", "float32",
+         bert(c["B"], False, half)),
+        ("bert B=16", "train_bf16, checkpoint_resume", "bfloat16",
+         bert(c["bf16_B"], True,
+              rng.integers(0, 2, (c["bf16_B"], T)))),
+        ("gpt_lm B=8 T=1024", "train_gpt_lm", "bfloat16",
+         [("word", 50257, 256, zipf)]),
+        ("lstm B=32 T=64", "train_lstm", "float32",
+         [("word", lstm["vocab"], lstm["hidden"],
+           rng.integers(0, lstm["vocab"], (lstm["B"], lstm["T"])))]),
+        ("lstm_650 B=32 T=35", "train_lstm (standard_lstm_lm_650)",
+         "float32", [("word", lstm650["vocab"], 650,
+                      zipf650.reshape(lstm650["B"], lstm650["T"]))]),
+        ("bert B=8 float16", "none (a net cast to float16)", "float16",
+         bert(c["B"], True, half)),
+    ]
+
+
+def _lookup_backward(torch, seed):
+    """One backward of each lookup of ``_lookup_paths``: the port's
+    fixed-order sums (``ops.nn.embedding``, ``take_along_axis``) against
+    PyTorch's own backward, which adds a row's repeats in no fixed order
+    on the card.  Device ms of each and their difference a step; the
+    fixed-order gradient twice, which must give the same bits; a 16-bit
+    one against the float32 path on the same values, which it must meet
+    within one unit in the last place of its type at the largest value
+    (``torch.finfo(dtype).eps`` x max(1, max|want|))."""
+    import torch.nn.functional as tf
+
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
+    rows = []
+    for path, phases, dname, lookups in _lookup_paths(
+            np.random.default_rng(seed + 9)):
+        dt = getattr(torch, dname)
+        row = {"path": path, "phases": phases, "dtype": dname}
+        step_fixed = step_pytorch = 0.0
+        for name, table, units, idx in lookups:
+            i = torch.from_numpy(np.asarray(idx, np.int64)).cuda()
+            # indices that repeat one before them: over the batch for a
+            # table, within a row for the gather
+            runs = [idx] if table is not None else list(idx)
+            repeats = int(sum(np.size(r) - np.unique(r).size for r in runs))
+            if table is None:
+                B, M = i.shape
+                i = i.unsqueeze(-1).expand(B, M, units)
+                shape, out_shape = (B, CKPT_CFG["T"], units), (B, M, units)
+
+                def fixed(t, i=i):
+                    return ops_nn.take_along_axis(t, i, 1)
+
+                def plain(t, i=i):
+                    return torch.gather(t, 1, i)
+            else:
+                shape, out_shape = (table, units), (*i.shape, units)
+
+                def fixed(t, i=i):
+                    return ops_nn.embedding(i, t)
+
+                def plain(t, i=i):
+                    return tf.embedding(i, t)
+            x = torch.randn(shape, device="cuda").to(dt).requires_grad_()
+            g = torch.randn(out_shape, device="cuda").to(dt)
+            ys = {"fixed_order": fixed(x), "pytorch": plain(x)}
+
+            def grad(route, ys=ys, x=x, g=g):
+                return torch.autograd.grad(ys[route], x, g,
+                                           retain_graph=True)[0]
+
+            got = grad("fixed_order")
+            if not torch.equal(got, grad("fixed_order")):
+                fail("%s %s: the fixed-order gradient differs run to run"
+                     % (path, name))
+            ms = {r: cuda_ms(lambda r=r: grad(r), 10) for r in ys}
+            row[name] = {"repeats": repeats,
+                         "fixed_order_ms": ms["fixed_order"],
+                         "pytorch_ms": ms["pytorch"],
+                         "pytorch_bitwise_run_to_run": bool(torch.equal(
+                             grad("pytorch"), grad("pytorch")))}
+            if dt != torch.float32:
+                x32 = x.detach().float().requires_grad_()
+                want = torch.autograd.grad(fixed(x32), x32, g.float())[0]
+                err = ((got.float() - want).abs().max().item()
+                       / max(1.0, want.abs().max().item()))
+                tol = torch.finfo(dt).eps
+                row[name].update(vs_float32_err=err, tol=tol)
+                if err > tol:
+                    fail("%s %s: %s gradient off the float32 path by %g "
+                         "(tol %g)" % (path, name, dname, err, tol))
+            step_fixed += ms["fixed_order"]
+            step_pytorch += ms["pytorch"]
+            del x, g, ys, got
+        row.update(step_fixed_order_ms=step_fixed,
+                   step_pytorch_ms=step_pytorch,
+                   step_delta_ms=step_fixed - step_pytorch)
+        rows.append(row)
+    return rows
+
+
+def _tied_trainer(torch, mx, seed, U=1024, B=64, steps=3):
+    """A net holding one ``Dense(U)``'s parameters under two names
+    (``share_parameters``), trained ``steps`` steps by ``gluon.Trainer``
+    with Adam (wd 1e-2) on the card, stitched and through
+    ``trainer.capture``, against the same on the CPU: the trainer gives
+    the shared weight one update a name, the second in a later group, so
+    no multi-tensor launch updates one buffer from two list entries.
+    Adam's epsilon is 1: near |g| ~ epsilon Adam passes a gradient's
+    rounding (which the CPU and the card take apart) on to the weight
+    times lr / epsilon, here 1e-2; one update a step lands ~1e-2 away."""
+    nn = mx.gluon.nn
+    rng = np.random.default_rng(seed + 11)
+    w = rng.standard_normal((U, U)).astype(np.float32) / np.sqrt(U)
+    b = rng.standard_normal(U).astype(np.float32) * 0.1
+    xs = [rng.standard_normal((B, U)).astype(np.float32)
+          for _ in range(steps)]
+    opts = {"learning_rate": 1e-2, "wd": 1e-2, "epsilon": 1.0}
+
+    def loss_fn(out, _):
+        return (out ** 2).sum()
+
+    def build(ctx):
+        net = nn.HybridSequential()
+        first, second = nn.Dense(U, in_units=U), nn.Dense(U, in_units=U)
+        net.add(first, second)
+        net.initialize(ctx=ctx)
+        second.share_parameters(first.collect_params())
+        with torch.no_grad():
+            first.weight.copy_(torch.from_numpy(w))
+            first.bias.copy_(torch.from_numpy(b))
+        return net, mx.gluon.Trainer(net.collect_params(), "adam",
+                                     dict(opts))
+
+    def run(ctx, captured):
+        net, tr = build(ctx)
+        dev = "cpu" if ctx is not None else "cuda"
+        program = tr.capture(net, loss_fn) if captured else None
+        for x in xs:
+            x = torch.from_numpy(x).to(dev)
+            if captured:
+                program(x, torch.zeros(B, device=dev), batch_size=B)
+            else:
+                with mx.autograd.record():
+                    loss = loss_fn(net(x), None)
+                loss.backward()
+                tr.step(B)
+        names = list(net.collect_params())
+        if names != ["0.weight", "0.bias", "1.weight", "1.bias"]:
+            fail("tied net lists %s" % names)
+        out = [p.detach().cpu().clone() for p in (net[0].weight,
+                                                   net[0].bias)]
+        if captured:
+            rep = program.report()
+            if rep["fallbacks"] or rep["paths"]["stitched"]:
+                fail("tied captured step ran %s (fallbacks %s)"
+                     % (rep["paths"], rep["fallbacks"]))
+        return out
+
+    want = run(mx.cpu(), False)
+    net, _ = build(mx.cpu())                  # one update a step, for scale
+    params = net.collect_params()
+    tr = mx.gluon.Trainer({k: params[k] for k in ("0.weight", "0.bias")},
+                          "adam", dict(opts))
+    for x in xs:
+        with mx.autograd.record():
+            loss = loss_fn(net(torch.from_numpy(x)), None)
+        loss.backward()
+        tr.step(B)
+    once = [p.detach().clone() for p in (net[0].weight, net[0].bias)]
+    out = {"units": U, "batch": B, "steps": steps, "optimizer": "adam",
+           "opts": opts, "tol": 1e-5,
+           "one_update_a_step_off_by": _spread(torch, once, want)[0]}
+    for route in ("stitched", "captured"):
+        err, _ = _spread(torch, run(None, route == "captured"), want)
+        out["%s_vs_cpu" % route] = err
+        if err > 1e-5:
+            fail("tied %s Adam on the card off the CPU run by %g"
+                 % (route, err))
+    if out["one_update_a_step_off_by"] <= 1e-3:
+        fail("tied check cannot tell one update a step from two (%g)"
+             % out["one_update_a_step_off_by"])
+    return out
+
+
+def _restored_leaves_on_card(torch, root):
+    """Every leaf of ``root``'s latest step, restored without ``ctx``, is a
+    CUDA tensor of the dtype its manifest names."""
+    from mxnet_tpu_torch import checkpoint as ckpt
+    from mxnet_tpu_torch.checkpoint import layout
+
+    mgr = ckpt.CheckpointManager(root, recover=False)
+    manifest = mgr.manifest()
+    _, tree = mgr.restore()
+    bad = []
+    for e, t in zip(manifest["leaves"], layout.tree_leaves(tree)):
+        want = e["dtype"]
+        got = "bfloat16" if t.dtype == torch.bfloat16 else str(
+            torch.empty(0, dtype=t.dtype).numpy().dtype)
+        if not t.is_cuda or got != want:
+            bad.append((e["name"], str(t.device), got, want))
+    if bad:
+        fail("restored leaves off the card or of another dtype: %s"
+             % bad[:5])
+    return len(manifest["leaves"])
+
+
+def _ckpt_stats(root, step):
+    from mxnet_tpu_torch import checkpoint as ckpt
+
+    m = ckpt.CheckpointManager(root, recover=False).manifest(step)
+    return {"leaves": m["n_leaves"], "files": len(m["files"]) + 2,
+            "bytes": sum(f["nbytes"] for f in m["files"].values())}
+
+
+def phase_checkpoint_resume(torch, mx, fa, seed, smi, cfg=CKPT_CFG):
+    """Persistence on the card: a BERT-base ``gluon.Trainer`` run saved at
+    step 3 and resumed in a fresh net and trainer, the bf16
+    ``FusedTrainer`` saved asynchronously and restored, a captured step
+    restored under its program, and ``serve.Server(factory, root)`` serving
+    the checkpoints with a hot ``swap`` under load."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    B, T, M, vocab, L = (cfg[k] for k in ("B", "T", "M", "vocab", "layers"))
+    s0, s1 = CKPT_SEEDS
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="mx-checkpoint-smoke-")
+    out = {}
+    launches = {"float32": {}, "bfloat16": {}}
+
+    def add(route, counts):
+        for k, v in counts.items():
+            launches[route][k] = launches[route].get(k, 0) + v
+
+    weights = {}
+
+    def fp32_net():
+        net = bert.bert_12_768_12(pretraining=True, vocab_size=vocab,
+                                  max_length=T, dropout=DROPOUT_P,
+                                  num_layers=L)
+        net.initialize()                    # no ctx: the card
+        if not weights:
+            weights.update(bert_params(net, seed))
+        mx.convert.load_jax_params(net, weights)
+        return net
+
+    host = _train_batch(np.random.default_rng(seed + 2), B, T, M, vocab)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+
+    def train(net, trainer, n):
+        losses = []
+        for _ in range(n):
+            losses.append(_train_step(mx, bert, net, batch).item())
+            trainer.step(1)
+        return losses
+
+    def params_of(net):
+        return [p.detach().clone() for p in net.collect_params().values()]
+
+    try:
+        # ---- 1. fp32 resume through gluon.Trainer ----------------------
+        runs = []
+        for _ in range(2):                  # run A, twice
+            net = fp32_net()
+            tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                                  {"learning_rate": 1e-4})
+            _reset_flash(fa)
+            mx.random.seed(s0)
+            la = train(net, tr, 3)
+            mx.random.seed(s1)
+            la += train(net, tr, 3)
+            add("float32", _want_launches(fa, 12, 6, "fp32 run A"))
+            runs.append((la, params_of(net)))
+            del net, tr
+        (la, wa), (la2, wa2) = runs
+        spread_w, a_bitwise = _spread(torch, wa2, wa)
+        spread_l = _loss_spread(la2, la)
+        diverges = None
+        if not a_bitwise or la != la2:
+            def one_step(net):
+                mx.random.seed(s0)
+                _train_step(mx, bert, net, batch)
+
+            diverges = _first_divergence(torch, fp32_net, one_step)
+
+        fp32_root = os.path.join(work, "fp32")
+        serve_root = os.path.join(work, "serve")
+        net = fp32_net()
+        tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                              {"learning_rate": 1e-4})
+        _reset_flash(fa)
+        mx.random.seed(s0)
+        lb = train(net, tr, 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.save_checkpoint(fp32_root)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report = mx.checkpoint.CheckpointManager(
+            fp32_root, recover=False).validate()
+        validate_s = time.perf_counter() - t0
+        if not all(r["ok"] for r in report.values()):
+            fail("validate() after the fp32 save: %s" % report)
+        net.bert.save_checkpoint(serve_root, step=3)   # the served model
+        served3 = net.bert
+        del tr
+        net2 = fp32_net()
+        tr2 = mx.gluon.Trainer(net2.collect_params(), "adam",
+                               {"learning_rate": 1e-4})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = tr2.load_checkpoint(fp32_root)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if step != 3 or tr2.step_count != 3:
+            fail("fp32 restore gave step %s / %s" % (step, tr2.step_count))
+        mx.random.seed(s1)
+        lb += train(net2, tr2, 3)
+        add("float32", _want_launches(fa, 12, 6, "fp32 run B"))
+        wb = params_of(net2)
+        err_w, b_bitwise = _spread(torch, wb, wa)
+        err_l = _loss_spread(lb[3:], la[3:])
+        if a_bitwise and la == la2:
+            if not (b_bitwise and lb[3:] == la[3:]):
+                fail("fp32 resume is not bit-identical: losses %s vs %s, "
+                     "weights off by %g" % (lb[3:], la[3:], err_w))
+        elif err_w > spread_w or err_l > spread_l:
+            fail("fp32 resume off by %g (weights) / %g (losses), beyond "
+                 "the run-to-run spread %g / %g (%s)"
+                 % (err_w, err_l, spread_w, spread_l, diverges))
+        stats = _ckpt_stats(fp32_root, 3)
+        leaves_fp32 = _restored_leaves_on_card(torch, fp32_root)
+        out["fp32"] = {
+            "model": "bert_12_768_12", "layers": L, "card": smi,
+            "trainer": "gluon.Trainer", "optimizer": "adam", "lr": 1e-4,
+            "batch": B, "seq_len": T, "dropout": DROPOUT_P, "tf32": False,
+            "losses_a": la, "losses_a_repeat": la2, "losses_b": lb,
+            "run_to_run_bitwise": a_bitwise and la == la2,
+            "run_to_run_weights": spread_w, "run_to_run_losses": spread_l,
+            "first_divergence": diverges,
+            "resume_bitwise": b_bitwise and lb[3:] == la[3:],
+            "resume_weights_max_rel_err": err_w,
+            "resume_losses_max_rel_err": err_l,
+            "bytes_written": stats["bytes"], "leaves": stats["leaves"],
+            "files": stats["files"], "save_s": save_s,
+            "save_gb_per_s": stats["bytes"] / save_s / 1e9,
+            "validate_s": validate_s,
+            "validate_gb_per_s": stats["bytes"] / validate_s / 1e9,
+            "restore_s": restore_s,
+            "restore_gb_per_s": stats["bytes"] / restore_s / 1e9,
+            "restored_leaves_on_card": leaves_fp32}
+        emit(dict(out["fp32"], phase="checkpoint_resume", part="fp32"))
+        shutil.rmtree(fp32_root)
+        del wa2, runs
+
+        # ---- 4. serving the checkpoints, and the hot swap under load --
+        out["serve"] = _serve_from_checkpoint(
+            torch, mx, fa, bert, cfg, seed, serve_root, served3, net2.bert,
+            add)
+        emit(dict(out["serve"], phase="checkpoint_resume", part="serve"))
+        del net, net2, served3, wa, wb
+        torch.cuda.empty_cache()
+
+        # ---- 2. bf16 FusedTrainer: async save, restore ------------------
+        out["bf16"] = _fused_resume(torch, mx, fa, bert, cfg, seed,
+                                    os.path.join(work, "bf16"), add)
+        emit(dict(out["bf16"], phase="checkpoint_resume", part="bf16"))
+        torch.cuda.empty_cache()
+
+        # ---- 3. captured: restore under the program ---------------------
+        out["captured"] = _captured_resume(torch, mx, fa, bert, cfg, seed,
+                                           os.path.join(work, "captured"),
+                                           add)
+        emit(dict(out["captured"], phase="checkpoint_resume",
+                  part="captured"))
+        torch.cuda.empty_cache()
+
+        # ---- the Trainer over a shared parameter, and the lookups' sums
+        out["tied"] = _tied_trainer(torch, mx, seed)
+        emit(dict(out["tied"], phase="checkpoint_resume", part="tied"))
+        for row in _lookup_backward(torch, seed):
+            emit(dict(row, phase="checkpoint_resume", part="lookups",
+                      card=smi))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "checkpoint_resume", "part": "summary", "model":
+          "bert_12_768_12", "layers": L, "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "card": smi})
+    return launches
+
+
+def _serve_requests(rng, n, T, vocab):
+    reqs = []
+    for L in rng.integers(64, T + 1, n):
+        ids = rng.integers(0, vocab, L).astype(np.int32)
+        types = (np.arange(L) >= L // 2).astype(np.int32)
+        reqs.append((ids, types))
+    return reqs
+
+
+def _served_refs(torch, block, reqs, T):
+    """Each request through ``block`` on the card, zero-padded to T as the
+    server pads it, 8 a batch: [(seq (L, C), pooled (C,)) on the host]."""
+    refs = []
+    for i in range(0, len(reqs), 8):
+        part = reqs[i:i + 8]
+        ids = np.zeros((len(part), T), np.int32)
+        types = np.zeros((len(part), T), np.int32)
+        for j, (a, b) in enumerate(part):
+            ids[j, :len(a)], types[j, :len(b)] = a, b
+        with torch.inference_mode():
+            seq, pooled = block(torch.from_numpy(ids).cuda(),
+                                torch.from_numpy(types).cuda())
+        for j, (a, _) in enumerate(part):
+            refs.append((seq[j, :len(a)].cpu().numpy(),
+                         pooled[j].cpu().numpy()))
+    return refs
+
+
+def _served_err(got, ref):
+    """|got - ref| / max(1, max|ref|) over both outputs."""
+    return max(float(np.abs(g - r).max()) / max(1.0, float(np.abs(r).max()))
+               for g, r in zip(got, ref))
+
+
+def _serve_from_checkpoint(torch, mx, fa, bert, cfg, seed, root, block3,
+                           block6, add):
+    """``serve.Server(factory, root)`` serving step 3, then ``swap(step=6)``
+    while requests are in flight."""
+    T, vocab, n_req, L = cfg["T"], cfg["vocab"], cfg["n_req"], cfg["layers"]
+    gate = 1e-4
+    reqs = _serve_requests(np.random.default_rng(seed + 7), n_req, T, vocab)
+    _reset_flash(fa)
+    ref3 = _served_refs(torch, block3, reqs, T)
+    ref6 = _served_refs(torch, block6, reqs, T)
+    ref_launches = _flash_counts(fa)["flash_attention"]
+    apart = min(_served_err(a, b) for a, b in zip(ref3, ref6))
+    if apart <= 10 * gate:
+        fail("steps 3 and 6 serve alike (%g apart): the swap would be "
+             "unseen" % apart)
+    built = []
+
+    def factory():
+        t0 = time.perf_counter()
+        blk = bert.bert_12_768_12(vocab_size=vocab, max_length=T,
+                                  num_layers=L)
+        built.append(time.perf_counter() - t0)
+        return blk
+
+    conf = mx.serve.ServeConfig(max_batch_size=8,
+                                sample_shapes=[((T,), (T,))], dtype="int32")
+    _reset_flash(fa)
+    mx.telemetry.reset()
+    t0 = time.perf_counter()
+    srv = mx.serve.Server(factory, root, config=conf)   # JAX's order
+    start_s = time.perf_counter() - t0
+    try:
+        if srv.runner.step != 3 or srv.runner.device.type != "cuda":
+            fail("Server(factory, root) serves step %s on %s"
+                 % (srv.runner.step, srv.runner.device))
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=n_req) as pool:
+            got = list(pool.map(srv.submit, reqs))
+        wall = time.perf_counter() - t0
+        err3 = max(_served_err(g, r) for g, r in zip(got, ref3))
+        if err3 > gate:
+            fail("served step 3 differs from its block by %g" % err3)
+        block6.save_checkpoint(root, step=6)
+
+        # the swap under load: clients keep 32 requests in flight
+        stop = threading.Event()
+        done = []            # (request index, submitted at, answer)
+        errors = []
+
+        def client(k):
+            i = k
+            while not stop.is_set():
+                t_sub = time.perf_counter()
+                try:
+                    ans = srv.submit(reqs[i % n_req])
+                except Exception as exc:          # counted, then failed
+                    errors.append(repr(exc))
+                    return
+                done.append((i % n_req, t_sub, time.perf_counter(), ans))
+                i += n_req
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(n_req)]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        swapped = srv.swap(step=6)
+        t1 = time.perf_counter()
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join()
+        if errors:
+            fail("requests failed during the swap: %s" % errors[:3])
+        if swapped != 6 or srv.runner.step != 6:
+            fail("swap published step %s" % swapped)
+        old = new = 0
+        for i, t_sub, t_done, ans in done:
+            e3, e6 = _served_err(ans, ref3[i]), _served_err(ans, ref6[i])
+            if min(e3, e6) > gate:
+                fail("answer %d matches neither step (%g / %g)"
+                     % (i, e3, e6))
+            if t_sub > t1 and e6 > gate:
+                fail("a request submitted after swap() returned was "
+                     "served by step 3 (%g off step 6)" % e6)
+            old += e3 <= gate
+            new += e6 <= gate and e3 > gate
+        during = [d for d in done if t0 <= d[2] <= t1]
+        with ThreadPoolExecutor(max_workers=n_req) as pool:
+            after = list(pool.map(srv.submit, reqs))
+        err6 = max(_served_err(g, r) for g, r in zip(after, ref6))
+        if err6 > gate:
+            fail("served step 6 differs from its block by %g" % err6)
+        batches = int(mx.telemetry.value("serve_batches_total"))
+        swaps = int(mx.telemetry.value("serve_model_swaps_total"))
+        timings = srv.runner.timings
+    finally:
+        srv.shutdown()
+    counts = _flash_counts(fa)
+    warm = 2 * len(conf.batch_sizes)
+    if counts["flash_attention"] != 12 * (batches + warm) or swaps != 1:
+        fail("serving: %d flash launches over %d batches and %d warm-up "
+             "calls, %d swaps" % (counts["flash_attention"], batches, warm,
+                                  swaps))
+    counts["flash_attention"] += ref_launches
+    add("float32", counts)
+    return {"server": "serve.Server(factory, root)", "requests": n_req,
+            "gate": gate, "steps_apart_min": apart,
+            "start_s": start_s, "requests_per_s": n_req / wall,
+            "step3_max_rel_err": err3, "step6_max_rel_err": err6,
+            "swap_s": t1 - t0, "swap_build_s": built[-1],
+            "swap_restore_s": timings["restore_s"],
+            "swap_warm_s": timings["warm_s"],
+            "answers_during_swap": len(during),
+            "requests_per_s_during_swap": len(during) / (t1 - t0),
+            "answers_in_load": len(done), "answers_old": int(old),
+            "answers_new": int(new), "failed": len(errors),
+            "batches": batches}
+
+
+def _fused_resume(torch, mx, fa, bert, cfg, seed, root, add):
+    """The ``train_bf16`` recipe saved asynchronously at step ``save_at``
+    and restored into a fresh ``FusedTrainer``.
+
+    The restored tree must equal the saved state bit for bit, and the
+    resumed step's loss and weights the uninterrupted run's.  The recipe's
+    masked positions are drawn with replacement, so a row can gather one
+    position twice; ``take_along_axis`` sums the two in a fixed order on
+    the card, so two restores give the same bits.  Were they to differ,
+    the resumed weights are held to the spread of the two instead, as the
+    fp32 part does."""
+    from mxnet_tpu_torch import checkpoint as ckpt
+    from mxnet_tpu_torch.checkpoint import layout
+
+    B, T, vocab, L = cfg["bf16_B"], cfg["T"], cfg["vocab"], cfg["layers"]
+    steps, at = cfg["bf16_steps"], cfg["save_at"]
+    M = max(1, int(T * 0.15))
+    s0, s1 = CKPT_SEEDS
+    rng = np.random.default_rng(seed + 3)
+    pos = np.sort(rng.choice(T, (B, M)), axis=1)
+    repeats = int(sum(M - len(np.unique(r)) for r in pos))
+    x = tuple(torch.from_numpy(v).cuda() for v in (
+        rng.integers(0, vocab, (B, T)), rng.integers(0, 2, (B, T)), pos))
+    y = tuple(torch.from_numpy(v).cuda() for v in (
+        rng.integers(0, vocab, (B, M)), rng.integers(0, 2, B)))
+
+    def fused():
+        net = pretrain_step(mx, bert, seed, vocab_size=vocab, max_length=T,
+                            dropout=DROPOUT_P, num_layers=L)
+        return net, mx.parallel.FusedTrainer(
+            net, loss_fn=_pretrain_loss, optimizer="adam",
+            optimizer_params={"learning_rate": 1e-4}, dtype="bfloat16")
+
+    def timed_step(trainer):
+        t0 = time.perf_counter()
+        loss = trainer.step(x, y).item()
+        return loss, (time.perf_counter() - t0) * 1e3
+
+    net, tr = fused()
+    _reset_flash(fa)
+    mx.random.seed(s0)
+    losses, ms = [], []
+    for _ in range(at):
+        l_, t_ = timed_step(tr)
+        losses.append(l_)
+        ms.append(t_)
+    saved = [t.clone() for t in layout.tree_leaves(tr.state_dict())
+             if isinstance(t, torch.Tensor)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fut = tr.save_checkpoint(root, block=False)
+    snapshot_s = time.perf_counter() - t0
+    mx.random.seed(s1)
+    in_flight = []
+    l_, t_ = timed_step(tr)
+    losses.append(l_)
+    in_flight.append(t_)
+    want = [p.detach().clone() for p in net.collect_params().values()]
+    while not fut.done() and len(losses) < steps:
+        l_, t_ = timed_step(tr)
+        losses.append(l_)
+        in_flight.append(t_)
+    t_commit = time.perf_counter()
+    fut.result()
+    wait_s = time.perf_counter() - t_commit
+    after = []
+    while len(losses) < steps:
+        l_, t_ = timed_step(tr)
+        losses.append(l_)
+        after.append(t_)
+    n_steps = len(losses)
+    add("bfloat16", _want_launches(fa, 12, n_steps, "bf16 run"))
+    if not all(np.isfinite(losses)):
+        fail("nonfinite bf16 losses: %s" % losses)
+    del net, tr
+    torch.cuda.empty_cache()
+
+    # the restored tree is the saved state, bit for bit
+    _, tree = ckpt.CheckpointManager(root, recover=False).restore()
+    got_tree = [t for t in layout.tree_leaves(tree)
+                if isinstance(t, torch.Tensor) and t.dim() > 0]
+    if len(got_tree) != len(saved) or not all(
+            torch.equal(a, b) for a, b in zip(got_tree, saved)):
+        fail("the bf16 checkpoint does not hold the saved state")
+    del tree, got_tree, saved
+
+    def resumed():
+        net, tr = fused()
+        t0 = time.perf_counter()
+        step = tr.load_checkpoint(root)
+        mx.random.seed(s1)
+        loss = tr.step(x, y).item()
+        restore_s = time.perf_counter() - t0
+        if step != at or tr._step_count != at + 1:
+            fail("bf16 restore gave step %s" % step)
+        got = [p.detach().clone() for p in net.collect_params().values()]
+        return loss, got, restore_s
+
+    _reset_flash(fa)
+    loss, got, restore_s = resumed()
+    loss2, got2, _ = resumed()
+    add("bfloat16", _want_launches(fa, 12, 2, "bf16 resumed steps"))
+    err_w, bitwise = _spread(torch, got, want)
+    spread_w, spread_bitwise = _spread(torch, got2, got)
+    if loss != losses[at] or loss2 != losses[at]:
+        fail("bf16 resumed loss %r / %r, the uninterrupted run's %r"
+             % (loss, loss2, losses[at]))
+    if spread_bitwise and not bitwise:
+        fail("bf16 resumed weights are not bit-identical: off by %g"
+             % err_w)
+    if not spread_bitwise and err_w > spread_w:
+        fail("bf16 resumed weights off by %g, beyond the spread %g of two "
+             "restores" % (err_w, spread_w))
+    masters = {t.dtype for t in got}
+    if masters != {torch.float32}:
+        fail("restored masters are %s" % masters)
+    stats = _ckpt_stats(root, at)
+    leaves = _restored_leaves_on_card(torch, root)
+    return {"trainer": "parallel.FusedTrainer", "dtype": "bfloat16",
+            "batch": B, "seq_len": T, "steps": n_steps, "saved_at": at,
+            "repeated_masked_positions": repeats,
+            "losses": losses, "resumed_losses": [loss, loss2],
+            "restored_state_bitwise": True,
+            "resumed_loss_bitwise": True,
+            "resumed_weights_bitwise": bitwise,
+            "resumed_weights_max_rel_err": err_w,
+            "two_restores_weights_bitwise": spread_bitwise,
+            "two_restores_weights_max_rel_err": spread_w,
+            "snapshot_s": snapshot_s, "commit_wait_s": wait_s,
+            "step_ms_without_save": ms[1:],
+            "step_ms_median_without_save": float(np.median(ms[1:])),
+            "step_ms_with_save_in_flight": in_flight,
+            "step_ms_median_with_save_in_flight": float(np.median(in_flight)),
+            "step_ms_after_commit": after,
+            "restore_and_step_s": restore_s,
+            "bytes_written": stats["bytes"], "leaves": stats["leaves"],
+            "files": stats["files"],
+            "snapshot_gb_per_s": stats["bytes"] / snapshot_s / 1e9,
+            "restored_leaves_on_card": leaves}
+
+
+def _captured_resume(torch, mx, fa, bert, cfg, seed, root, add):
+    """The ``train_captured`` recipe: an uninterrupted captured run of six
+    steps, and one that diverges after step 3, restores the step-3
+    checkpoint under its live program and takes steps 4-6 again."""
+    B, T, M, vocab, L = (cfg[k] for k in ("B", "T", "M", "vocab", "layers"))
+    s0, s1 = CKPT_SEEDS
+    host = _train_batch(np.random.default_rng(seed + 2), B, T, M, vocab)
+    x = tuple(torch.from_numpy(host[k]).cuda() for k in ("ids", "types",
+                                                          "pos"))
+    y = tuple(torch.from_numpy(host[k]).cuda() for k in ("labels",
+                                                          "weights", "nsp"))
+
+    def loss_fn(out, labels, weights, nsp):
+        return bert.pretraining_loss(out[0], out[1], labels, weights, nsp)
+
+    def captured():
+        net = pretrain_step(mx, bert, seed, vocab_size=vocab, max_length=T,
+                            dropout=DROPOUT_P, num_layers=L)
+        tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                              {"learning_rate": 1e-4})
+        return net, tr, tr.capture(net, loss_fn)
+
+    def run(program, n):
+        return [program(x, y, batch_size=1).item() for _ in range(n)]
+
+    _reset_flash(fa)
+    net, tr, prog = captured()
+    mx.random.seed(s0)
+    la = run(prog, 3)
+    tr.save_checkpoint(root)
+    mx.random.seed(s1)
+    la += run(prog, 3)
+    want = [p.detach().clone() for p in net.collect_params().values()]
+    rep_a = prog.report()
+    counts_a = _flash_counts(fa)
+    del net, tr, prog
+    torch.cuda.empty_cache()
+
+    _reset_flash(fa)
+    net, tr, prog = captured()
+    mx.random.seed(s0)
+    lb = run(prog, 3)
+    mx.random.seed(s0 + 7)          # two steps off the path...
+    run(prog, 2)
+    step = tr.load_checkpoint(root)  # ...then back to step 3
+    mx.random.seed(s1)
+    lb += run(prog, 3)
+    got = [p.detach().clone() for p in net.collect_params().values()]
+    rep_b = prog.report()
+    counts_b = _flash_counts(fa)
+    err_w, bitwise = _spread(torch, got, want)
+    err_l = _loss_spread(lb[3:], la[3:])
+    if step != 3 or err_w > 1e-5 or err_l > 1e-5:
+        fail("captured resume: step %s, losses %s vs %s, weights off by %g"
+             % (step, lb[3:], la[3:], err_w))
+    for rep in (rep_a, rep_b):
+        if rep["fallbacks"]:
+            fail("captured step fell back: %s" % rep["fallbacks"])
+    if rep_b["paths"]["stitched"] or rep_b["paths"]["captured"] != 8:
+        fail("the restored program ran %s" % rep_b["paths"])
+    # run A: one eager warm-up and one capture record 12 launches each;
+    # run B captures again after the restore
+    if counts_a != {n: 24 for n in counts_a} or \
+            counts_b != {n: 48 for n in counts_b}:
+        fail("captured flash launches %s / %s (want 24 / 48 each)"
+             % (counts_a, counts_b))
+    add("float32", counts_a)
+    add("float32", counts_b)
+    leaves = _restored_leaves_on_card(torch, root)
+    return {"trainer": "gluon.Trainer.capture", "losses": la,
+            "losses_resumed": lb, "resume_bitwise": bitwise
+            and lb[3:] == la[3:], "resume_weights_max_rel_err": err_w,
+            "resume_losses_max_rel_err": err_l, "tol": 1e-5,
+            "paths": rep_b["paths"], "launches_uninterrupted": counts_a,
+            "launches_resumed": counts_b,
+            "restored_leaves_on_card": leaves}
+
+
 def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
     """One kernel route's summary from its case: ``bound_key`` None for
     the forward's bound (``bound_ms``), else "dq"/"dkv"; ``errs`` the
@@ -3627,6 +4518,7 @@ def main():
     zoo_launches = phase_vision_zoo(torch, mx, fa, args.seed, smi)
     amp_launches = phase_train_amp_fp16(torch, mx, fa, args.seed, smi,
                                         train_fp32)
+    ckpt_launches = phase_checkpoint_resume(torch, mx, fa, args.seed, smi)
 
     # each route's numbers at its main path's shape, not causal: f32 at
     # (8, 12, 512, 512, 64), the forward as served (no dropout), the
@@ -3640,13 +4532,15 @@ def main():
     route_cases = {"float32": (8, 0.0), "bfloat16": (16, DROPOUT_P),
                    "float16": (8, DROPOUT_P)}
     nd_fwd = nd_launches["flash_attention"]
+    ck_f32, ck_bf16 = ckpt_launches["float32"], ckpt_launches["bfloat16"]
     fwd_launches = {"float32": serve_launches
                     + train_launches["flash_attention"]
                     + captured_launches["flash_attention"]
-                    + nd_fwd["float32"],
+                    + nd_fwd["float32"] + ck_f32["flash_attention"],
                     "bfloat16": bf16_launches["flash_attention"]
                     + nd_fwd["bfloat16"]
-                    + gpt_launches["flash_attention"],
+                    + gpt_launches["flash_attention"]
+                    + ck_bf16["flash_attention"],
                     "float16": amp_launches["flash_attention"]}
     routes = {dname: _kernel_entry(
         "flash_fwd", fwd_launches[dname], case(fwd_cases, B, dname, p),
@@ -3669,14 +4563,17 @@ def main():
         "data_pipeline": data_launches["flash_attention"],
         "train_vision": vision_launches["flash_attention"],
         "vision_zoo": zoo_launches["flash_attention"],
-        "train_amp_fp16": amp_launches["flash_attention"]}
+        "train_amp_fp16": amp_launches["flash_attention"],
+        "checkpoint_resume": ck_f32["flash_attention"]
+        + ck_bf16["flash_attention"]}
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
         nd_k = nd_launches[kname]
         launches = {"float32": train_launches[kname]
-                    + captured_launches[kname] + nd_k["float32"],
+                    + captured_launches[kname] + nd_k["float32"]
+                    + ck_f32[kname],
                     "bfloat16": bf16_launches[kname] + nd_k["bfloat16"]
-                    + gpt_launches[kname],
+                    + gpt_launches[kname] + ck_bf16[kname],
                     "float16": amp_launches[kname]}
         routes = {dname: _kernel_entry(
             kname, launches[dname],
@@ -3699,7 +4596,8 @@ def main():
             "data_pipeline": data_launches[kname],
             "train_vision": vision_launches[kname],
             "vision_zoo": zoo_launches[kname],
-            "train_amp_fp16": amp_launches[kname]}
+            "train_amp_fp16": amp_launches[kname],
+            "checkpoint_resume": ck_f32[kname] + ck_bf16[kname]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

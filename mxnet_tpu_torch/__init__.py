@@ -29,9 +29,12 @@ Ground rules:
   they raise.  A CUDA tensor handed to a kernel wrapper launches the kernel
   or raises; only a CPU tensor takes the kernel's plain PyTorch version.
 """
-from . import (autograd, base, context, contrib, convert, error,  # noqa: F401
-               gluon, initializer, kvstore, monitor, ndarray, ops, optimizer,
-               parallel, random, serve, step, telemetry, trace)
+__version__ = "2.0.0-torch0"
+
+from . import (autograd, base, callback, checkpoint, context,  # noqa: F401
+               contrib, convert, error, gluon, initializer, kvstore,
+               monitor, ndarray, ops, optimizer, parallel, random,
+               resilience, serve, step, telemetry, trace)
 from . import data, image, io, native, recordio  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .ndarray import NDArray, waitall  # noqa: F401

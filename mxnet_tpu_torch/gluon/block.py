@@ -18,7 +18,7 @@ tensors it returns tensors.
 expression (``re.match``), and a parameter assigned under a default name
 (``weight``, ``bias``, ...) takes the attribute's name, as in the JAX
 package.  A parameter held under several names (``share_parameters``)
-is listed once, under its first name (``nn.Module``'s rule).
+is listed under each of them, in the JAX package's order.
 
 Forward hooks take the JAX package's form: ``register_forward_pre_hook(
 hook)`` calls ``hook(block, args)`` and ``register_forward_hook(hook)``
@@ -39,6 +39,8 @@ import torch
 from torch import nn
 
 from .. import autograd
+from ..base import MXNetError
+from ..checkpoint import cached_manager
 from ..ops import registry as _registry
 
 __all__ = ["Block", "HybridBlock"]
@@ -146,9 +148,10 @@ class Block(nn.Module):
         super().__setattr__(name, value)
 
     def collect_params(self, select=None):
-        """Structured-name parameter dict ``{name: Parameter}``; with
+        """Structured-name parameter dict ``{name: Parameter}``, a
+        parameter held under several names listed under each; with
         ``select``, only the names the regular expression matches."""
-        out = OrderedDict(self.named_parameters())
+        out = OrderedDict(self.named_parameters(remove_duplicate=False))
         if select:
             pat = re.compile(select)
             out = OrderedDict((k, v) for k, v in out.items()
@@ -246,6 +249,133 @@ class Block(nn.Module):
         name = name or str(len(self._modules))
         self.add_module(name, block)
         return block
+
+    # ---- persistence ------------------------------------------------------
+    def _initialized_params(self, deduplicate):
+        """{name: param} of the parameters that hold values; with
+        ``deduplicate``, a parameter held under several names appears once,
+        under its first.  The one contract behind ``save_parameters`` and
+        ``save_checkpoint``."""
+        out, seen = OrderedDict(), set()
+        for name, param in self.collect_params().items():
+            if not param._initialized:
+                continue
+            if deduplicate and id(param) in seen:
+                continue
+            seen.add(id(param))
+            out[name] = param
+        return out
+
+    def _param_device(self):
+        """The device of the first parameter that holds values (None if
+        none does): where a restore without ``ctx`` puts the leaves."""
+        for param in self.collect_params().values():
+            if param._initialized:
+                return param.device
+        return None
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Write every parameter that holds values to ``filename`` (the
+        ``nd.save`` npz, by structured name); with ``deduplicate`` a
+        parameter held under several names is written once."""
+        from .. import ndarray as nd
+
+        nd.save(filename, {name: nd.NDArray(p.detach()) for name, p in
+                           self._initialized_params(deduplicate).items()})
+
+    def _apply_loaded(self, loaded, source, ctx, allow_missing,
+                      ignore_extra, require_all):
+        """Copy loaded arrays ({name: tensor, NDArray or array}) into this
+        block's parameters: the one restore loop behind
+        ``load_parameters`` and ``load_checkpoint``.  A
+        parameter held under several names is satisfied by any one of
+        them.  With ``require_all`` every name must be present; else only
+        the parameters that hold values (a checkpoint skips the rest)."""
+        params = self.collect_params()
+        restored = set()
+        for name, param in params.items():
+            if name not in loaded:
+                continue
+            value = loaded[name]
+            if not param._initialized:
+                param.initialize(ctx=ctx)
+            elif ctx is not None:
+                param.reset_ctx(ctx)
+            param.set_data(getattr(value, "_data", value))
+            restored.add(id(param))
+        if not allow_missing:
+            for name, param in params.items():
+                if name in loaded or id(param) in restored:
+                    continue
+                if require_all or param._initialized:
+                    raise MXNetError("Parameter %s missing in %s"
+                                     % (name, source))
+        if not ignore_extra:
+            extra = set(loaded) - set(params)
+            if extra:
+                raise MXNetError("%s has extra parameters: %s"
+                                 % (source, sorted(extra)))
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load a ``save_parameters`` file of either package (npz or the
+        reference's binary ``.params``) into the parameters, each keeping
+        its dtype (``cast_dtype``/``dtype_source`` are accepted and, as in
+        the JAX package, change nothing).  A parameter with no values yet
+        is placed on ``ctx`` (default the current context)."""
+        from .. import ndarray as nd
+        from ..context import cpu
+
+        self._apply_loaded(nd.load(filename, ctx=cpu()),
+                           "file %s" % filename, ctx, allow_missing,
+                           ignore_extra, require_all=True)
+
+    def save_checkpoint(self, root, step=0, **manager_kwargs):
+        """Save the parameters as one ``mx.checkpoint`` step under
+        directory ``root`` (manifest, checksums, ``COMMITTED`` marker); a
+        parameter held under several names is written once.  Returns the
+        committed directory."""
+        params = dict(self._initialized_params(deduplicate=True))
+        if self.collect_params() and not params:
+            raise MXNetError(
+                "save_checkpoint: no parameter is initialized yet -- a "
+                "zero-leaf checkpoint would restore nothing; run a "
+                "forward pass (or pass static shapes) first")
+        mgr = cached_manager(self, root, **manager_kwargs)
+        return mgr.save(step, params)
+
+    def load_checkpoint(self, root, step=None, ctx=None,
+                        allow_missing=False, ignore_extra=False):
+        """Restore the parameters from a ``save_checkpoint`` directory of
+        either package (default: the latest committed step).  The leaves
+        are read onto ``ctx``, else the parameters' device, else the
+        current context.  Returns the restored step."""
+        mgr = cached_manager(self, root)
+        where = ctx if ctx is not None else self._param_device()
+        step, loaded = mgr.restore(step=step, ctx=where)
+        if self.collect_params() and not loaded:
+            raise MXNetError(
+                "load_checkpoint: step %d of %s contains no parameters "
+                "-- restoring it would silently keep the random init"
+                % (step, root))
+        # require_all=False: save_checkpoint skips parameters without
+        # values, so one without values on both sides is not an error
+        self._apply_loaded(loaded, "checkpoint %s" % root, ctx,
+                           allow_missing, ignore_extra, require_all=False)
+        return step
+
+    def load_dict(self, param_dict, ctx=None, allow_missing=False,
+                  ignore_extra=False):
+        """Copy ``param_dict`` ({name: tensor, NDArray or array}) into the
+        parameters of the same names; as in the JAX package, a name left
+        over is ignored."""
+        for name, param in self.collect_params().items():
+            if name in param_dict:
+                value = param_dict[name]
+                param.set_data(getattr(value, "_data", value))
+            elif not allow_missing:
+                raise MXNetError("Parameter %s missing" % name)
 
 
 class HybridBlock(Block):

@@ -16,12 +16,22 @@ backward writes a fresh one (``'add'`` keeps it).
 ``capture(block, loss_fn)`` returns an ``mx.step`` ``StepProgram``: the
 whole training step as one CUDA graph on the card.
 
+Persistence, in the JAX package's formats: ``save_states``/``load_states``
+pickle the optimizer state by parameter index, and ``save_checkpoint``/
+``load_checkpoint`` write one ``mx.checkpoint`` step holding the
+parameters, the optimizer state and update counts (keyed by parameter
+name), the step counter and, after ``attach_loader``, the data cursor.  A
+restore copies the parameters in place, rebuilds the state, drops the
+grouped-apply groups and invalidates every captured step (its graph holds
+the state it was captured over); the next step captures anew.  The state
+tree carries no RNG state, as in the JAX package.
+
 Not ported yet (they raise): ZeRO sharding (``zero=``, ``mesh=``),
-distributed kvstores, ``update_on_kvstore`` and the optimizer checkpoints
-(``save_states``/``load_states``, with ``checkpoint/``).
+distributed kvstores and ``update_on_kvstore``.
 """
 from __future__ import annotations
 
+import pickle
 import weakref
 
 import torch
@@ -29,6 +39,7 @@ import torch
 from .. import optimizer as opt_mod
 from .. import trace
 from ..base import MXNetError
+from ..checkpoint import cached_manager
 from ..optimizer import multi_tensor as _mt
 
 __all__ = ["Trainer"]
@@ -76,6 +87,8 @@ class Trainer:
         self._step_count = 0
         self._mt_groups = {}      # group key -> multi_tensor._Group
         self._step_programs = []  # weakrefs to mx.step StepPrograms
+        self._data_loader = None         # weakref to a StreamLoader
+        self._pending_data_state = None  # cursor restored before attach
 
     # ---- properties ---------------------------------------------------------
     @property
@@ -173,8 +186,135 @@ class Trainer:
         self._optimizer.update_multi_precision(i, param, grad,
                                                self._states[i])
 
+    # ---- persistence ------------------------------------------------------
+    def _restored(self):
+        """After the optimizer state is replaced: the groups and every
+        captured step close over the old state tensors."""
+        self._mt_groups.clear()
+        self._invalidate_step_programs()
+
     def save_states(self, fname):
-        raise _not_ported("save_states (optimizer checkpoints)")
+        """Pickle the optimizer state ({parameter index: numpy state}), the
+        JAX package's file: either package loads the other's."""
+        from ..optimizer.optimizer import _state_np
+
+        with open(fname, "wb") as f:
+            pickle.dump({k: _state_np(v) for k, v in self._states.items()},
+                        f)
 
     def load_states(self, fname):
-        raise _not_ported("load_states (optimizer checkpoints)")
+        """Load a ``save_states`` file of either package; each state goes
+        to its parameter's device.  As in the JAX package the update
+        counts are not in the file."""
+        from ..optimizer.optimizer import _state_tensor
+
+        with open(fname, "rb") as f:
+            states = pickle.load(f)
+        self._states = {k: _state_tensor(v, self._params[k].device)
+                        for k, v in states.items()}
+        self._restored()
+
+    # ---- mx.data integration -----------------------------------------------
+    def attach_loader(self, loader):
+        """Attach an ``mx.data.StreamLoader``: its cursor (epoch, batch,
+        seed) rides ``state_dict()`` into every checkpoint, so a restore
+        resumes the exact remaining sample order.  Attach before the first
+        save or restore; a cursor restored before the loader was attached
+        is applied here."""
+        self._data_loader = None if loader is None \
+            else weakref.ref(loader)
+        if loader is not None and self._pending_data_state is not None:
+            loader.load_state_dict(self._pending_data_state)
+            self._pending_data_state = None
+        return loader
+
+    def _attached_loader(self):
+        ref = self._data_loader
+        return ref() if ref is not None else None
+
+    # ---- mx.checkpoint integration -----------------------------------------
+    def state_dict(self):
+        """The whole training state as one checkpointable tree:
+        ``{"params", "states", "updates": {"num_update", "counts"},
+        "step"}`` (and ``"data"``, the attached loader's cursor).  States
+        and counts are keyed by parameter name, not index, so a restoring
+        trainer that lists its parameters in another order attaches each
+        moment to the right weight."""
+        opt = self._optimizer
+        names = [str(n) for n in self._param_names]
+        tree = {"params": {names[i]: p.detach()
+                           for i, p in enumerate(self._params)
+                           if p._initialized},
+                "states": {names[i]: s for i, s in self._states.items()},
+                "updates": {"num_update": int(opt.num_update),
+                            "counts": {names[i]: int(c) for i, c in
+                                       opt._index_update_count.items()
+                                       if i < len(names)}},
+                "step": self._step_count}
+        loader = self._attached_loader()
+        if loader is not None:
+            tree["data"] = loader.state_dict()
+        return tree
+
+    def save_checkpoint(self, root, step=None, **manager_kwargs):
+        """Save ``state_dict()`` as one atomic ``mx.checkpoint`` step under
+        ``root`` (default tag: the trainer's update count); ``max_keep``,
+        ``keep_every``, ... configure the manager.  Returns the committed
+        directory."""
+        tree = self.state_dict()
+        step = self._step_count if step is None else int(step)
+        mgr = cached_manager(self, root, **manager_kwargs)
+        return mgr.save(step, tree)
+
+    def load_checkpoint(self, root, step=None):
+        """Restore a ``save_checkpoint`` step of either package (default:
+        the latest) onto the parameters' device.  Returns the step."""
+        mgr = cached_manager(self, root)
+        device = self._params[0].device if self._params else None
+        step, tree = mgr.restore(step=step, ctx=device)
+        try:
+            self.load_state_dict(tree)
+        except MXNetError as exc:
+            raise MXNetError("checkpoint at %s step %d: %s"
+                             % (root, step, exc)) from exc
+        return step
+
+    def load_state_dict(self, tree):
+        """Apply a ``state_dict`` tree (leaves tensors, NDArrays or numpy
+        arrays).  Parameters are copied into in place."""
+        from ..optimizer.optimizer import _state_tensor
+
+        loaded = tree["params"]
+        for n, param in zip(self._param_names, self._params):
+            key = str(n)
+            if key in loaded:
+                param.set_data(getattr(loaded[key], "_data", loaded[key]))
+            elif param._initialized:
+                raise MXNetError(
+                    "checkpoint state is missing parameter %r" % (key,))
+        index_of = {str(n): i for i, n in enumerate(self._param_names)}
+        unknown = [k for k in tree["states"] if k not in index_of]
+        if unknown:
+            raise MXNetError(
+                "checkpoint state has optimizer state for unknown "
+                "parameter(s) %s -- the model structure changed"
+                % (sorted(unknown),))
+        self._states = {
+            index_of[k]: _state_tensor(v, self._params[index_of[k]].device)
+            for k, v in tree["states"].items()}
+        updates = tree.get("updates")
+        if updates is not None:
+            self._optimizer.num_update = int(updates["num_update"])
+            self._optimizer._index_update_count = {
+                index_of[k]: int(v)
+                for k, v in updates["counts"].items() if k in index_of}
+        self._restored()
+        self._step_count = int(tree["step"])
+        data = tree.get("data")
+        if data is not None:
+            data = {k: int(v) for k, v in data.items()}
+            loader = self._attached_loader()
+            if loader is not None:
+                loader.load_state_dict(data)
+            else:
+                self._pending_data_state = data

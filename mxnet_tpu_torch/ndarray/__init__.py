@@ -7,13 +7,11 @@ every call flows through ``ops.registry.invoke``.  Arrays are made on
 ``ctx`` (default the current context: the card, or the CPU inside ``with
 mx.cpu():``).  Types follow the JAX package: float64 data becomes float32
 and int64 data int32.  ``save``/``load`` use the JAX package's ``npz``
-layout, so a file written by one package loads in the other.
+layout or the reference's binary format, so a file written by one
+package loads in the other.
 """
 # pylint: disable=redefined-builtin
 from __future__ import annotations
-
-import os
-import tempfile
 
 import numpy as _np
 import torch
@@ -135,52 +133,75 @@ def moveaxis(a, source, destination):
     return apply_op(lambda x: torch.movedim(x, source, destination), a)
 
 
-# ---- serialization: the JAX package's npz layout --------------------------
+# ---- serialization: the JAX package's npz layout, or the reference's -----
+
+
+def _host(v):
+    """(numpy, manifest dtype) of an NDArray: a bf16 one as its uint16
+    bits, written with the ``<V2`` header ``ml_dtypes.bfloat16`` has."""
+    from ..checkpoint import layout
+
+    return layout.snapshot_leaf(v), layout.dtype_name(v)
 
 
 def save(fname, data, format="npz"):
-    """Save an NDArray, a list or a dict of NDArrays as ``.npz``: a single
-    array under ``__mx_single__``, a list under ``__mx_list_<i>__``, a
-    dict under its keys.  The file is written beside ``fname`` and moved
-    into place, so a crash never leaves a truncated ``fname``."""
+    """Save an NDArray, a list or a dict of NDArrays.
+
+    ``format='npz'`` (default) writes the JAX package's ``.npz``: a single
+    array under ``__mx_single__``, a list under ``__mx_list_<i>__``, a dict
+    under its keys.  ``format='reference'`` writes the incumbent's binary
+    NDArray-list format (``legacy_io``).  Either way the file is written
+    beside ``fname`` and moved into place (``checkpoint.layout
+    .atomic_file``), so a crash never leaves a truncated ``fname``."""
+    if format == "reference":
+        from .. import legacy_io
+
+        return legacy_io.save(fname, data)
     if format != "npz":
-        raise MXNetError("save: format %r is not ported (have npz)"
+        raise MXNetError("save: unknown format %r (npz or reference)"
                          % (format,))
     if isinstance(data, NDArray):
-        payload = {"__mx_single__": data.asnumpy()}
+        items = {"__mx_single__": data}
     elif isinstance(data, dict):
-        payload = {k: v.asnumpy() for k, v in data.items()}
+        items = dict(data)
     elif isinstance(data, (list, tuple)):
-        payload = {"__mx_list_%d__" % i: v.asnumpy()
-                   for i, v in enumerate(data)}
+        items = {"__mx_list_%d__" % i: v for i, v in enumerate(data)}
     else:
         raise MXNetError("save: unsupported data type %r" % type(data))
-    fname = os.fspath(fname)
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(fname)),
-                               suffix=".tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            _np.savez(f, **payload)
-        os.replace(tmp, fname)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
+    from ..checkpoint import layout
+
+    payload, dtypes = {}, {}
+    for k, v in items.items():
+        payload[k], dtypes[k] = _host(v)
+    layout.atomic_file(fname, lambda f: layout.write_npz(f, payload, dtypes))
+
+
+def _from_npz(arr, ctx):
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:   # bfloat16
+        arr = torch.from_numpy(arr.view(_np.int16)).view(torch.bfloat16)
+    return array(arr, ctx=ctx)
 
 
 def load(fname, ctx=None):
-    """Load what ``save`` wrote (by either package): an NDArray, a list or
-    a dict of NDArrays on ``ctx``."""
+    """Load what ``save`` wrote (by either package, in either format,
+    told apart by the reference's magic number): an NDArray, a list or a
+    dict of NDArrays on ``ctx``."""
+    from .. import legacy_io
+
+    with open(fname, "rb") as f:
+        head = f.read(8)
+    if legacy_io.is_reference_format(head):
+        return legacy_io.load(fname, ctx=ctx)
     with _np.load(fname, allow_pickle=False) as npz:
         keys = list(npz.keys())
         if keys == ["__mx_single__"]:
-            return array(npz["__mx_single__"], ctx=ctx)
+            return _from_npz(npz["__mx_single__"], ctx)
         if keys and all(k.startswith("__mx_list_") for k in keys):
             out = [None] * len(keys)
             for k in keys:
-                out[int(k[len("__mx_list_"):-2])] = array(npz[k], ctx=ctx)
+                out[int(k[len("__mx_list_"):-2])] = _from_npz(npz[k], ctx)
             return out
-        return {k: array(npz[k], ctx=ctx) for k in keys}
+        return {k: _from_npz(npz[k], ctx) for k in keys}
 
 
 from . import contrib  # noqa: E402  (mx.nd.contrib)

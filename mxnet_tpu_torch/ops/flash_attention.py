@@ -44,6 +44,7 @@ int seed is copied to the card first.  The plain versions take either.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -59,6 +60,9 @@ __all__ = ["flash_attention", "flash_attention_lse",
 _NEG_INF = -1e30
 DEFAULT_BLOCKWISE_K = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the launch counts are read across threads (a server's scheduler and a
+# hot swap's warm-up launch at once): each increment under one lock
+_COUNT = threading.Lock()
 
 # ---- the dropout mask (the hash of csrc/flash_common.cuh) -----------------
 _MASK32 = 0xFFFFFFFF
@@ -362,7 +366,8 @@ def _flash_forward(q, k, v, causal, scale, dropout_p, seed):
             lse.data_ptr(), B * H, Tq, Tk, q.shape[-1],
             ctypes.c_float(scale), int(causal), _DTYPE_CODE[q.dtype], *drop,
             q.device.index or 0, stream)
-    flash_attention.launches += 1
+    with _COUNT:
+        flash_attention.launches += 1
     return _unpad(out, D), lse
 
 
@@ -404,7 +409,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, scale=None,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B * H, Tq, Tk,
             q.shape[-1], ctypes.c_float(scale), int(causal),
             _DTYPE_CODE[q.dtype], *drop, q.device.index or 0, stream)
-    flash_bwd_dq.launches += 1
+    with _COUNT:
+        flash_bwd_dq.launches += 1
     return _unpad(dq, D)
 
 
@@ -436,7 +442,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B * H, Tq, Tk, q.shape[-1], ctypes.c_float(scale), int(causal),
             _DTYPE_CODE[q.dtype], *drop, q.device.index or 0, stream)
-    flash_bwd_dkv.launches += 1
+    with _COUNT:
+        flash_bwd_dkv.launches += 1
     return _unpad(dk, D), _unpad(dv, D)
 
 

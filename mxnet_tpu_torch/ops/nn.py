@@ -154,8 +154,58 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     return out * gamma.reshape(shape) + beta.reshape(shape)
 
 
+# a table of at most this many rows (token types, segment ids) takes its
+# gradient as one matrix product with the one-hot indices: its runs of
+# one row are long, and ``index_put_`` sums a run serially in one warp
+_SMALL_TABLE = 64
+
+
+def _sum_type(dtype):
+    """The type ``index_put_`` sums in: float32 for a 16-bit gradient,
+    whose ``index_put_`` rounds after every add of a run."""
+    return torch.float32 if dtype in (torch.float16, torch.bfloat16) \
+        else dtype
+
+
+class _Embedding(torch.autograd.Function):
+    """``F.embedding`` whose weight gradient sums each row's repeats in a
+    fixed order, so a step gives the same bits run to run, as the JAX
+    package's does: ``index_put_`` with ``accumulate=True`` (indices
+    sorted, one pass over each row's run), or for a small table one
+    matrix product with the one-hot indices.  PyTorch's own backward on
+    the card reduces a long run of one row (BERT's 2-row token-type table
+    takes B*T/2 repeats a row) in pieces added in no fixed order.  On the
+    card only: on the CPU PyTorch's own backward is the fixed-order one,
+    and ``index_put_`` adds from several threads.  A 16-bit gradient is
+    summed in float32 (float64 for the one-hot product) and rounded once,
+    as PyTorch's own backward sums it."""
+
+    @staticmethod
+    def forward(ctx, indices, weight):
+        ctx.save_for_backward(indices)
+        ctx.rows = weight.shape[0]
+        return F.embedding(indices, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        indices, = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1])
+        if ctx.rows <= _SMALL_TABLE:
+            # in float64: no TF32 or 16-bit reduction whatever the matmul
+            # settings, one rounding to the gradient's dtype at the end
+            hot = F.one_hot(indices.reshape(-1), ctx.rows).double()
+            return None, (hot.t() @ g.double()).to(g.dtype)
+        out = g.new_zeros((ctx.rows, g.shape[-1]), dtype=_sum_type(g.dtype))
+        out.index_put_((indices.reshape(-1),), g.to(out.dtype),
+                       accumulate=True)
+        return None, out.to(g.dtype)
+
+
 def embedding(indices, weight):
-    return F.embedding(indices.long(), weight)
+    indices = indices.long()
+    if weight.is_cuda and weight.requires_grad and torch.is_grad_enabled():
+        return _Embedding.apply(indices, weight)
+    return F.embedding(indices, weight)
 
 
 def dropout(x, p=0.5, generator=None, axes=None):
@@ -208,8 +258,58 @@ def pick(x, index, axis=-1, keepdims=False):
     return out if keepdims else out.squeeze(axis)
 
 
+class _TakeAlongAxis(torch.autograd.Function):
+    """``torch.gather`` whose gradient sums repeated indices in a fixed
+    order (``index_put_`` with ``accumulate=True``) where gather's own
+    backward (``scatter_add_``) adds them atomically on the card: BERT's
+    masked positions, drawn with replacement, repeat within a row.  On
+    the card only, as ``_Embedding``.  Indices broadcast over every dim
+    after ``axis`` (an ``expand``, as BERT's gather of whole positions)
+    sum whole rows, one index a row; others one index an element."""
+
+    @staticmethod
+    def forward(ctx, x, indices, axis):
+        ctx.save_for_backward(indices)
+        ctx.shape, ctx.axis = x.shape, axis
+        return torch.gather(x, axis, indices)
+
+    @staticmethod
+    def backward(ctx, grad):
+        indices, = ctx.saved_tensors
+        shape = ctx.shape
+        axis = ctx.axis % len(shape)
+        out = grad.new_zeros(shape, dtype=_sum_type(grad.dtype))
+        rows = axis < len(shape) - 1 and all(
+            indices.stride(d) == 0 for d in range(axis + 1, len(shape))) \
+            and all(indices.shape[d] == shape[d]
+                    for d in range(len(shape)) if d != axis)
+        if rows:
+            lead, n = math.prod(shape[:axis]), shape[axis]
+            first = indices[(Ellipsis,) + (0,) * (len(shape) - 1 - axis)]
+            at = torch.arange(lead, device=grad.device).view(-1, 1) * n \
+                + first.reshape(lead, -1)
+            out.view(lead * n, -1).index_put_(
+                (at.reshape(-1),),
+                grad.reshape(at.numel(), -1).to(out.dtype), accumulate=True)
+            return out.to(grad.dtype), None, None
+        where = []
+        for d, n in enumerate(indices.shape):
+            if d == axis:
+                where.append(indices)
+            else:
+                view = [1] * indices.dim()
+                view[d] = n
+                where.append(torch.arange(n, device=grad.device).view(view)
+                             .expand(indices.shape))
+        out.index_put_(tuple(where), grad.to(out.dtype), accumulate=True)
+        return out.to(grad.dtype), None, None
+
+
 def take_along_axis(x, indices, axis):
-    return torch.gather(x, axis, indices.long())
+    indices = indices.long()
+    if x.is_cuda and x.requires_grad and torch.is_grad_enabled():
+        return _TakeAlongAxis.apply(x, indices, axis)
+    return torch.gather(x, axis, indices)
 
 
 def multi_head_attention(q, k, v, num_heads=1, mask=None, scale=None,

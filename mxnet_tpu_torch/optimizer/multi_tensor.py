@@ -219,13 +219,20 @@ def partition(trainer, items):
     """Split ``[(index, param, grad)]`` into groups and eager leftovers.
     Returns ``(groups, eager)``: ``groups`` maps group key -> members
     (insertion-ordered, ascending parameter index), ``eager`` is
-    ``[(i, param, grad, reason)]``."""
+    ``[(i, param, grad, reason)]``.
+
+    A parameter listed under several names (``share_parameters``) takes
+    one update for each listing, in index order, as the JAX Trainer's
+    loop gives it.  No group holds one tensor twice: a parameter's k-th
+    listing goes to a group of the k-th round, and every round's groups
+    run after the earlier rounds', so one multi-tensor launch never
+    updates a buffer from two list entries at once."""
     opt = trainer._optimizer
     if not get_env("MXNET_MULTI_TENSOR", bool, True):
         return {}, [(i, p, g, "disabled") for i, p, g in items]
     if not is_fusable(opt):
         return {}, [(i, p, g, "optimizer") for i, p, g in items]
-    groups, eager = {}, []
+    rounds, eager, listed = [], [], {}
     for i, param, grad in items:
         if _sparse(grad):
             eager.append((i, param, grad, "row_sparse"))
@@ -233,8 +240,17 @@ def partition(trainer, items):
         if _sparse(param):
             eager.append((i, param, grad, "stype"))
             continue
-        groups.setdefault(_group_key(trainer, i, param, grad),
-                          []).append((i, param, grad))
+        k = listed.get(id(param), 0)
+        listed[id(param)] = k + 1
+        if k == len(rounds):
+            rounds.append({})
+        key = _group_key(trainer, i, param, grad)
+        if k:
+            key = key[:-1] + ("listing %d" % (k + 1), key[-1])
+        rounds[k].setdefault(key, []).append((i, param, grad))
+    groups = {}
+    for r in rounds:
+        groups.update(r)
     return groups, eager
 
 

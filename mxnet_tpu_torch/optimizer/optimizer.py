@@ -825,24 +825,34 @@ class Updater:
 
 
 def _state_np(state):
+    """An optimizer state (a tensor, a tuple of them, or None) as numpy,
+    copied: the pickled form both packages read."""
+    from ..ndarray.ndarray import _to_numpy
+
     if state is None:
         return None
     if isinstance(state, torch.Tensor):
-        return state.detach().cpu().numpy()
+        return _to_numpy(state)
     if isinstance(state, tuple):
         return tuple(_state_np(s) for s in state)
     return state
 
 
-def _state_tensor(state):
+def _state_tensor(state, device=None):
+    """The inverse of ``_state_np``: numpy (or restored tensor) leaves as
+    tensors on ``device`` (default: where they are, numpy on the CPU)."""
     import numpy as np
 
     if state is None:
         return None
     if isinstance(state, np.ndarray):
-        return torch.from_numpy(state)
-    if isinstance(state, tuple):
-        return tuple(_state_tensor(s) for s in state)
+        state = torch.from_numpy(np.require(state, requirements="C"))
+    if isinstance(state, torch.Tensor):
+        return state if device is None else state.to(device)
+    if hasattr(state, "_data"):                      # an NDArray
+        return _state_tensor(state._data, device)
+    if isinstance(state, (tuple, list)):
+        return tuple(_state_tensor(s, device) for s in state)
     return state
 
 

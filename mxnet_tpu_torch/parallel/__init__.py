@@ -29,17 +29,30 @@ with parameters of deferred shape is probed once with the first batch,
 outside autograd and in predict mode, before the optimizer state is
 built.
 
+``state_dict()`` is the JAX package's tree, ``{"params": {name: tensor},
+"opt_state": {name: state}, "step": uint32}``, each trainable parameter's
+state by its name: ``(mean, var)`` for adam, adamw and lamb, the momentum
+for sgd and nag (nothing without momentum).  ``save_checkpoint`` writes it
+as one ``mx.checkpoint`` step (``block=False`` returns a ``SaveFuture``
+once the snapshot is taken) and ``load_checkpoint`` restores a step of
+either package.  A parameter held under several names is trained once,
+under its first name.
+
 Not ported (they raise): ``mesh=`` and ``zero=`` (multi-device training),
-``save_checkpoint``/``load_checkpoint``, ``PipelineTrainer`` and
-``moe_apply``.  The JAX package's fault-injection site in ``step`` is
-dropped with the rest of ``resilience``.
+``PipelineTrainer`` and ``moe_apply``.  The JAX package's fault-injection
+site in ``step`` waits with the rest of ``resilience`` (``ROADMAP.md``
+Queue 1 item 8).
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+
+import numpy as np
 import torch
 
 from .. import autograd
 from ..base import MXNetError
+from ..checkpoint import cached_manager
 from ..contrib.amp import keeps_fp32
 from ..ops import registry as _registry
 from .optim import make_optimizer
@@ -105,7 +118,10 @@ class FusedTrainer:
         if any(p._needs_shape() for p in block.collect_params().values()):
             with autograd.pause():
                 block(*xs)
-        named = block.collect_params()
+        named = OrderedDict()
+        for n, p in block.collect_params().items():
+            if all(p is not q for q in named.values()):
+                named[n] = p       # a shared parameter once, first name
         self._named = named
         self._trainable = [n for n, p in named.items()
                            if p.grad_req != "null"]
@@ -220,19 +236,41 @@ class FusedTrainer:
             return None
         return {n: p.detach() for n, p in self._named.items()}
 
+    # the port's list-of-tensors state (``parallel.optim``) against the JAX
+    # package's {name: state}: these keys, in this order, per name
+    _STATE_KEYS = (("mean", "var"), ("mom",))
+
+    def _state_by_name(self):
+        for keys in self._STATE_KEYS:
+            if keys[0] in self._opt_state:
+                if len(keys) == 1:
+                    return {n: t for n, t in zip(self._trainable,
+                                                 self._opt_state[keys[0]])}
+                return {n: tuple(self._opt_state[k][i] for k in keys)
+                        for i, n in enumerate(self._trainable)}
+        return {}
+
     def state_dict(self):
-        """Parameters, optimizer state and step count, copied in memory
-        (None before the first step)."""
+        """The whole training state, the JAX package's tree (``params``,
+        ``opt_state`` by parameter name, ``step`` as uint32), copied in
+        memory; None before the first step."""
         if self._named is None:
             return None
+
+        def copy(v):
+            if isinstance(v, tuple):
+                return tuple(t.detach().clone() for t in v)
+            return v.detach().clone()
+
         return {"params": {n: p.detach().clone()
                            for n, p in self._named.items()},
-                "opt_state": {k: [t.clone() for t in v]
-                              for k, v in self._opt_state.items()},
-                "step": self._step_count}
+                "opt_state": {n: copy(v)
+                              for n, v in self._state_by_name().items()},
+                "step": np.uint32(self._step_count)}
 
     def load_state_dict(self, state):
-        """Restore a ``state_dict``.  Before the first step the state is
+        """Restore a ``state_dict`` (of either package: leaves tensors,
+        NDArrays or numpy arrays).  Before the first step the state is
         kept and applied once the trainer is set up, so the set-up's fresh
         optimizer state does not overwrite it."""
         if self._named is None:
@@ -241,20 +279,60 @@ class FusedTrainer:
         self._apply_state(state)
 
     def _apply_state(self, state):
+        def value(v):
+            v = getattr(v, "_data", v)
+            return torch.as_tensor(np.asarray(v)) \
+                if not isinstance(v, torch.Tensor) else v
+
+        names = set(self._named)
+        extra = sorted(set(state["params"]) - names)
+        missing = sorted(set(self._trainable) - set(state["opt_state"]))
+        if extra or missing:
+            raise MXNetError(
+                "FusedTrainer state does not fit this block: unknown "
+                "parameters %s, no optimizer state for %s" % (extra,
+                                                              missing))
+        by_name = self._state_by_name()
         with torch.no_grad():
             for n, v in state["params"].items():
-                self._named[n].copy_(v)
-            for k, ts in state["opt_state"].items():
-                for dst, src in zip(self._opt_state[k], ts):
-                    dst.copy_(src)
-        self._step_count = int(state["step"])
+                self._named[n].copy_(value(v))
+            for n, dst in by_name.items():
+                src = state["opt_state"][n]
+                if isinstance(dst, tuple):
+                    for d, t in zip(dst, src):
+                        d.copy_(value(t))
+                else:
+                    dst.copy_(value(src))
+        self._step_count = int(value(state["step"]))
 
     def save_checkpoint(self, root, step=None, block=True, manager=None,
                         **manager_kwargs):
-        raise _not_ported("FusedTrainer.save_checkpoint (mx.checkpoint)")
+        """Save the training state (``state_dict()``'s tree, not copied
+        first: the snapshot is the copy) as one ``mx.checkpoint`` step.
+        ``block=False`` returns a ``SaveFuture`` once the device->host
+        snapshot is taken, while the background writer commits; the next
+        step cannot reach the snapshot's bytes.  ``manager`` shares one
+        ``CheckpointManager``; otherwise one is cached per root."""
+        if self._named is None:
+            raise MXNetError(
+                "save_checkpoint before the first step: the trainer has "
+                "no state yet")
+        tree = {"params": dict(self._named),
+                "opt_state": self._state_by_name(),
+                "step": np.uint32(self._step_count)}
+        mgr = manager or cached_manager(self, root, **manager_kwargs)
+        step = self._step_count if step is None else int(step)
+        fut = mgr.save_async(step, tree)
+        return fut.result() if block else fut
 
     def load_checkpoint(self, root, step=None, manager=None):
-        raise _not_ported("FusedTrainer.load_checkpoint (mx.checkpoint)")
+        """Restore a ``save_checkpoint`` step of either package (default:
+        the latest) onto the block's device.  Before the first step the
+        state is applied at set-up.  Returns the restored step."""
+        mgr = manager or cached_manager(self, root)
+        step, state = mgr.restore(step=step, ctx=self._device())
+        self.load_state_dict(state)
+        return step
 
 
 def _pop_lr_schedule(optimizer_params):

@@ -1,0 +1,226 @@
+"""Deterministic fault injection: the drill half of ``mx.resilience``.
+
+Counterpart of ``mxnet_tpu/resilience/inject.py``.  A *fault plan* is a
+list of ``(site, key)`` entries, armed through the ``MXNET_FAULTS``
+environment variable or ``plan()``; code calls ``fire(site, seq=...)`` at
+its named injection sites, and a fault fires iff the plan holds a live
+entry for that (site, sequence) pair, so every drill replays the same way.
+An empty plan costs one attribute read a site.
+
+Plan grammar (comma-separated entries)::
+
+    MXNET_FAULTS="site@key[:kind][*count]"
+
+    checkpoint_commit@0:io      first commit attempt raises OSError
+                                (the manager's retry loop recovers)
+    checkpoint_marker@0:abort   hard-kill (os._exit) right before the
+                                COMMITTED marker -> torn checkpoint
+    checkpoint_commit@*:io*2    the first two commit attempts fail
+
+Kinds: ``transient`` (default, ``InjectedFault``), ``io``
+(``InjectedIOError``, an ``OSError``, so retry-with-backoff paths engage),
+``fatal`` (``InjectedFault`` of kind ``fatal``) and ``abort``
+(``os._exit``: cleanup handlers never run, as on a preempted node).
+
+The sites wired in the port are the checkpoint writer's:
+``checkpoint_commit`` at the entry of each commit attempt and
+``checkpoint_marker`` just before the ``COMMITTED`` marker lands.  The
+other sites of ``SITES`` (trainer step, collectives, serve dispatch and
+poison, compile cache, data reads) are accepted by the grammar and wait
+for their modules (``ROADMAP.md`` Queue 1 item 8).
+
+Every firing counts in ``resilience_faults_injected_total{site}`` and is
+recorded as a trace instant.
+"""
+from __future__ import annotations
+
+import threading
+
+from .. import telemetry, trace
+from ..base import MXNetError, get_env
+
+__all__ = ["InjectedFault", "InjectedIOError", "FaultPlan", "SITES",
+           "KINDS", "plan", "clear", "armed", "refresh_env", "fire",
+           "ABORT_EXIT_CODE"]
+
+# the site names of the JAX package's stack; the port fires the two
+# checkpoint ones (fire() accepts any name)
+SITES = ("trainer_step", "collective", "checkpoint_commit",
+         "checkpoint_marker", "compile_commit", "serve_dispatch",
+         "serve_poison", "serve_cache", "spec_verify", "data_read")
+KINDS = ("transient", "io", "fatal", "abort")
+
+# distinct from any real exit status the drills assert on
+ABORT_EXIT_CODE = 77
+
+
+class InjectedFault(MXNetError):
+    """A planned fault.  ``kind`` is ``transient`` or ``fatal``."""
+
+    def __init__(self, msg, kind="transient", site=None, key=None):
+        super().__init__(msg)
+        self.kind = kind
+        self.site = site
+        self.key = key
+
+
+class InjectedIOError(OSError):
+    """A planned IO fault: an ``OSError``, so retry-with-backoff paths
+    (the checkpoint commit) handle it like a real storage hiccup."""
+
+    def __init__(self, msg, site=None, key=None):
+        super().__init__(msg)
+        self.site = site
+        self.key = key
+
+
+class _Entry:
+    __slots__ = ("site", "key", "kind", "count", "fired")
+
+    def __init__(self, site, key, kind="transient", count=1):
+        if kind not in KINDS:
+            raise MXNetError("unknown fault kind %r (one of %s)"
+                             % (kind, ", ".join(KINDS)))
+        self.site = site
+        self.key = str(key)
+        self.kind = kind
+        self.count = int(count)
+        self.fired = 0
+
+    def matches(self, site, key):
+        if site != self.site or self.fired >= self.count:
+            return False
+        return self.key == "*" or self.key == str(key)
+
+
+class FaultPlan:
+    """A parsed, armed set of fault entries (see the module grammar)."""
+
+    def __init__(self, entries=()):
+        self.entries = list(entries)
+
+    @classmethod
+    def parse(cls, spec):
+        """``"site@key[:kind][*count],..."`` -> FaultPlan.  Whitespace
+        around entries is ignored; an empty spec is an empty plan.  A
+        trailing ``*<digits>`` always parses as the repeat count; the bare
+        wildcard key ``site@*`` matches every key."""
+        entries = []
+        for raw in (spec or "").split(","):
+            raw = raw.strip()
+            if not raw:
+                continue
+            if "@" not in raw:
+                raise MXNetError(
+                    "bad MXNET_FAULTS entry %r: expected "
+                    "site@key[:kind][*count]" % raw)
+            site, _, rest = raw.partition("@")
+            count = 1
+            head, star, tail = rest.rpartition("*")
+            if star and head and tail.isdigit():
+                rest, count = head, int(tail)
+            kind = "transient"
+            if ":" in rest:
+                rest, _, kind = rest.rpartition(":")
+            entries.append(_Entry(site.strip(), rest.strip(), kind,
+                                  count))
+        return cls(entries)
+
+    def take(self, site, key):
+        """Consume and return the first matching entry (or None).  The
+        caller holds the module lock."""
+        for e in self.entries:
+            if e.matches(site, key):
+                e.fired += 1
+                return e
+        return None
+
+
+_LOCK = threading.Lock()
+_PLAN = None          # None = MXNET_FAULTS not read yet
+_SEQ = {}             # per-site call counters (for seq=None sites)
+# read without the lock by fire(): an unarmed process pays one attribute
+# load a site (None = the plan is not loaded yet)
+_ARMED = None
+
+
+def _load_locked():
+    global _PLAN, _ARMED
+    if _PLAN is None:
+        _PLAN = FaultPlan.parse(get_env("MXNET_FAULTS", str, ""))
+        _ARMED = bool(_PLAN.entries)
+    return _PLAN
+
+
+def armed():
+    """Whether any fault is planned."""
+    a = _ARMED
+    if a is None:
+        with _LOCK:
+            a = bool(_load_locked().entries)
+    return a
+
+
+def plan(spec):
+    """Arm a fault plan (a grammar string or a FaultPlan), resetting every
+    site's sequence counter.  Returns the armed plan."""
+    global _PLAN, _ARMED
+    p = spec if isinstance(spec, FaultPlan) else FaultPlan.parse(spec)
+    with _LOCK:
+        _PLAN = p
+        _ARMED = bool(p.entries)
+        _SEQ.clear()
+    return p
+
+
+def clear():
+    """Disarm: no fault fires until ``plan()`` or ``refresh_env()``."""
+    global _PLAN, _ARMED
+    with _LOCK:
+        _PLAN = FaultPlan()
+        _ARMED = False
+        _SEQ.clear()
+
+
+def refresh_env():
+    """Re-read ``MXNET_FAULTS``."""
+    global _PLAN
+    with _LOCK:
+        _PLAN = None
+        _SEQ.clear()
+        return _load_locked()
+
+
+def fire(site, seq=None):
+    """Fire the planned fault for ``(site, seq)``: a no-op unless the
+    armed plan holds a matching live entry.  With ``seq=None`` the site's
+    own call counter is the key (counted only while a plan is armed, so
+    sequences start at ``plan()``).  Each firing counts in
+    ``resilience_faults_injected_total{site}`` and is a trace instant."""
+    if not armed():
+        return
+    with _LOCK:
+        p = _load_locked()
+        if seq is None:
+            seq = _SEQ.get(site, 0)
+            _SEQ[site] = seq + 1
+        entry = p.take(site, seq)
+    if entry is None:
+        return
+    if telemetry.ENABLED:
+        telemetry.RESILIENCE_FAULTS.labels(site=site).inc()
+    trace.instant("fault_injected", cat="resilience",
+                  args={"site": site, "key": str(seq)})
+    msg = ("injected %s fault at site %r (key %s, firing %d/%d)"
+           % (entry.kind, site, entry.key, entry.fired, entry.count))
+    if entry.kind == "abort":
+        import os
+        import sys
+
+        sys.stderr.write("mx.resilience: %s -- hard exit %d\n"
+                         % (msg, ABORT_EXIT_CODE))
+        sys.stderr.flush()
+        os._exit(ABORT_EXIT_CODE)
+    if entry.kind == "io":
+        raise InjectedIOError(msg, site=site, key=entry.key)
+    raise InjectedFault(msg, kind=entry.kind, site=site, key=entry.key)

@@ -6,6 +6,11 @@ shape-related on the serving path:
 - **device**: the block is moved onto ``ctx`` (default ``gpu(0)``; pass
   ``ctx=mx.cpu()`` for the CPU).  Without a card and without a CPU ctx it
   raises.
+- **weights**: with ``root``, the block's parameters are restored from an
+  ``mx.checkpoint`` root of either package (``step``, default the latest
+  committed) through ``block.load_checkpoint`` onto that device.  A runner
+  never changes its model after construction: ``Server.swap`` builds a new
+  runner and publishes it.
 - **bucket table**: the cross product of ``batch_sizes`` and
   ``sample_shapes``.  ``warm_up()`` runs every bucket once before
   readiness, so the first live request pays no first-call cost (kernel
@@ -21,13 +26,14 @@ input's corresponding sample axis.
 """
 from __future__ import annotations
 
+import time
 from threading import RLock
 
 import numpy as _np
 import torch
 
 from .. import telemetry, trace
-from ..context import device_of
+from ..context import Context, device_of
 from ..gluon.block import Block
 from .batching import NoBucketError
 
@@ -70,7 +76,8 @@ class ModelRunner:
     Parameters
     ----------
     block : Block or callable -- the model, or a zero-arg factory.
-    root : checkpoint restore is not ported yet; must be None.
+    root : str or None -- ``mx.checkpoint`` root to restore from.
+    step : int or None -- checkpoint step (default: latest committed).
     ctx : Context or None -- serving device (default ``gpu(0)``).
     batch_sizes : batch buckets (batch dim padding targets).
     sample_shapes : per-request shape buckets; None makes each distinct
@@ -83,10 +90,6 @@ class ModelRunner:
     def __init__(self, block, root=None, step=None, ctx=None,
                  batch_sizes=DEFAULT_BATCH_SIZES, sample_shapes=None,
                  dtype="float32", warm=True, unpad=True):
-        if root is not None or step is not None:
-            raise NotImplementedError(
-                "checkpoint restore (root=/step=) is not ported yet; load "
-                "weights with mxnet_tpu_torch.convert.load_jax_params")
         if not isinstance(block, Block) and callable(block):
             block = block()
         if not isinstance(block, Block):
@@ -94,6 +97,14 @@ class ModelRunner:
                              "factory returning one, got %r" % (block,))
         self._device = device_of(ctx)
         self._block = block.to(self._device)
+        self.root = root
+        self.step = None
+        self.timings = {"restore_s": 0.0, "warm_s": 0.0}
+        if root is not None:
+            t0 = time.perf_counter()
+            self.step = block.load_checkpoint(
+                root, step=step, ctx=Context.from_device(self._device))
+            self.timings["restore_s"] = time.perf_counter() - t0
         self._dtype = dtype
         self._unpad = bool(unpad)
         self._batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))
@@ -103,7 +114,9 @@ class ModelRunner:
         self._warmed = False
         self._run_lock = RLock()  # one forward at a time
         if warm:
+            t0 = time.perf_counter()
             self.warm_up()
+            self.timings["warm_s"] = time.perf_counter() - t0
 
     @property
     def block(self):
@@ -128,6 +141,9 @@ class ModelRunner:
 
     def stats(self):
         return {
+            "step": self.step,
+            "root": self.root,
+            "timings": dict(self.timings),
             "warmed": self._warmed,
             "device": str(self._device),
             "dtype": self._dtype,

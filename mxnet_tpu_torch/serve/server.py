@@ -3,15 +3,19 @@
 Counterpart of ``mxnet_tpu/serve/server.py``: thread-safe ``submit()`` /
 ``submit_async()`` (futures) over one ``BatchQueue`` + ``Scheduler`` and one
 ``ModelRunner``, with graceful drain on ``shutdown()``, per-bucket circuit
-breakers and ``stats()``.
+breakers, ``stats()`` and ``swap()``, the hot swap to another checkpoint
+step: a new runner is built from a fresh block of the factory, restored and
+warmed, then published with one reference assignment; the scheduler reads
+the runner once a batch, so batches in flight finish on the old model and
+every batch dispatched after the swap runs on the new one.
 
 Not ported yet (each is queued in ROADMAP.md): the decode plane
-(``decode=``) and tenancy (``tenant=``), fleet registration, ``swap()``
-from a checkpoint, the HTTP endpoint (``start_http``) and the preemption
-drain hook.
+(``decode=``) and tenancy (``tenant=``), fleet registration, the HTTP
+endpoint (``start_http``) and the preemption drain hook.
 """
 from __future__ import annotations
 
+import threading
 import time
 import weakref
 
@@ -19,7 +23,8 @@ import numpy as _np
 
 from .. import telemetry
 from ..base import get_env
-from .batching import BatchQueue, Request, Scheduler, ServerClosed
+from ..gluon.block import Block
+from .batching import BatchQueue, Request, Scheduler, ServeError, ServerClosed
 from .breaker import BreakerBoard
 from .runner import DEFAULT_BATCH_SIZES, ModelRunner
 
@@ -90,14 +95,22 @@ class ServeConfig:
 class Server:
     """Dynamic-batching inference server over one ModelRunner.
 
-    ``Server(block, ctx=None, config=None)`` builds the runner on ``ctx``
-    (default ``gpu(0)``, which raises where there is no card: pass
-    ``ctx=mx.cpu()`` to serve on the CPU) and warms every bucket;
-    ``runner=`` takes a pre-built runner instead."""
+    ``Server(block, root=None, step=None, ctx=None, config=None)`` (the
+    JAX package's order) builds the runner on ``ctx`` (default ``gpu(0)``,
+    which raises where there is no card: pass ``ctx=mx.cpu()`` to serve on
+    the CPU), restores checkpoint ``step`` of ``root`` when given, and
+    warms every bucket; ``runner=`` takes a pre-built runner instead.
+    ``block`` may be a zero-argument factory, which ``swap()`` needs."""
 
-    def __init__(self, block=None, ctx=None, config=None, runner=None,
-                 root=None, step=None):
+    def __init__(self, block=None, root=None, step=None, ctx=None,
+                 config=None, runner=None):
         self._config = config or ServeConfig()
+        self._ctx = ctx
+        # the factory, not just the instance: swap() builds a fresh block,
+        # since loading new weights into the live one would be seen
+        # mid-load
+        self._block_factory = block if block is not None and \
+            not isinstance(block, Block) and callable(block) else None
         if runner is None:
             if block is None:
                 raise ValueError("Server needs a block (or factory) or a "
@@ -108,6 +121,9 @@ class Server:
                 sample_shapes=self._config.sample_shapes,
                 dtype=self._config.dtype)
         self._runner = runner
+        self._root = root if root is not None \
+            else getattr(runner, "root", None)
+        self._swap_lock = threading.Lock()
         self._breakers = BreakerBoard(
             self._config.breaker_threshold,
             self._config.breaker_cooldown_s) \
@@ -135,6 +151,11 @@ class Server:
     @property
     def runner(self):
         return self._runner
+
+    @property
+    def step(self):
+        """The checkpoint step being served (None without a root)."""
+        return getattr(self._runner, "step", None)
 
     def healthy(self):
         """Liveness: the dispatch loop is running."""
@@ -205,6 +226,37 @@ class Server:
         """Synchronous ``submit_async``: blocks for the result."""
         return self.submit_async(inputs, timeout_ms=timeout_ms,
                                  request_id=request_id).result()
+
+    def swap(self, root=None, step=None, block=None):
+        """Repoint serving at checkpoint ``step`` (default the latest
+        committed) of ``root`` (default the serving root), atomically.
+
+        Builds a new runner from a fresh block (``block``, or the factory
+        the server was built with), restores the step, warms every
+        bucket, then replaces the runner reference under the swap lock.
+        Batches in flight finish on the old model; batches dispatched
+        after the swap run on the new one.  Returns the restored step."""
+        with self._swap_lock:
+            factory = block if block is not None else self._block_factory
+            if factory is None:
+                raise ServeError(
+                    "hot swap needs a fresh block: construct the Server "
+                    "with a block FACTORY (callable), or pass block= "
+                    "here -- reloading params into the live block would "
+                    "not be atomic")
+            root = self._root if root is None else root
+            if root is None:
+                raise ServeError("hot swap needs a checkpoint root")
+            new_runner = ModelRunner(
+                factory, root=root, step=step, ctx=self._ctx,
+                batch_sizes=self._config.batch_sizes,
+                sample_shapes=self._config.sample_shapes,
+                dtype=self._config.dtype)
+            self._runner = new_runner  # the atomic publication point
+            self._root = root
+            if telemetry.ENABLED:
+                telemetry.SERVE_SWAPS.inc()
+            return new_runner.step
 
     def shutdown(self, drain=True, timeout=None):
         """Stop intake and join the scheduler.  With ``drain`` (default)

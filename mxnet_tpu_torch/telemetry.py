@@ -5,9 +5,10 @@ A cut copy of ``mxnet_tpu/telemetry.py``: the registry and metric kinds,
 of ``serve/{batching,runner,server,breaker}.py``, of the imperative
 ``gluon.Trainer``'s grouped apply (``optimizer/multi_tensor.py``), of the
 bucket planner (``kvstore/collective.py``), of ``monitor/``, of the
-whole-step capture (``step/capture.py``) and of the input pipeline
-(``gluon/data/dataloader.py``, ``io``, ``data/``), under the JAX package's
-names.  Disabled cost is one
+whole-step capture (``step/capture.py``), of the input pipeline
+(``gluon/data/dataloader.py``, ``io``, ``data/``), of ``checkpoint/``, of
+the serving hot swap and of the fault plan (``resilience/inject.py``),
+under the JAX package's names.  Disabled cost is one
 boolean check per hook (``if telemetry.ENABLED:``);
 ``MXNET_TELEMETRY_DISABLE=1`` flips it at import.
 """
@@ -65,6 +66,14 @@ class _GaugeChild:
     def set(self, v):
         with _LOCK:
             self._value = float(v)
+
+    def inc(self, amount=1.0):
+        with _LOCK:
+            self._value += amount
+
+    def dec(self, amount=1.0):
+        with _LOCK:
+            self._value -= amount
 
     @property
     def value(self):
@@ -148,6 +157,9 @@ class Metric:
 
     def inc(self, amount=1.0):
         self._delegate().inc(amount)
+
+    def dec(self, amount=1.0):
+        self._delegate().dec(amount)
 
     def set(self, v):
         self._delegate().set(v)
@@ -289,6 +301,9 @@ SERVE_BREAKER_TRIPS = counter(
     "serve_breaker_trips_total",
     "circuit breaker openings (bucket quarantined after repeated "
     "dispatch failures)", ("bucket",))
+SERVE_SWAPS = counter(
+    "serve_model_swaps_total", "hot model swaps (atomic runner "
+    "replacement pointing at a new checkpoint step)")
 
 # collectives: the bucket plan a captured step feeds in a world of more
 # than one (``kvstore/collective.py:observe_bucket_fill``)
@@ -422,3 +437,36 @@ DATA_READ_RETRIES = counter(
 DATA_RESUMES = counter(
     "data_resumes_total",
     "mid-epoch cursor restores (checkpoint resume of the stream)")
+
+# mx.checkpoint (checkpoint/manager.py + writer.py): snapshot is the only
+# critical-path phase of an async save; serialize/commit run on the
+# background writer
+CHECKPOINT_SNAPSHOT_SECONDS = histogram(
+    "checkpoint_snapshot_seconds",
+    "device->host snapshot time (critical path of an async save)")
+CHECKPOINT_SERIALIZE_SECONDS = histogram(
+    "checkpoint_serialize_seconds",
+    "background shard serialize+durable-write (streamed) time")
+CHECKPOINT_COMMIT_SECONDS = histogram(
+    "checkpoint_commit_seconds",
+    "background manifest/marker write + atomic-publish time")
+CHECKPOINT_BYTES = counter(
+    "checkpoint_bytes_total", "checkpoint shard bytes moved",
+    ("direction",))
+CHECKPOINT_QUEUE_DEPTH = gauge(
+    "checkpoint_async_queue_depth",
+    "async saves snapshotted but not yet committed")
+CHECKPOINT_RETRIES = counter(
+    "checkpoint_retries_total",
+    "commit attempts retried after a transient I/O error")
+CHECKPOINT_SAVES = counter(
+    "checkpoint_saves_total", "checkpoint commits by outcome",
+    ("result",))
+CHECKPOINT_RESTORES = counter(
+    "checkpoint_restores_total", "checkpoint restore calls")
+
+# mx.resilience: planned faults fired (resilience/inject.py)
+RESILIENCE_FAULTS = counter(
+    "resilience_faults_injected_total",
+    "planned faults fired, by injection site (MXNET_FAULTS / "
+    "resilience.plan())", ("site",))

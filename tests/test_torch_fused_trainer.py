@@ -200,7 +200,9 @@ def test_state_dict_round_trip():
     for b in xs[:3]:
         tr.step(*b)
     saved = tr.state_dict()
-    assert saved["step"] == 3 and set(saved["opt_state"]) == {"mean", "var"}
+    assert saved["step"] == 3 and set(saved["opt_state"]) == set(tr._trainable)
+    assert all(isinstance(v, tuple) and len(v) == 2
+               for v in saved["opt_state"].values())
     for b in xs[3:]:
         tr.step(*b)
     want = {k: v.clone() for k, v in tr.params.items()}

@@ -8,7 +8,13 @@
 - Signatures: every public callable the two packages share (module-level
   functions and classes, and the public methods of shared classes) takes
   every argument of the JAX package's, but for the spellings listed in
-  ``SPELLINGS``, each documented and pointing to its ``ROADMAP.md`` item.
+  ``SPELLINGS``, each documented and pointing to its ``ROADMAP.md`` item;
+  and the positional parameters both take come in the JAX package's
+  order (at the JAX package's positions, or, for a callable with listed
+  spellings, in its relative order).
+- The persistence modules (``checkpoint/``, ``legacy_io.py``) never
+  import ``ml_dtypes``: the card's machine has none, and bf16 leaves go
+  through 16-bit integer views.
 """
 import ctypes
 import importlib
@@ -72,7 +78,10 @@ def test_import_pulls_in_no_jax():
                 "gluon.model_zoo.vision.mobilenet",
                 "gluon.model_zoo.vision.squeezenet",
                 "gluon.model_zoo.vision.densenet",
-                "gluon.model_zoo.vision.inception"):
+                "gluon.model_zoo.vision.inception", "checkpoint",
+                "checkpoint.layout", "checkpoint.manager",
+                "checkpoint.writer", "resilience", "resilience.inject",
+                "legacy_io", "callback"):
         assert "mxnet_tpu_torch." + mod in res["modules"]
     assert res["bad"] == []
 
@@ -86,6 +95,17 @@ _IMPORT = re.compile(r"^\s*(?:from|import)\s+[^#\n]*"
     + [Path("chip_smoke.py")]), ids=str)
 def test_source_imports_neither_jax_nor_mxnet_tpu(path):
     assert _IMPORT.findall((ROOT / path).read_text()) == []
+
+
+_ML_DTYPES = re.compile(r"^\s*(?:from|import)\s+[^#\n]*\bml_dtypes\b",
+                        re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT) for p in (PKG / "checkpoint").rglob("*.py")]
+    + [Path("mxnet_tpu_torch/legacy_io.py")]), ids=str)
+def test_persistence_modules_import_no_ml_dtypes(path):
+    assert _ML_DTYPES.findall((ROOT / path).read_text()) == []
 
 
 def _no_card(monkeypatch):
@@ -410,7 +430,8 @@ def test_chip_smoke_and_step_modules_pull_in_no_jax():
     assert {"phase_train_captured", "phase_train_captured_resnet",
             "phase_train_lstm", "phase_train_gpt_lm", "phase_rnn_parts",
             "phase_train_vision", "phase_vision_zoo",
-            "phase_train_amp_fp16"} <= set(res["phases"])
+            "phase_train_amp_fp16",
+            "phase_checkpoint_resume"} <= set(res["phases"])
 
 
 @pytest.mark.parametrize("kind", ["int", "tensor"])
@@ -574,5 +595,73 @@ def test_shared_callables_take_the_jax_arguments():
                  ".gluon.nn.basic_layers.GroupNorm",
                  ".gluon.model_zoo.vision.vgg.get_vgg",
                  ".gluon.model_zoo.vision.inception.inception_v3",
-                 ".optimizer.multi_tensor.register_fusable"):
+                 ".optimizer.multi_tensor.register_fusable",
+                 ".checkpoint.manager.CheckpointManager",
+                 ".gluon.block.Block.save_parameters",
+                 ".gluon.trainer.Trainer.save_checkpoint",
+                 ".parallel.FusedTrainer.save_checkpoint",
+                 ".serve.server.Server.swap"):
         assert must in names, must
+
+
+def _positional(obj):
+    params = _params(obj)
+    if params is None:
+        return None
+    return [n for n, p in params.items()
+            if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+
+
+def test_shared_callables_take_positional_arguments_in_the_jax_order():
+    """The order guard: a positional parameter both packages take sits at
+    the JAX package's position, so a positional call binds alike in both;
+    for a callable with listed spellings (``SPELLINGS``), the shared
+    positional parameters but the listed ones keep the JAX relative
+    order."""
+    bad = []
+    for name, jobj, tobj in _shared_callables():
+        jpos, tpos = _positional(jobj), _positional(tobj)
+        if jpos is None or tpos is None:
+            continue
+        shared = [n for n in jpos if n in tpos]
+        if name in SPELLINGS:
+            excused = set(SPELLINGS[name][0])
+            shared = [n for n in shared if n not in excused]
+            ok = [n for n in tpos if n in shared] == shared
+        else:
+            ok = all(jpos.index(n) == tpos.index(n) for n in shared)
+        if not ok:
+            bad.append((name, jpos, tpos))
+    assert bad == []
+
+
+def test_launch_counts_survive_concurrent_launches(monkeypatch):
+    """A server's scheduler and a hot swap's warm-up launch at once: the
+    launch counters take a lock, so no increment is lost (eight threads,
+    a switch interval of a microsecond)."""
+    import threading
+
+    class Lib(_HostKernels):
+        def mx_flash_fwd(self, *args):
+            return 0                       # the count is what is checked
+
+    monkeypatch.setattr(_ext, "load", lambda: Lib())
+    monkeypatch.setattr(fa, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(fa, "_check_device", lambda name, ts: None)
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    q = torch.randn(1, 1, 16, 8)
+    before, n, calls = fa.flash_attention.launches, 8, 200
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            fa.flash_attention(q, q, q) for _ in range(calls)])
+            for _ in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert fa.flash_attention.launches - before == n * calls
