@@ -255,6 +255,33 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    within one unit in its last place (at the largest value) of the f32
    path on the same values.
 
+19. decode -- autoregressive serving at GPT-2 small's published widths
+   (Radford et al. 2019, the 124M config: vocab 50257, 12 layers, 12 heads
+   x 64, hidden 3072, context 1024): ``serve.TinyDecoder`` in f32 (TF32
+   off), random weights from ``--seed`` (N(0, 0.25 / fan_in) dense
+   weights), through ``serve.Server(decode=DecodeRunner(...))`` on the
+   card with ``DecodeConfig(page_size=16, max_context=1024, max_live=16,
+   max_new_tokens=64)`` and a pool of 16 full contexts.  32 concurrent
+   ``submit_decode`` clients (prompts uniform in 16..512 tokens, 64 new
+   tokens each, no EOS): every request returns 64 tokens and every token
+   equals the argmax of a dense recomputation of its sequence (the
+   prefill path, no pages) or sits at a near-tie there (top-2 gap <=
+   1e-4 x max|logit|; counted).  Then a ``serve_poison@<id>`` drill (the
+   poisoned sequence fails alone), ``POST /decode`` over ``start_http``
+   collected and streamed (equal), one decode step at B=16 over 1,022-token
+   contexts (host ms, ``torch.profiler`` busy ms, kernels a step, idle
+   share) and its page gather's ms against its bytes bound; an 8-session
+   prefix drill on one 768-token system prompt through a prefix-cache
+   runner (streams equal to the same prompts served cold, or parting at a
+   near-tie); a speculative runner with a same-weight draft at k=4
+   (streams equal to single-step); every pool ends with 0 pages in use,
+   no program is built after warm-up, the flash kernels launch 0 times;
+   and two streams decoded by the port on the CPU equal the card's (or
+   part at a near-tie).  Prints tokens/s, TTFT and per-token p50/p99
+   (``telemetry.histogram_quantiles``), decode steps, the pool's high
+   water and capacity, the cache and speculation counters and the
+   phase's seconds.
+
 Then the ``{"kernels": [...]}`` summary (gpt_lm's causal D=32 bf16 route
 as ``routes["bfloat16_causal_d32"]``; ``checkpoint_resume``'s launches in
 the f32 and bf16 routes and ``launches_by_path``), the ``nvidia-smi``
@@ -4445,6 +4472,341 @@ def _captured_resume(torch, mx, fa, bert, cfg, seed, root, add):
             "restored_leaves_on_card": leaves}
 
 
+DECODE_CFG = dict(vocab=50257, layers=12, heads=12, head_dim=64,
+                  hidden=3072, page_size=16, max_context=1024, max_live=16,
+                  max_new=64, clients=32, prompt_lo=16, prompt_hi=512,
+                  system=768, sessions=8, spec_seqs=4, spec_k=4,
+                  profile_steps=5)
+# a served token may differ from its reference only where the reference's
+# top-2 logit gap is at most this share of max|logit| (a near-tie, where
+# the last bits of two summation orders decide)
+TOL_TIE = 1e-4
+
+
+def decoder_params(cfg, seed):
+    """TinyDecoder weights at ``cfg``'s widths from numpy: N(0, 1)
+    embeddings, dense weights N(0, 0.25 / fan_in) and biases N(0, 0.01), so
+    the twelve norm-free layers keep the residual stream and the logits at
+    O(1)."""
+    rng = np.random.default_rng(seed)
+    C, V, F = cfg["heads"] * cfg["head_dim"], cfg["vocab"], cfg["hidden"]
+    shapes = {"embed.weight": (V, C), "unembed.weight": (V, C),
+              "unembed.bias": (V,)}
+    for i in range(cfg["layers"]):
+        for n in "qkvo":
+            shapes["%s%d.weight" % (n, i)] = (C, C)
+            shapes["%s%d.bias" % (n, i)] = (C,)
+        shapes["up%d.weight" % i] = (F, C)
+        shapes["up%d.bias" % i] = (F,)
+        shapes["down%d.weight" % i] = (C, F)
+        shapes["down%d.bias" % i] = (C,)
+    out = {}
+    for name in sorted(shapes):
+        shp = shapes[name]
+        v = rng.standard_normal(shp, dtype=np.float32)
+        if name.endswith("bias"):
+            v *= 0.1
+        elif not name.startswith("embed"):
+            v *= 0.5 / np.sqrt(shp[1])
+        out[name] = v
+    return out
+
+
+def _dense_reference(torch, blk, prompt, toks):
+    """Each token of a stream recomputed by the prefill (S=0) path over the
+    whole sequence, no pages: per position the argmax, the top-2 gap and
+    max|logit|."""
+    dev = blk.unembed.weight.device
+    zero = torch.zeros((1, blk.num_layers, 0, blk.num_kv_heads,
+                        blk.head_dim), device=dev)
+    seq = list(prompt) + list(toks[:-1])
+    with torch.no_grad():
+        x, _, _ = blk.trunk(torch.tensor([seq], dtype=torch.int32,
+                                         device=dev), zero, zero,
+                            torch.zeros(1, dtype=torch.int32, device=dev))
+        logits = blk.unembed(x[:, len(prompt) - 1:])[0]
+        top = torch.topk(logits, 2, dim=-1).values
+        ref = torch.stack([logits.argmax(-1).float(), top[:, 0] - top[:, 1],
+                           logits.abs().amax(-1)]).cpu().numpy()
+    return ref[0].astype(np.int64), ref[1], ref[2]
+
+
+def _tie_count(what, toks, ref):
+    """Near-ties where ``toks`` leaves its dense reference; any other
+    difference fails.  Returns (ties, smallest gap / max|logit|)."""
+    arg, gap, top = ref
+    ties = 0
+    for i, t in enumerate(toks):
+        if t != arg[i]:
+            if gap[i] > TOL_TIE * top[i]:
+                fail("%s: token %d is %d where the dense reference gives %d "
+                     "(top-2 gap %.4g of max|logit| %.4g)"
+                     % (what, i, t, arg[i], gap[i], top[i]))
+            ties += 1
+    return ties, float(np.min(gap / top))
+
+
+def _same_or_tie(what, got, want, ref_of_want):
+    """``got`` equal to ``want``, or parting from it first at a near-tie
+    of ``want``'s dense reference (the histories agree up to there).
+    Returns the position they part at, or None."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            _, gap, top = ref_of_want
+            if gap[i] > TOL_TIE * top[i]:
+                fail("%s: token %d is %d, not %d (top-2 gap %.4g of "
+                     "max|logit| %.4g)" % (what, i, g, w, gap[i], top[i]))
+            return i
+    if len(got) != len(want):
+        fail("%s: %d tokens, not %d" % (what, len(got), len(want)))
+    return None
+
+
+def phase_decode(torch, mx, fa, seed, smi, cfg=DECODE_CFG):
+    """Autoregressive serving at GPT-2 small's widths: the decode plane
+    (``serve.Server(decode=...)``) under 32 clients, the prefix cache, a
+    speculative run, a poison drill and ``/decode`` over HTTP."""
+    import urllib.request
+    from types import SimpleNamespace
+
+    from mxnet_tpu_torch import serve, telemetry
+    from mxnet_tpu_torch.resilience import inject
+    from mxnet_tpu_torch.resilience.inject import InjectedFault
+    from mxnet_tpu_torch.serve.kvcache import gather_pages
+
+    c = cfg
+    t_phase = time.perf_counter()
+    flash0 = _flash_counts(fa)
+    params = decoder_params(c, seed)
+
+    def block(ctx):
+        blk = serve.TinyDecoder(vocab_size=c["vocab"],
+                                num_layers=c["layers"],
+                                num_heads=c["heads"],
+                                head_dim=c["head_dim"], hidden=c["hidden"])
+        blk.initialize(ctx=ctx)
+        mx.convert.load_jax_params(blk, params)
+        return blk
+
+    def dcfg(**kw):
+        base = dict(page_size=c["page_size"], max_context=c["max_context"],
+                    max_live=c["max_live"], max_new_tokens=c["max_new"])
+        base.update(kw)
+        return serve.DecodeConfig(**base)
+
+    per_ctx = c["max_context"] // c["page_size"]
+    blk = block(mx.gpu(0))
+    telemetry.reset()
+    t0 = time.perf_counter()
+    main = serve.DecodeRunner(blk, config=dcfg(
+        pool_pages=c["max_live"] * per_ctx))
+    warm_s = time.perf_counter() - t0
+    prefix = serve.DecodeRunner(blk, config=dcfg(
+        pool_pages=c["sessions"] * per_ctx, max_live=c["sessions"],
+        prefix_cache=True))
+    spec = serve.DecodeRunner(blk, config=dcfg(
+        pool_pages=c["spec_seqs"] * per_ctx, max_live=c["spec_seqs"],
+        spec_k=c["spec_k"]), draft=blk)
+    builds = telemetry.value("serve_decode_compile_total")
+    out = {"phase": "decode", "nvidia_smi": smi,
+           "model": {k: c[k] for k in ("vocab", "layers", "heads",
+                                       "head_dim", "hidden")},
+           "config": main.config.as_dict(), "warm_s": warm_s,
+           "builds": builds, "provenance": sorted(set(
+               main.provenance().values()))}
+    rng = np.random.default_rng(seed + 14)
+    prompts = [rng.integers(0, c["vocab"], n).tolist() for n in
+               rng.integers(c["prompt_lo"], c["prompt_hi"] + 1,
+                            c["clients"])]
+    srv = serve.Server(decode=main)
+
+    # -- 32 concurrent clients ---------------------------------------------
+    telemetry.reset()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(c["clients"]) as ex:
+        res = list(ex.map(lambda p: srv.submit_decode(p).result(600),
+                          prompts))
+    wall = time.perf_counter() - t0
+    streams = [r["tokens"] for r in res]
+    if any(len(s) != c["max_new"] for s in streams):
+        fail("decode: a request returned %s tokens, not %d"
+             % (sorted({len(s) for s in streams}), c["max_new"]))
+    q = {n: telemetry.histogram_quantiles(n, (0.5, 0.99)) for n in
+         ("serve_decode_ttft_seconds", "serve_decode_token_seconds")}
+    out["load"] = {
+        "requests": len(prompts), "new_tokens_each": c["max_new"],
+        "prompt_tokens": [min(map(len, prompts)), max(map(len, prompts))],
+        "wall_s": wall, "tokens_per_s": len(prompts) * c["max_new"] / wall,
+        "ttft_s": {"p50": q["serve_decode_ttft_seconds"].get(0.5),
+                   "p99": q["serve_decode_ttft_seconds"].get(0.99)},
+        "token_s": {"p50": q["serve_decode_token_seconds"].get(0.5),
+                    "p99": q["serve_decode_token_seconds"].get(0.99)},
+        "decode_steps": telemetry.value("serve_decode_steps_total"),
+        "pool_high_water_pages": main.pool.high_water,
+        "pool_capacity_pages": main.pool.capacity}
+    refs = [_dense_reference(torch, blk, p, s)
+            for p, s in zip(prompts, streams)]
+    ties = [_tie_count("decode stream %d" % i, s, r)
+            for i, (s, r) in enumerate(zip(streams, refs))]
+    out["dense_reference"] = {
+        "near_ties": sum(t for t, _ in ties),
+        "min_gap_share": min(g for _, g in ties), "tol": TOL_TIE}
+
+    # -- the poison drill ----------------------------------------------------
+    inject.plan("serve_poison@decode-poison")
+    try:
+        futs = [srv.submit_decode(prompts[i], request_id=rid)
+                for i, rid in ((5, "decode-ok-1"), (6, "decode-poison"),
+                               (7, "decode-ok-2"))]
+        try:
+            futs[1].result(600)
+            fail("decode: the poisoned sequence was served")
+        except InjectedFault:
+            pass
+        if any(len(futs[i].result(600)["tokens"]) != c["max_new"]
+               for i in (0, 2)):
+            fail("decode: a batch-mate of the poisoned sequence failed")
+    finally:
+        inject.clear()
+    out["poison"] = {"isolated": True, "poisoned": telemetry.value(
+        "serve_requests_total", {"result": "poisoned"})}
+
+    # -- /decode over HTTP, collected then streamed, each alone ---------------
+    host, port = srv.start_http()
+    url = "http://%s:%d/decode" % (host, port)
+
+    def post(body):
+        req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                     headers={"X-Request-Id": "smoke"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.read()
+
+    collected = json.loads(post({"tokens": prompts[8]}))["tokens"]
+    events = [json.loads(x) for x in
+              post({"tokens": prompts[8], "stream": True}).splitlines()]
+    streamed = [e["token"] for e in events if "token" in e]
+    if streamed != collected or events[-1].get("tokens") != collected:
+        fail("decode: /decode streamed %s, collected %s"
+             % (streamed[:8], collected[:8]))
+    out["http"] = {"tokens": len(collected), "stream_events": len(events),
+                   "streamed_equals_collected": True}
+
+    # -- one decode step at B=16 over long contexts: host, device, gather ----
+    B = c["max_live"]
+    stands = []
+    for i in range(B):
+        pages = main.pool.alloc(("probe", i), per_ctx)
+        stands.append(SimpleNamespace(pages=pages, last_token=i + 1,
+                                      length=c["max_context"] - 2))
+    try:
+        main.decode_step(stands)
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(10):
+            t1 = time.perf_counter()
+            main.decode_step(stands)
+            host.append((time.perf_counter() - t1) * 1e3)
+        split = profile_split(torch, lambda: main.decode_step(stands),
+                              c["profile_steps"])
+        tables = torch.from_numpy(main._table(B, [s.pages for s in stands])
+                                  ).cuda()
+        gather_ms = 2 * cuda_ms(lambda: gather_pages(main.pool.k, tables),
+                                10)
+    finally:
+        for i in range(B):
+            main.pool.release(("probe", i))
+    ctx_elems = B * c["layers"] * per_ctx * c["page_size"] * c["heads"] \
+        * c["head_dim"]
+    gather_bytes = 2 * 2 * 4 * ctx_elems       # K and V, read and write
+    out["step"] = {"batch": B, "context": c["max_context"],
+                   "host_ms": float(np.median(host)),
+                   "host_ms_range": [min(host), max(host)],
+                   "device_busy_ms": split.get("device_busy_ms"),
+                   "wall_ms": split["wall_ms"],
+                   "kernels_per_step": split.get("kernels_per_step"),
+                   "idle_share": split.get("idle_share"),
+                   "split_ms": split.get("split_ms"),
+                   "top_other_ms": split.get("top_other_ms")}
+    out["gather"] = {"bytes_per_step": gather_bytes, "ms": gather_ms,
+                     "bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes"}
+
+    # -- the prefix drill: 8 sessions on one 768-token system prompt ---------
+    system = rng.integers(0, c["vocab"], c["system"]).tolist()
+    sessions = [system + rng.integers(0, c["vocab"], n).tolist()
+                for n in rng.integers(16, 33, c["sessions"])]
+    cold = [srv.submit_decode(p) for p in sessions]
+    cold = [f.result(600)["tokens"] for f in cold]
+    psched = serve.DecodeScheduler(prefix)
+    try:
+        cached = [psched.submit(p) for p in sessions]
+        cached = [f.result(600)["tokens"] for f in cached]
+    finally:
+        psched.stop()
+    parted = []
+    for i, (p, got, want) in enumerate(zip(sessions, cached, cold)):
+        ref = _dense_reference(torch, blk, p, want)
+        _tie_count("cold session %d" % i, want, ref)
+        parted.append(_same_or_tie("cached session %d" % i, got, want, ref))
+    out["prefix"] = dict(prefix.cache.stats(), parted_at_near_tie=parted,
+                         ttft_by_class={k: telemetry.value(
+                             "serve_decode_ttft_seconds", {"cache": k})
+                             for k in ("miss", "partial", "hit")})
+    prefix.cache.clear()
+
+    # -- speculative decoding, same-weight draft, k=4 ------------------------
+    ssched = serve.DecodeScheduler(spec)
+    try:
+        sp = [ssched.submit(prompts[i]) for i in range(c["spec_seqs"])]
+        sp = [f.result(600)["tokens"] for f in sp]
+    finally:
+        ssched.stop()
+    out["spec"] = dict(
+        {k: v for k, v in spec.spec.stats().items() if k != "draft_pool"},
+        parted_at_near_tie=[
+            _same_or_tie("speculative stream %d" % i, sp[i], streams[i],
+                         refs[i]) for i in range(c["spec_seqs"])])
+
+    # -- shutdown: every page home, no build after warm-up ------------------
+    srv.shutdown()
+    for name, r in (("main", main), ("prefix", prefix), ("spec", spec),
+                    ("draft", spec.spec.draft)):
+        if r.pool.in_use != 0 or not r.pool.check():
+            fail("decode: the %s pool ends with %d pages in use"
+                 % (name, r.pool.in_use))
+    # the load's reset zeroed the counter: every build since is a miss
+    if telemetry.value("serve_decode_compile_total") != 0:
+        fail("decode: %s builds after warm-up" % telemetry.value(
+            "serve_decode_compile_total"))
+    if _flash_counts(fa) != flash0:
+        fail("decode: the flash kernels launched (%s -> %s)"
+             % (flash0, _flash_counts(fa)))
+
+    # -- two streams against the port's CPU run -----------------------------
+    short = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:2]
+    t0 = time.perf_counter()
+    cpu = serve.DecodeRunner(block(mx.cpu()), ctx=mx.cpu(), config=dcfg(
+        pool_pages=2 * per_ctx, max_live=2, batch_sizes=(1, 2),
+        prefill_lengths=sorted({main.prefill_bucket(len(prompts[i]))
+                                for i in short})))
+    csched = serve.DecodeScheduler(cpu)
+    try:
+        cs = [csched.submit(prompts[i]) for i in short]
+        cs = [f.result(600)["tokens"] for f in cs]
+    finally:
+        csched.stop()
+    out["cpu"] = {"streams": short, "seconds": time.perf_counter() - t0,
+                  "parted_at_near_tie": [
+                      _same_or_tie("CPU stream %d" % i, got, streams[i],
+                                   refs[i]) for i, got in zip(short, cs)]}
+    out["flash_launches"] = {k: v - flash0[k]
+                             for k, v in _flash_counts(fa).items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    del main, prefix, spec, cpu, blk
+    torch.cuda.empty_cache()
+
+
 def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
     """One kernel route's summary from its case: ``bound_key`` None for
     the forward's bound (``bound_ms``), else "dq"/"dkv"; ``errs`` the
@@ -4519,6 +4881,7 @@ def main():
     amp_launches = phase_train_amp_fp16(torch, mx, fa, args.seed, smi,
                                         train_fp32)
     ckpt_launches = phase_checkpoint_resume(torch, mx, fa, args.seed, smi)
+    phase_decode(torch, mx, fa, args.seed, smi)
 
     # each route's numbers at its main path's shape, not causal: f32 at
     # (8, 12, 512, 512, 64), the forward as served (no dropout), the

@@ -1,9 +1,11 @@
 """mx.resilience of the port: deterministic fault injection.
 
 Counterpart of ``mxnet_tpu/resilience/``.  Only ``inject`` is ported: the
-fault plan and its checkpoint sites, which the checkpoint crash drills
-use.  ``preempt`` (SIGTERM with a grace budget) and ``supervisor``
-(restart supervision) wait in ``ROADMAP.md`` Queue 1 item 8.
+fault plan and its checkpoint and serving sites, which the checkpoint
+crash drills and the serving poison, dispatch, prefix-cache and
+speculative drills use.  ``preempt`` (SIGTERM with a grace budget) and
+``supervisor`` (restart supervision) wait in ``ROADMAP.md`` Queue 1 item
+8.
 """
 from __future__ import annotations
 

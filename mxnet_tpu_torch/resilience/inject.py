@@ -16,18 +16,26 @@ Plan grammar (comma-separated entries)::
     checkpoint_marker@0:abort   hard-kill (os._exit) right before the
                                 COMMITTED marker -> torn checkpoint
     checkpoint_commit@*:io*2    the first two commit attempts fail
+    serve_poison@req-7          request id "req-7" poisons any batch
+                                or decode step it rides in
 
 Kinds: ``transient`` (default, ``InjectedFault``), ``io``
 (``InjectedIOError``, an ``OSError``, so retry-with-backoff paths engage),
 ``fatal`` (``InjectedFault`` of kind ``fatal``) and ``abort``
 (``os._exit``: cleanup handlers never run, as on a preempted node).
 
-The sites wired in the port are the checkpoint writer's:
-``checkpoint_commit`` at the entry of each commit attempt and
-``checkpoint_marker`` just before the ``COMMITTED`` marker lands.  The
-other sites of ``SITES`` (trainer step, collectives, serve dispatch and
-poison, compile cache, data reads) are accepted by the grammar and wait
-for their modules (``ROADMAP.md`` Queue 1 item 8).
+The sites wired in the port: the checkpoint writer's
+``checkpoint_commit`` (each commit attempt) and ``checkpoint_marker``
+(just before the ``COMMITTED`` marker lands); the serving planes'
+``serve_dispatch`` (each micro-batch dispatch and decode iteration),
+``serve_poison`` (request ids, read through ``poisoned``), ``serve_cache``
+(a prefix-cache admission, keyed by request id) and ``spec_verify`` (a
+speculative sequence's verify, keyed by request id).  The other sites of
+``SITES`` (trainer step, collectives, compile cache, data reads) are
+accepted by the grammar and wait for their modules (``ROADMAP.md`` Queue
+1 item 8).  Without an explicit ``*count`` an entry fires once, but a
+``serve_poison`` entry stays live: a poisoned request stays poisoned
+through every retry of its batch.
 
 Every firing counts in ``resilience_faults_injected_total{site}`` and is
 recorded as a trace instant.
@@ -40,11 +48,11 @@ from .. import telemetry, trace
 from ..base import MXNetError, get_env
 
 __all__ = ["InjectedFault", "InjectedIOError", "FaultPlan", "SITES",
-           "KINDS", "plan", "clear", "armed", "refresh_env", "fire",
+           "KINDS", "plan", "clear", "active", "armed", "refresh_env",
+           "fire", "poisoned", "record_firing", "state",
            "ABORT_EXIT_CODE"]
 
-# the site names of the JAX package's stack; the port fires the two
-# checkpoint ones (fire() accepts any name)
+# the site names of the JAX package's stack (fire() accepts any name)
 SITES = ("trainer_step", "collective", "checkpoint_commit",
          "checkpoint_marker", "compile_commit", "serve_dispatch",
          "serve_poison", "serve_cache", "spec_verify", "data_read")
@@ -84,13 +92,23 @@ class _Entry:
         self.site = site
         self.key = str(key)
         self.kind = kind
-        self.count = int(count)
+        # None (no explicit *N): once for a fault site, unlimited for
+        # serve_poison
+        if count is None:
+            count = None if site == "serve_poison" else 1
+        self.count = None if count is None else int(count)
         self.fired = 0
 
     def matches(self, site, key):
-        if site != self.site or self.fired >= self.count:
+        if site != self.site:
+            return False
+        if self.count is not None and self.fired >= self.count:
             return False
         return self.key == "*" or self.key == str(key)
+
+    def describe(self):
+        return {"site": self.site, "key": self.key, "kind": self.kind,
+                "count": self.count, "fired": self.fired}
 
 
 class FaultPlan:
@@ -115,7 +133,7 @@ class FaultPlan:
                     "bad MXNET_FAULTS entry %r: expected "
                     "site@key[:kind][*count]" % raw)
             site, _, rest = raw.partition("@")
-            count = 1
+            count = None        # no explicit *N: the entry's default
             head, star, tail = rest.rpartition("*")
             if star and head and tail.isdigit():
                 rest, count = head, int(tail)
@@ -132,6 +150,14 @@ class FaultPlan:
         for e in self.entries:
             if e.matches(site, key):
                 e.fired += 1
+                return e
+        return None
+
+    def match(self, site, key):
+        """The first matching entry, not consumed (a poison check runs on
+        every retry of a bisected batch)."""
+        for e in self.entries:
+            if e.matches(site, key):
                 return e
         return None
 
@@ -191,6 +217,27 @@ def refresh_env():
         return _load_locked()
 
 
+def active():
+    return armed()
+
+
+def record_firing(site, key=None, consume=False):
+    """Count one firing (telemetry and a trace instant).  ``fire`` calls it
+    after taking its entry; the serving planes call it with ``consume``
+    when they isolate a poisoned request, so the entry's ``fired`` count
+    agrees with the counter."""
+    if consume:
+        with _LOCK:
+            e = _load_locked().match(site, key)
+            if e is not None:
+                e.fired += 1
+    if telemetry.ENABLED:
+        telemetry.RESILIENCE_FAULTS.labels(site=site).inc()
+    trace.instant("fault_injected", cat="resilience",
+                  args={"site": site,
+                        "key": None if key is None else str(key)})
+
+
 def fire(site, seq=None):
     """Fire the planned fault for ``(site, seq)``: a no-op unless the
     armed plan holds a matching live entry.  With ``seq=None`` the site's
@@ -207,12 +254,10 @@ def fire(site, seq=None):
         entry = p.take(site, seq)
     if entry is None:
         return
-    if telemetry.ENABLED:
-        telemetry.RESILIENCE_FAULTS.labels(site=site).inc()
-    trace.instant("fault_injected", cat="resilience",
-                  args={"site": site, "key": str(seq)})
-    msg = ("injected %s fault at site %r (key %s, firing %d/%d)"
-           % (entry.kind, site, entry.key, entry.fired, entry.count))
+    record_firing(site, seq)
+    msg = ("injected %s fault at site %r (key %s, firing %d/%s)"
+           % (entry.kind, site, entry.key, entry.fired,
+              entry.count if entry.count is not None else "inf"))
     if entry.kind == "abort":
         import os
         import sys
@@ -224,3 +269,21 @@ def fire(site, seq=None):
     if entry.kind == "io":
         raise InjectedIOError(msg, site=site, key=entry.key)
     raise InjectedFault(msg, kind=entry.kind, site=site, key=entry.key)
+
+
+def poisoned(request_id):
+    """Whether the plan marks ``request_id`` as a poison request (site
+    ``serve_poison``).  Consumes nothing."""
+    if request_id is None or not armed():
+        return False
+    with _LOCK:
+        return _load_locked().match("serve_poison", request_id) is not None
+
+
+def state():
+    """The armed plan's entries and the per-site counters."""
+    with _LOCK:
+        p = _load_locked()
+        return {"active": bool(p.entries),
+                "entries": [e.describe() for e in p.entries],
+                "seq": dict(_SEQ)}

@@ -10,8 +10,11 @@ bucket class are queued, or when the oldest of them has waited
 Overload policy is explicit backpressure: a full queue REJECTS with
 ``ServerOverloaded`` immediately.  Each request carries an optional
 deadline; expired requests fail with ``RequestTimeout`` before dispatch
-and never reach the model.  The JAX package's fault-injection sites, hang
-watchdog and deadline-miss detector are not part of this port.
+and never reach the model.  Each dispatch is the ``serve_dispatch`` fault
+site, and a request id the fault plan marks ``serve_poison`` fails its
+batch until bisection pins it alone (``resilience/inject.py``).  The JAX
+package's hang watchdog and deadline-miss detector wait in ``ROADMAP.md``
+Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from concurrent.futures import Future, InvalidStateError
 
 from .. import telemetry, trace
 from ..base import MXNetError
+from ..resilience import inject as _inject
+from ..resilience.inject import InjectedFault
 
 __all__ = ["ServeError", "ServerOverloaded", "ServerClosed", "fail_request",
            "RequestTimeout", "NoBucketError", "BucketQuarantined",
@@ -135,6 +140,13 @@ class BatchQueue:
             if telemetry.ENABLED:
                 telemetry.SERVE_QUEUE_DEPTH.set(len(self._items))
             self._cond.notify_all()
+
+    def oldest_age(self):
+        """Seconds the head-of-line request has waited (0.0 when empty)."""
+        with self._cond:
+            if not self._items:
+                return 0.0
+            return max(0.0, time.perf_counter() - self._items[0].enqueued)
 
     def close(self):
         """Stop accepting requests; ``collect`` drains what is queued."""
@@ -287,10 +299,18 @@ class Scheduler:
             self._queue.close()
             self._queue.cancel_pending()
             return
-        with trace.use(head.trace), \
-                trace.span("serve_dispatch", hist=False, cat="serve",
-                           args={"batch": len(live)}):
-            pairs = self._run_split(runner, live)
+        try:
+            with trace.use(head.trace), \
+                    trace.span("serve_dispatch", hist=False, cat="serve",
+                               args={"batch": len(live)}):
+                _inject.fire("serve_dispatch")
+                pairs = self._run_split(runner, live)
+        except BaseException as exc:  # noqa: BLE001 - surfaced per request
+            for req in live:
+                fail_request(req, exc, "error")
+            if self._breakers is not None:
+                self._breakers.failure(cls)
+            return
         failed = any(p[2] is not None for p in pairs)
         if self._breakers is not None:
             # one strike per DISPATCH: the bisect already confined the
@@ -334,10 +354,20 @@ class Scheduler:
         ``isolated`` is True when bisection pinned the failure to one
         request.  At most ``2n - 1`` executions for a batch of n."""
         try:
+            bad = [r for r in reqs if _inject.poisoned(r.request_id)]
+            if bad:
+                if len(reqs) == 1:
+                    _inject.record_firing("serve_poison", bad[0].request_id,
+                                          consume=True)
+                raise InjectedFault(
+                    "injected poison request %s"
+                    % [r.request_id for r in bad], site="serve_poison")
             results = runner.run_batch(reqs)
         except Exception as exc:  # noqa: BLE001 - contained per request
             if len(reqs) == 1:
-                return [(reqs[0], None, exc, depth > 0)]
+                isolated = depth > 0 or \
+                    getattr(exc, "site", None) == "serve_poison"
+                return [(reqs[0], None, exc, isolated)]
             if telemetry.ENABLED:
                 telemetry.SERVE_BISECT_SPLITS.inc()
             trace.instant("serve_bisect", cat="serve",

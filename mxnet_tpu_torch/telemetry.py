@@ -1,8 +1,11 @@
 """Runtime telemetry: the ``serve_*`` counters, gauges and histograms.
 
 A cut copy of ``mxnet_tpu/telemetry.py``: the registry and metric kinds,
-``totals``/``value`` readers, and only the metrics the port feeds: those
-of ``serve/{batching,runner,server,breaker}.py``, of the imperative
+the ``totals``/``value``/``histogram_quantiles`` readers, the
+``snapshot`` (JSON) and ``prometheus`` (text exposition) exporters, and
+only the metrics the port feeds: those of
+``serve/{batching,runner,server,breaker}.py``, of the decode plane
+(``serve/{decode,kvcache,cache,spec}.py``), of the imperative
 ``gluon.Trainer``'s grouped apply (``optimizer/multi_tensor.py``), of the
 bucket planner (``kvstore/collective.py``), of ``monitor/``, of the
 whole-step capture (``step/capture.py``), of the input pipeline
@@ -19,7 +22,8 @@ import threading
 from .base import get_env
 
 __all__ = ["ENABLED", "enable", "disable", "counter", "gauge", "histogram",
-           "get_metric", "reset", "totals", "value", "DEFAULT_BUCKETS"]
+           "get_metric", "reset", "totals", "value", "snapshot",
+           "histogram_quantiles", "prometheus", "DEFAULT_BUCKETS"]
 
 _LOCK = threading.Lock()
 _REGISTRY = {}  # name -> Metric, insertion-ordered
@@ -108,6 +112,18 @@ class _HistogramChild:
     @property
     def sum(self):
         return self._sum
+
+    def read(self):
+        """Locked consistent view: (count, sum, cumulative buckets)."""
+        with _LOCK:
+            count, total = self._count, self._sum
+            counts = list(self._counts)
+        out, acc = [], 0
+        for ub, c in zip(self._buckets, counts):
+            acc += c
+            out.append((ub, acc))
+        out.append((float("inf"), acc + counts[-1]))
+        return count, total, out
 
 
 _CHILD_FACTORY = {
@@ -224,17 +240,143 @@ def reset():
         m._reset()
 
 
-def totals():
-    """Flat {name: summed value}; histograms give ``_count``/``_sum``."""
+def _labels_dict(metric, values):
+    return dict(zip(metric.labelnames, values))
+
+
+def _bucket_quantile(cum, count, q):
+    """The q-quantile estimated from cumulative bucket counts (linear
+    within the covering bucket, as Prometheus' ``histogram_quantile``);
+    observations in the +Inf bucket clamp to the last finite bound."""
+    if count <= 0:
+        return 0.0
+    target = q * count
+    lo, prev_c, last_finite = 0.0, 0, 0.0
+    for ub, c in cum:
+        if ub != float("inf"):
+            last_finite = ub
+        if c >= target:
+            if ub == float("inf"):
+                return last_finite
+            width = c - prev_c
+            if width <= 0:
+                return ub
+            return lo + (target - prev_c) / width * (ub - lo)
+        prev_c = c
+        if ub != float("inf"):
+            lo = ub
+    return last_finite
+
+
+def _merged_read(metric):
+    """(count, sum, merged cumulative buckets) over a histogram family's
+    label children (they share the family's bucket edges)."""
+    reads = [c.read() for _, c in metric._samples()]
+    count = sum(r[0] for r in reads)
+    total = sum(r[1] for r in reads)
+    cum = [(ub, sum(r[2][i][1] for r in reads))
+           for i, (ub, _) in enumerate(reads[0][2])] if reads else []
+    return count, total, cum
+
+
+def histogram_quantiles(name, qs=(0.5, 0.95, 0.99)):
+    """Bucket-estimated quantiles of a histogram family, merged over its
+    label children: {q: value}; {} for an unknown, empty or
+    non-histogram name."""
+    m = _REGISTRY.get(name)
+    if m is None or m.kind != "histogram":
+        return {}
+    count, _, cum = _merged_read(m)
+    if not count:
+        return {}
+    return {q: _bucket_quantile(cum, count, q) for q in qs}
+
+
+def totals(nonzero=False, quantiles=False):
+    """Flat {name: summed value}; histograms give ``_count``/``_sum``, and
+    with ``quantiles`` the bucket-estimated ``_p50``/``_p95``/``_p99``;
+    ``nonzero`` drops the zero entries."""
     out = {}
     for name, m in list(_REGISTRY.items()):
-        samples = m._samples()
         if m.kind == "histogram":
-            out[name + "_count"] = sum(c.count for _, c in samples)
-            out[name + "_sum"] = sum(c.sum for _, c in samples)
+            count, total, cum = _merged_read(m)
+            out[name + "_count"] = count
+            out[name + "_sum"] = round(total, 6)
+            if quantiles and count:
+                for q, label in ((0.5, "_p50"), (0.95, "_p95"),
+                                 (0.99, "_p99")):
+                    out[name + label] = round(
+                        _bucket_quantile(cum, count, q), 6)
         else:
-            out[name] = sum(c.value for _, c in samples)
+            out[name] = sum(c.value for _, c in m._samples())
+    if nonzero:
+        out = {k: v for k, v in out.items() if v}
     return out
+
+
+def snapshot():
+    """JSON-ready view: {name: {type, help, samples}}; a counter or gauge
+    sample is {"labels", "value"}, a histogram's {"labels", "count",
+    "sum", "buckets": {le: cumulative count}} ("+Inf" last)."""
+    out = {}
+    for name, m in list(_REGISTRY.items()):
+        samples = []
+        for values, child in m._samples():
+            labels = _labels_dict(m, values)
+            if m.kind == "histogram":
+                count, total, cum = child.read()
+                samples.append({
+                    "labels": labels, "count": count, "sum": total,
+                    "buckets": {_fmt_le(ub): c for ub, c in cum}})
+            else:
+                samples.append({"labels": labels, "value": child.value})
+        out[name] = {"type": m.kind, "help": m.help, "samples": samples}
+    return out
+
+
+def _fmt_le(ub):
+    return "+Inf" if ub == float("inf") else repr(float(ub))
+
+
+def _esc(v):
+    return str(v).replace("\\", r"\\").replace('"', r'\"') \
+        .replace("\n", r"\n")
+
+
+def _esc_help(v):
+    # HELP text escapes only backslash and newline; quotes stay literal
+    return str(v).replace("\\", r"\\").replace("\n", r"\n")
+
+
+def _labelstr(metric, values, extra=()):
+    pairs = list(zip(metric.labelnames, values)) + list(extra)
+    if not pairs:
+        return ""
+    return "{%s}" % ",".join('%s="%s"' % (k, _esc(v)) for k, v in pairs)
+
+
+def prometheus():
+    """Prometheus text exposition format: a # HELP / # TYPE pair and the
+    sample lines of every registered metric."""
+    lines = []
+    for name, m in list(_REGISTRY.items()):
+        lines.append("# HELP %s %s" % (name, _esc_help(m.help or name)))
+        lines.append("# TYPE %s %s" % (name, m.kind))
+        for values, child in m._samples():
+            if m.kind == "histogram":
+                count, total, cum = child.read()
+                for ub, c in cum:
+                    lines.append("%s_bucket%s %d" % (
+                        name, _labelstr(m, values, [("le", _fmt_le(ub))]),
+                        c))
+                lines.append("%s_sum%s %s"
+                             % (name, _labelstr(m, values), repr(total)))
+                lines.append("%s_count%s %d"
+                             % (name, _labelstr(m, values), count))
+            else:
+                lines.append("%s%s %s" % (name, _labelstr(m, values),
+                                          repr(float(child.value))))
+    return "\n".join(lines) + "\n"
 
 
 def value(name, labels=None):
@@ -304,6 +446,91 @@ SERVE_BREAKER_TRIPS = counter(
 SERVE_SWAPS = counter(
     "serve_model_swaps_total", "hot model swaps (atomic runner "
     "replacement pointing at a new checkpoint step)")
+# mx.serve.decode (serve/decode.py + kvcache.py): paged KV cache and
+# continuous batching.  One step program per decode batch bucket and per
+# prefill length bucket runs every iteration over the live sequences.
+SERVE_DECODE_TOKENS = counter(
+    "serve_decode_tokens_total", "tokens generated by the decode loop")
+SERVE_DECODE_STEPS = counter(
+    "serve_decode_steps_total",
+    "continuous-batching decode iterations dispatched")
+SERVE_DECODE_PREFILLS = counter(
+    "serve_decode_prefills_total",
+    "sequences prefilled through the prompt bucket path")
+SERVE_DECODE_BATCH = histogram(
+    "serve_decode_batch_size",
+    "live sequences per decode iteration (varies step to step as "
+    "sequences join and leave the running batch)",
+    buckets=(1, 2, 4, 8, 16, 32, 64))
+SERVE_DECODE_LIVE = gauge(
+    "serve_decode_live_sequences",
+    "sequences currently decoding in the running batch")
+SERVE_DECODE_WAITING = gauge(
+    "serve_decode_waiting_sequences",
+    "sequences queued for admission (slots or KV pages exhausted)")
+SERVE_DECODE_TTFT_SECONDS = histogram(
+    "serve_decode_ttft_seconds",
+    "time to first token: submit -> the prefill-produced token, by "
+    "prefix-cache outcome (hit / partial / miss)",
+    ("cache",))
+SERVE_DECODE_TOKEN_SECONDS = histogram(
+    "serve_decode_token_seconds",
+    "per-token decode latency (one continuous-batching iteration)")
+SERVE_DECODE_COMPILES = counter(
+    "serve_decode_compile_total",
+    "decode/prefill program builds by bucket (steady state: at most "
+    "one per bucket, all during warm-up)",
+    ("bucket",))
+SERVE_DECODE_EVICTIONS = counter(
+    "serve_decode_evictions_total",
+    "sequences evicted from the running batch, by reason (finished / "
+    "timeout / poisoned / error / quarantined / cancelled)",
+    ("reason",))
+SERVE_KV_PAGES_IN_USE = gauge(
+    "serve_kv_pages_in_use",
+    "KV-cache pool pages currently reserved by live sequences")
+SERVE_KV_PAGES_HIGH_WATER = gauge(
+    "serve_kv_pages_high_water",
+    "high-water mark of reserved KV-cache pool pages")
+# mx.serve.cache (serve/cache.py): the radix prefix cache
+SERVE_PREFIX_LOOKUPS = counter(
+    "serve_prefix_lookups_total",
+    "prefix-cache admissions by outcome (hit = every cacheable prompt "
+    "block matched, partial = some, miss = none)",
+    ("result",))
+SERVE_PREFIX_HIT_TOKENS = counter(
+    "serve_prefix_hit_tokens_total",
+    "prompt tokens served from cached prefix pages (prefill work "
+    "avoided)")
+SERVE_PREFIX_SHARED_PAGES = gauge(
+    "serve_prefix_shared_pages",
+    "KV pool pages in the shared refcounted segment (prefix trie + "
+    "live readers)")
+SERVE_PREFIX_EVICTIONS = counter(
+    "serve_prefix_evictions_total",
+    "prefix trie nodes dropped (LRU pool pressure, corrupt-drill "
+    "invalidation, or clear)")
+SERVE_DECODE_PREFILL_TOKENS = counter(
+    "serve_decode_prefill_tokens_total",
+    "prompt tokens actually run through a prefill/chunk program (the "
+    "uncached suffix only)")
+# mx.serve.spec (serve/spec.py): speculative decoding
+SERVE_SPEC_ROUNDS = counter(
+    "serve_spec_rounds_total",
+    "speculative rounds reaching the verify dispatch")
+SERVE_SPEC_PROPOSED = counter(
+    "serve_spec_proposed_total",
+    "draft tokens proposed to the target verifier")
+SERVE_SPEC_ACCEPTED = counter(
+    "serve_spec_accepted_total",
+    "draft tokens accepted by greedy verification (accepted/proposed "
+    "is the acceptance rate)")
+SERVE_SPEC_FALLBACKS = counter(
+    "serve_spec_fallbacks_total",
+    "sequences degraded to non-speculative decode, by reason "
+    "(draft_pool / draft_prefill / draft_nonfinite / draft_error / "
+    "injected)",
+    ("reason",))
 
 # collectives: the bucket plan a captured step feeds in a world of more
 # than one (``kvstore/collective.py:observe_bucket_fill``)

@@ -73,6 +73,8 @@ def test_import_pulls_in_no_jax():
                 "gluon.data.dataloader", "gluon.data.vision",
                 "gluon.data.vision.datasets",
                 "gluon.data.vision.transforms", "gluon.nn.moe",
+                "serve.kvcache", "serve.decode", "serve.cache",
+                "serve.spec",
                 "contrib.amp.lists", "gluon.model_zoo.vision.vgg",
                 "gluon.model_zoo.vision.alexnet",
                 "gluon.model_zoo.vision.mobilenet",
@@ -479,14 +481,9 @@ def test_dropout_seed_reaches_the_kernels_by_address(monkeypatch, kind):
 # JAX arguments the port lacks on purpose: {"module.name": (arguments,
 # where it is written down)}
 SPELLINGS = {
-    ".serve.server.Server": (["decode", "decode_config", "tenant"],
-                             "ROADMAP.md Queue 1 item 5"),
-    ".serve.server.ServeConfig": (["retry_after_s"],
-                                  "ROADMAP.md Queue 1 item 5"),
+    ".serve.server.Server": (["tenant"], "ROADMAP.md Queue 1 item 9"),
     ".monitor.stats.group_stats": (["g_arrs", "w_arrs"],
                                    "ROADMAP.md Queue 1 item 8"),
-    ".telemetry.totals": (["nonzero", "quantiles"],
-                          "ROADMAP.md Queue 1 item 8"),
     ".trace.span": (["anomaly"], "ROADMAP.md Queue 1 item 8"),
     # batch statistics are kept in float32 (ops/nn.py batch_norm)
     ".ops.nn.batch_norm": (["stat_dtype"], "ROADMAP.md Queue 1 item 6"),
@@ -600,7 +597,14 @@ def test_shared_callables_take_the_jax_arguments():
                  ".gluon.block.Block.save_parameters",
                  ".gluon.trainer.Trainer.save_checkpoint",
                  ".parallel.FusedTrainer.save_checkpoint",
-                 ".serve.server.Server.swap"):
+                 ".serve.server.Server.swap",
+                 ".serve.server.Server.submit_decode",
+                 ".serve.server.Server.start_http",
+                 ".serve.decode.DecodeRunner", ".serve.decode.TinyDecoder",
+                 ".serve.decode.DecodeScheduler.submit",
+                 ".serve.kvcache.PagePool", ".serve.cache.PrefixCache",
+                 ".serve.spec.SpecPlane", ".telemetry.totals",
+                 ".resilience.inject.poisoned"):
         assert must in names, must
 
 
