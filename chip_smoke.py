@@ -282,6 +282,38 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    water and capacity, the cache and speculation counters and the
    phase's seconds.
 
+20. np_front -- MXNet 2.0's numpy front door (``mx.np``, ``mx.npx``).
+   (a) The ``train`` recipe (BERT-base pretraining, f32, TF32 off, B=8,
+   T=512, 76 masks) written as an MXNet 2.0 script: ``npx.set_np()``,
+   inputs from ``mx.np.array``, the loss through ``npx.log_softmax``,
+   ``npx.pick`` and ``mx.np.mean``, ``autograd.record()`` and
+   ``backward()``; with dropout off its loss is within 1e-5 (relative) of
+   the ``train`` phase's step on the same weights and batch and every
+   gradient within 1e-3*max(1, max|g|); then 3 ``gluon.Trainer`` steps
+   (dropout 0.1), the three kernels launching 12 times a step, each loss
+   within 1e-6 (relative) of the ``mx.nd`` route's over the same steps
+   from the same weights, seed and dropout stream.  (b) GluonNLP's attention at BERT width:
+   ``npx.interleaved_matmul_selfatt_qk`` -> ``npx.softmax`` ->
+   ``_valatt`` on (512, 8, 3*768), 12 heads, against
+   ``npx.multi_head_attention`` (the flash kernels) on the same
+   projections: O within 1e-4, d(qkv) within 1e-3*max(1, max|g|); each
+   route's forward and forward+backward ms.  (c) Every case of the CPU
+   tests' ``mx.np`` tables (``tests/np_cases.py``) and one case of each
+   ``ops/np_tail.py`` op, on the card against the port's CPU result (the
+   same shapes and dtypes, integers exact, floats within 1e-4 relative +
+   1e-5), the reference surface resolving on the device and no host
+   fallback used; µs a call of ``np.add``/``np.matmul``/``np.sum`` beside
+   ``nd``'s at 4x4.  (d) ``potrf``, ``potri``, ``trsm``, ``syevd``,
+   ``svd``, ``inverse`` and ``slogdet`` on (32, 512, 512) f32 SPD
+   matrices against torch on the CPU in f64 (``TOL_LINALG``; torch's own
+   f32 ``eigh`` and ``svd`` on the card recorded beside ``syevd`` and
+   ``svd`` as controls), and, over
+   BERT-base's parameter shapes, ``nd.adam_update`` and
+   ``lamb_update_phase1/2`` against the port's ``optimizer.Adam``/``LAMB``
+   step (1e-6*max(1, max|w|)), ``multi_sum_sq``/``multi_lars`` against
+   f64, and ``all_finite``/``multi_all_finite`` under CUDA sync debugging
+   set to error (no read-back).
+
 Then the ``{"kernels": [...]}`` summary (gpt_lm's causal D=32 bf16 route
 as ``routes["bfloat16_causal_d32"]``; ``checkpoint_resume``'s launches in
 the f32 and bf16 routes and ``launches_by_path``), the ``nvidia-smi``
@@ -4807,6 +4839,515 @@ def phase_decode(torch, mx, fa, seed, smi, cfg=DECODE_CFG):
     torch.cuda.empty_cache()
 
 
+NP_FRONT_CFG = dict(B=8, T=512, M=76, vocab=30522, steps=3, lr=1e-4,
+                    heads=12, units=768, linalg_batch=32, linalg_n=512)
+TOL_NP_LOSS = 1e-5   # np-front loss against the nd step's, relative
+TOL_NP_STEPS = 1e-6  # np-front Trainer losses against the nd steps', relative
+TOL_NP_CASE = (1e-4, 1e-5)   # card vs CPU on the mx.np cases (rtol, atol)
+# card f32 against the CPU in f64 on (32, 512, 512) SPD matrices with
+# eigenvalues in [1, ~5]: relative Frobenius errors.  LAPACK's f32 on the
+# CPU gives 5e-8..2e-7 (syevd: eigenvalues 1.1e-7, reconstruction
+# 1.6e-6); torch's f32 eigh on the card, the control the phase records,
+# 2.2e-4 and 4.5e-4, near TF32's unit roundoff
+TOL_LINALG = {"potrf": 1e-5, "potri": 1e-5, "trsm": 1e-5,
+              "syevd_eigenvalues": 1e-5, "syevd_reconstruction": 1e-5,
+              "svd_values": 1e-5, "svd_reconstruction": 1e-5,
+              "inverse": 1e-5, "slogdet": 1e-5}
+TOL_UPDATE = 1e-6    # nd update ops vs the optimizer step, x max(1, |w|)
+
+
+def _np_cases():
+    """``tests/np_cases.py`` (the tables of ``tests/test_torch_numpy.py``
+    and ``tests/test_torch_np_tail.py``), loaded by path: plain numpy
+    data, it imports numpy only."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "np_cases.py")
+    spec = importlib.util.spec_from_file_location("np_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _np_loss(mx, mlm, nsp, labels, nsp_labels):
+    """BERT's pretraining loss written with mx.np/mx.npx, as an MXNet 2.0
+    script writes it (the masked weights are all ones here)."""
+    np_, npx = mx.np, mx.npx
+    mlm_ll = npx.pick(npx.log_softmax(mlm, axis=-1), labels, axis=-1)
+    nsp_ll = npx.pick(npx.log_softmax(nsp, axis=-1), nsp_labels, axis=-1)
+    return -np_.mean(mlm_ll) - np_.mean(nsp_ll)
+
+
+def _np_front_bert(torch, mx, fa, seed, cfg):
+    """Part a: BERT-base through the np front against the ``train``
+    phase's step on the same weights and batch (dropout off), then
+    ``cfg['steps']`` Trainer steps."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    B, T, M, vocab = cfg["B"], cfg["T"], cfg["M"], cfg["vocab"]
+    mx.npx.set_np()
+    net = bert.bert_12_768_12(pretraining=True, vocab_size=vocab,
+                              max_length=T, dropout=DROPOUT_P)
+    net.initialize()
+    weights = bert_params(net, seed)
+    mx.convert.load_jax_params(net, weights)
+    host = _train_batch(np.random.default_rng(seed + 2), B, T, M, vocab)
+    x = {k: mx.np.array(v) for k, v in host.items()}
+    if not all(v._data.is_cuda for v in x.values()):
+        fail("np_front: mx.np.array did not land on the card")
+    params = net.collect_params()
+
+    def np_step(train_mode):
+        with mx.autograd.record(train_mode=train_mode):
+            mlm, nsp = net(x["ids"], x["types"], None, x["pos"])
+            loss = _np_loss(mx, mlm, nsp, x["labels"], x["nsp"])
+        loss.backward()
+        return loss
+
+    loss_np = float(np_step(False).item())
+    g_np = {n: p.grad.detach().clone() for n, p in params.items()}
+    net.zero_grad(set_to_none=True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    loss_nd = float(_train_step(mx, bert, net, batch,
+                                train_mode=False).item())
+    rel = abs(loss_np - loss_nd) / abs(loss_nd)
+    if not rel <= TOL_NP_LOSS:
+        fail("np_front: the np-front loss %r differs from the nd step's %r "
+             "by %g (relative)" % (loss_np, loss_nd, rel))
+    worst = 0.0
+    for n, p in params.items():
+        g = p.grad
+        err = ((g_np[n] - g).abs().max().item()
+               / max(1.0, g.abs().max().item()))
+        worst = max(worst, err)
+        if err > TOL_GRAD:
+            fail("np_front: gradient of %s differs from the nd step's by "
+                 "%g" % (n, err))
+    del g_np
+    net.zero_grad(set_to_none=True)
+
+    def steps(step):
+        # the same weights, Adam state and dropout stream on either route
+        mx.convert.load_jax_params(net, weights)
+        trainer = mx.gluon.Trainer(params, "adam",
+                                   {"learning_rate": cfg["lr"]})
+        mx.random.seed(seed)
+        losses, step_ms = [], []
+        for _ in range(cfg["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step()
+            trainer.step(1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.item()))
+        return losses, step_ms
+
+    _reset_flash(fa)
+    losses, step_ms = steps(lambda: np_step(True))
+    launches = _want_launches(fa, 12, cfg["steps"], "np_front BERT")
+    nd_losses, _ = steps(lambda: _train_step(mx, bert, net, batch))
+    step_err = max(abs(a - b) / abs(b) for a, b in zip(losses, nd_losses))
+    if not (all(np.isfinite(losses)) and step_err <= TOL_NP_STEPS):
+        fail("np_front: the np-front Trainer losses %s differ from the nd "
+             "steps' %s by %g (relative)" % (losses, nd_losses, step_err))
+    del net, params, x, batch, weights
+    torch.cuda.empty_cache()
+    return {"loss_np": loss_np, "loss_nd": loss_nd, "loss_rel_err": rel,
+            "loss_tol": TOL_NP_LOSS, "grad_max_rel_err": worst,
+            "grad_tol": TOL_GRAD, "losses": losses, "nd_losses": nd_losses,
+            "steps_rel_err": step_err, "steps_tol": TOL_NP_STEPS,
+            "step_ms": step_ms, "launches": launches}
+
+
+def _np_front_interleaved(torch, mx, fa, seed, cfg):
+    """Part b: GluonNLP's interleaved attention route at BERT width
+    against ``npx.multi_head_attention`` (the flash kernels) on the same
+    projections, forward and backward."""
+    npx = mx.npx
+    T, B, H, E = cfg["T"], cfg["B"], cfg["heads"], cfg["units"]
+    D = E // H
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    qkv0 = torch.randn(T, B, 3 * E, device="cuda", generator=gen) * 0.5
+    dout = torch.randn(T, B, E, device="cuda", generator=gen)
+
+    def interleaved(qkv):
+        s = npx.interleaved_matmul_selfatt_qk(qkv, heads=H)
+        return npx.interleaved_matmul_selfatt_valatt(
+            qkv, npx.softmax(s, axis=-1), heads=H)
+
+    def flash(qkv):
+        x = qkv.reshape((T, B, H, 3, D))
+        q, k, v = (x[:, :, :, i, :].reshape((T, B, E)).transpose((1, 0, 2))
+                   for i in range(3))
+        return npx.multi_head_attention(q, k, v, num_heads=H).transpose(
+            (1, 0, 2))
+
+    res, ms = {}, {}
+    for name, route in (("interleaved", interleaved), ("flash", flash)):
+        qkv = mx.np.array(qkv0)
+        qkv.attach_grad()
+        with mx.autograd.record():
+            out = route(qkv)
+        out.backward(mx.nd.from_torch(dout))
+        res[name] = (out._data.detach(), qkv.grad._data.clone())
+        x = mx.nd.from_torch(qkv0)
+        ms[name + "_fwd_ms"] = cuda_ms(lambda: route(x), 10)
+        xg = mx.np.array(qkv0)
+        xg.attach_grad()
+
+        def fwd_bwd():
+            with mx.autograd.record():
+                o = route(xg)
+            o.backward(mx.nd.from_torch(dout))
+
+        ms[name + "_fwd_bwd_ms"] = cuda_ms(fwd_bwd, 10)
+    err_o = (res["interleaved"][0] - res["flash"][0]).abs().max().item()
+    g_ref = res["flash"][1]
+    err_g = ((res["interleaved"][1] - g_ref).abs().max().item()
+             / max(1.0, g_ref.abs().max().item()))
+    if err_o > TOL_O["float32"] or err_g > TOL_GRAD:
+        fail("np_front: the interleaved route differs from "
+             "multi_head_attention: O %g, d(qkv) %g" % (err_o, err_g))
+    return dict(ms, shape=[T, B, 3 * E], heads=H, max_abs_err_o=err_o,
+                tol_o=TOL_O["float32"], grad_max_rel_err=err_g,
+                grad_tol=TOL_GRAD)
+
+
+def _host(x):
+    out = x if isinstance(x, (list, tuple)) else [x]
+    flat = []
+    for o in out:
+        if isinstance(o, (list, tuple)):
+            flat.extend(_host(o))
+        else:
+            flat.append(o.asnumpy() if hasattr(o, "asnumpy")
+                        else np.asarray(o))
+    return flat
+
+
+def _to_nd(mx, v, ctx):
+    if isinstance(v, np.ndarray):
+        return mx.np.array(v, dtype=v.dtype, ctx=ctx)
+    if isinstance(v, list):
+        return [_to_nd(mx, a, ctx) for a in v]
+    if isinstance(v, tuple):
+        return tuple(_to_nd(mx, a, ctx) for a in v)
+    return v
+
+
+def _np_front_case(mx, ns, name, args, kwargs, cpu, gpu):
+    """One ``mx.np`` (or ``mx.nd`` np-tail) case on the card against the
+    CPU; returns its largest error as a share of the tolerance."""
+    rtol, atol = TOL_NP_CASE
+    worst = 0.0
+    outs = {}
+    for ctx in (cpu, gpu):
+        with ctx:
+            fn = getattr(mx.np if ns == "np" else mx.nd, name)
+            if ns == "np":
+                outs[ctx] = fn(*_to_nd(mx, args, ctx), **kwargs)
+            else:
+                outs[ctx] = fn(*[mx.nd.array(a, ctx=ctx)
+                                 if isinstance(a, np.ndarray) else a
+                                 for a in args], **kwargs)
+    for o in (outs[gpu] if isinstance(outs[gpu], (list, tuple))
+              else [outs[gpu]]):
+        if hasattr(o, "_data") and not o._data.is_cuda:
+            fail("np_front: %s.%s left the card" % (ns, name))
+    got, ref = _host(outs[gpu]), _host(outs[cpu])
+    if len(got) != len(ref):
+        fail("np_front: %s.%s gave %d outputs, %d on the CPU"
+             % (ns, name, len(got), len(ref)))
+    for g, r in zip(got, ref):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            fail("np_front: %s.%s %s %s on the card, %s %s on the CPU"
+                 % (ns, name, g.shape, g.dtype, r.shape, r.dtype))
+        if r.dtype.kind in "fc":
+            err = float(np.max(np.abs(g - r) / (atol + rtol * np.abs(r)),
+                               initial=0.0))
+            worst = max(worst, err)
+            if err > 1.0:
+                fail("np_front: %s.%s differs from the CPU (%g of the "
+                     "tolerance)" % (ns, name, err))
+        elif not np.array_equal(g, r):
+            fail("np_front: %s.%s differs from the CPU" % (ns, name))
+    return worst
+
+
+def _np_front_table(torch, mx, cfg):
+    """Part c: every case of the CPU tests' mx.np and np-tail tables on
+    the card against the port's CPU result; the host fallback must stay
+    unused; dispatch µs of three np calls beside nd's."""
+    import mxnet_tpu_torch.numpy as mnp
+
+    tables = _np_cases()
+    rtol, atol = TOL_NP_CASE
+    cases = ([("np", n, a, k) for n, a, k in
+              tables.CASES + tables.EXTRA + tables.KEYWORDS]
+             + [("nd", n, tuple(tables.NP_TAIL[n][0]), tables.NP_TAIL[n][1])
+                for n in sorted(tables.NP_TAIL)])
+    names, worst, bad = set(), 0.0, []
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    for ns, name, args, kwargs in cases:
+        try:
+            worst = max(worst, _np_front_case(mx, ns, name, args, kwargs,
+                                              cpu, gpu))
+        except (Exception, SystemExit) as e:       # every case reported
+            bad.append("%s.%s: %s" % (ns, name, str(e).splitlines()[0]))
+        names.add("%s.%s" % (ns, name))
+    if bad:
+        fail("np_front: %d of %d cases: %s" % (len(bad), len(cases), bad))
+    surface = [n for n in tables.REFERENCE_NP_SURFACE
+               if mnp.resolve_source(n) != "torch"]
+    if surface or mnp.fallback_names():
+        fail("np_front: host fallbacks %s %s"
+             % (surface, mnp.fallback_names()))
+
+    small = np.random.RandomState(0).rand(4, 4).astype(np.float32)
+    a = mx.np.array(small)
+
+    def timeit(f, iters=300, warmup=25):
+        for _ in range(warmup):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            f()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e6
+
+    us = {"add": {"np_us": timeit(lambda: mx.np.add(a, a)),
+                  "nd_us": timeit(lambda: mx.nd.add(a, a))},
+          "matmul": {"np_us": timeit(lambda: mx.np.matmul(a, a)),
+                     "nd_us": timeit(lambda: mx.nd.dot(a, a))},
+          "sum": {"np_us": timeit(lambda: mx.np.sum(a)),
+                  "nd_us": timeit(lambda: mx.nd.sum(a))}}
+    return {"cases": len(cases), "names_checked": len(names),
+            "worst_of_tolerance": worst, "rtol": rtol, "atol": atol,
+            "fallback_names": mnp.fallback_names(), "dispatch_4x4": us}
+
+
+def _np_front_linalg(torch, mx, seed, cfg):
+    """Part d, linear algebra: the la_op family on batched f32 SPD
+    matrices on the card against torch.linalg on the CPU in f64."""
+    nb, n = cfg["linalg_batch"], cfg["linalg_n"]
+    nd = mx.nd
+    rng = np.random.default_rng(seed + 7)
+    x = rng.standard_normal((nb, n, n)).astype(np.float32) / np.sqrt(n)
+    spd = (x @ x.transpose(0, 2, 1) + np.eye(n, dtype=np.float32))
+    spd = ((spd + spd.transpose(0, 2, 1)) / 2).astype(np.float32)
+    b = rng.standard_normal((nb, n, 64)).astype(np.float32)
+    A64 = torch.from_numpy(spd).double()
+    L64 = torch.linalg.cholesky(A64)
+    ref = {"potrf": L64, "potri": torch.cholesky_inverse(L64),
+           "trsm": torch.linalg.solve_triangular(
+               L64, torch.from_numpy(b).double(), upper=False),
+           "inverse": torch.linalg.inv(A64)}
+    w64 = torch.linalg.eigvalsh(A64)
+    s64, ld64 = torch.linalg.slogdet(A64)
+    A = nd.array(spd)
+    L = nd.linalg.potrf(A)
+    calls = {"potrf": lambda: nd.linalg.potrf(A),
+             "potri": lambda: nd.linalg.potri(L),
+             "trsm": lambda: nd.linalg.trsm(L, nd.array(b)),
+             "syevd": lambda: nd.linalg.syevd(A),
+             "svd": lambda: nd.linalg.svd(A),
+             "inverse": lambda: nd.linalg.inverse(A),
+             "slogdet": lambda: nd.linalg.slogdet(A)}
+    # the decompositions' errors are taken on the card in f64 (the
+    # reconstructions are 2 x 17 GFLOP each)
+    A64c, w64c = A64.cuda(), w64.cuda()
+
+    def eig_errs(u, w):
+        """(eigenvalue, reconstruction) errors of rows ``u``, values
+        ``w``, against f64."""
+        u, w = u.double(), w.double()
+        rec = u.transpose(-1, -2) @ (w[..., None] * u)
+        return (((w - w64c).norm() / w64c.norm()).item(),
+                ((rec - A64c).norm() / A64c.norm()).item())
+
+    def svd_errs(u, s, vt):
+        """(singular value, reconstruction) errors against f64 (an SPD
+        matrix's singular values are its eigenvalues)."""
+        u, s, vt = (t.double() for t in (u, s, vt))
+        rec = (u * s[..., None, :]) @ vt
+        return (((s - w64c.flip(-1)).norm() / w64c.norm()).item(),
+                ((rec - A64c).norm() / A64c.norm()).item())
+
+    errs, ms = {}, {}
+    for name, call in calls.items():
+        out = call()
+        if name in ref:
+            got = out._data.double().cpu()
+            errs[name] = ((got - ref[name]).norm() / ref[name].norm()).item()
+        elif name == "syevd":
+            errs["syevd_eigenvalues"], errs["syevd_reconstruction"] = \
+                eig_errs(out[0]._data, out[1]._data)
+        elif name == "svd":
+            errs["svd_values"], errs["svd_reconstruction"] = svd_errs(
+                *(o._data for o in out))
+        else:
+            sign, ld = (o._data.double().cpu() for o in out)
+            if not torch.equal(sign, s64):
+                fail("np_front: slogdet's signs differ from the CPU's")
+            errs[name] = ((ld - ld64).abs().max() / ld64.abs().max()).item()
+        ms[name] = cuda_ms(call, 1 if name in ("syevd", "svd") else 3)
+    # the controls: torch's f32 eigh and SVD on the card, which the port's
+    # syevd and svd do not take (they decompose in f64 and round back)
+    w32, v32 = torch.linalg.eigh(A._data)
+    control = dict(zip(("syevd_eigenvalues", "syevd_reconstruction"),
+                       eig_errs(v32.transpose(-1, -2), w32)))
+    control.update(zip(("svd_values", "svd_reconstruction"), svd_errs(
+        *torch.linalg.svd(A._data, full_matrices=False))))
+    ms["syevd_f32_control"] = cuda_ms(lambda: torch.linalg.eigh(A._data), 1)
+    ms["svd_f32_control"] = cuda_ms(
+        lambda: torch.linalg.svd(A._data, full_matrices=False), 1)
+    over = {k: v for k, v in errs.items() if v > TOL_LINALG[k]}
+    if over:
+        fail("np_front: linalg differs from the CPU in f64: %s (tolerances "
+             "%s)" % (over, TOL_LINALG))
+    return {"shape": [nb, n, n], "rel_err": errs, "tol": TOL_LINALG,
+            "f32_control_rel_err": control,
+            "control_over_gate": {k: v > TOL_LINALG[k]
+                                  for k, v in control.items()}, "ms": ms}
+
+
+def _np_front_updates(torch, mx, seed, cfg):
+    """Part d, update ops over BERT-base's parameter shapes: nd.adam_update
+    and lamb_update_phase1/2 against the port's Adam/LAMB step, and
+    multi_sum_sq, multi_lars and all_finite against plain torch; all_finite
+    with CUDA sync debugging set to error (no read-back)."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    nd = mx.nd
+    shapes = [tuple(p.shape) for p in bert.bert_12_768_12(
+        pretraining=True, vocab_size=cfg["vocab"],
+        max_length=cfg["T"]).collect_params().values()]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    ws = [torch.randn(s, device="cuda", generator=gen) * 0.02
+          for s in shapes]
+    gs = [torch.randn(s, device="cuda", generator=gen) * 1e-3
+          for s in shapes]
+    lr, b1, b2, wd = 1e-4, 0.9, 0.999, 0.01
+    worst = {}
+
+    def check(name, got, want):
+        err = max(((a - b).abs().max() / max(1.0, b.abs().max().item()))
+                  .item() for a, b in zip(got, want))
+        worst[name] = err
+        if err > TOL_UPDATE:
+            fail("np_front: %s differs from the optimizer step by %g"
+                 % (name, err))
+
+    adam = mx.optimizer.Adam(learning_rate=lr, beta1=b1, beta2=b2,
+                             epsilon=1e-8, wd=wd)
+    want = [w.clone() for w in ws]
+    for i, (w, g) in enumerate(zip(want, gs)):
+        adam.update(i, w, g, adam.create_state(i, w))
+    # the optimizer's lr * (m/c1) / (sqrt(v/c2) + eps) is adam_update's
+    # lr_t * m / (sqrt(v) + eps_t) with lr_t = lr sqrt(c2)/c1 and eps_t =
+    # eps sqrt(c2) (c1, c2 = 1 - beta1, 1 - beta2 at step 1)
+    lr_t = lr * np.sqrt(1 - b2) / (1 - b1)
+    eps_t = 1e-8 * np.sqrt(1 - b2)
+    got = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w, g in zip(ws, gs):
+        wn = nd.from_torch(w.clone())
+        m, v = nd.from_torch(torch.zeros_like(w)), \
+            nd.from_torch(torch.zeros_like(w))
+        nd.adam_update(wn, nd.from_torch(g), m, v, lr=lr_t, beta1=b1,
+                       beta2=b2, epsilon=eps_t, wd=wd, out=wn)
+        got.append(wn._data)
+    torch.cuda.synchronize()
+    adam_ms = (time.perf_counter() - t0) * 1e3
+    check("adam_update", got, want)
+
+    lamb = mx.optimizer.LAMB(learning_rate=lr, beta1=b1, beta2=b2,
+                             epsilon=1e-6, wd=wd)
+    want = [w.clone() for w in ws]
+    for i, (w, g) in enumerate(zip(want, gs)):
+        lamb.update(i, w, g, lamb.create_state(i, w))
+    got = []
+    for w, g in zip(ws, gs):
+        wn = nd.from_torch(w.clone())
+        m, v = nd.from_torch(torch.zeros_like(w)), \
+            nd.from_torch(torch.zeros_like(w))
+        d = nd.lamb_update_phase1(wn, nd.from_torch(g), m, v, beta1=b1,
+                                  beta2=b2, epsilon=1e-6, t=1, wd=wd)
+        r1, r2 = nd.norm(wn).reshape((1,)), nd.norm(d).reshape((1,))
+        nd.lamb_update_phase2(wn, d, r1, r2, lr=lr, out=wn)
+        got.append(wn._data)
+    check("lamb_update_phase1/2", got, want)
+
+    w_nd, g_nd = [nd.from_torch(w) for w in ws], [nd.from_torch(g)
+                                                  for g in gs]
+    sq_w = nd.multi_sum_sq(*w_nd, num_arrays=len(ws))._data
+    sq_g = nd.multi_sum_sq(*g_nd, num_arrays=len(gs))._data
+    ref_w = torch.stack([w.double().square().sum() for w in ws])
+    ref_g = torch.stack([g.double().square().sum() for g in gs])
+    worst["multi_sum_sq"] = max(
+        ((sq_w.double() - ref_w).abs() / ref_w).max().item(),
+        ((sq_g.double() - ref_g).abs() / ref_g).max().item())
+    if worst["multi_sum_sq"] > 1e-5:
+        fail("np_front: multi_sum_sq differs from f64 by %g"
+             % worst["multi_sum_sq"])
+    lrs = torch.full((len(ws),), lr, device="cuda")
+    wds = torch.full((len(ws),), wd, device="cuda")
+    lars = nd.multi_lars(nd.from_torch(lrs), nd.from_torch(sq_w),
+                         nd.from_torch(sq_g), nd.from_torch(wds),
+                         eta=0.001, eps=1e-8)._data
+    wn, gn = ref_w.sqrt(), ref_g.sqrt()
+    want_lars = lr * 0.001 * wn / (gn + wd * wn + 1e-8)
+    worst["multi_lars"] = ((lars.double() - want_lars).abs()
+                           / want_lars).max().item()
+    if worst["multi_lars"] > 1e-5:
+        fail("np_front: multi_lars differs by %g" % worst["multi_lars"])
+    bad = gs[3].clone()
+    bad.view(-1)[7] = float("inf")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ok = nd.multi_all_finite(*g_nd, num_arrays=len(gs))._data
+        one = nd.all_finite(g_nd[0])._data
+        nope = nd.all_finite(nd.from_torch(bad))._data
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not (ok.is_cuda and float(ok) == 1.0 and float(one) == 1.0
+            and float(nope) == 0.0):
+        fail("np_front: all_finite gave %s %s %s" % (ok, one, nope))
+    return {"tensors": len(ws), "elements": int(sum(w.numel() for w in ws)),
+            "max_rel_err": worst, "tol": TOL_UPDATE,
+            "adam_update_loop_ms": adam_ms,
+            "all_finite_no_sync": True}
+
+
+def phase_np_front(torch, mx, fa, seed, smi, cfg=NP_FRONT_CFG):
+    """MXNet 2.0's numpy front door on the card (see the module doc)."""
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        part_s[name] = time.perf_counter() - t
+        return out
+
+    part_a = part("a", _np_front_bert, torch, mx, fa, seed, cfg)
+    part_b = part("b", _np_front_interleaved, torch, mx, fa, seed, cfg)
+    part_c = part("c", _np_front_table, torch, mx, cfg)
+    part_d = {"linalg": part("d_linalg", _np_front_linalg, torch, mx, seed,
+                             cfg),
+              "updates": part("d_updates", _np_front_updates, torch, mx,
+                              seed, cfg)}
+    emit({"phase": "np_front", "bert": part_a, "interleaved": part_b,
+          "np_table": part_c, "real_size": part_d, "part_s": part_s,
+          "phase_s": time.perf_counter() - t0, "card": smi})
+    return part_a["launches"]
+
+
 def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
     """One kernel route's summary from its case: ``bound_key`` None for
     the forward's bound (``bound_ms``), else "dq"/"dkv"; ``errs`` the
@@ -4882,6 +5423,7 @@ def main():
                                         train_fp32)
     ckpt_launches = phase_checkpoint_resume(torch, mx, fa, args.seed, smi)
     phase_decode(torch, mx, fa, args.seed, smi)
+    np_launches = phase_np_front(torch, mx, fa, args.seed, smi)
 
     # each route's numbers at its main path's shape, not causal: f32 at
     # (8, 12, 512, 512, 64), the forward as served (no dropout), the
@@ -4899,7 +5441,8 @@ def main():
     fwd_launches = {"float32": serve_launches
                     + train_launches["flash_attention"]
                     + captured_launches["flash_attention"]
-                    + nd_fwd["float32"] + ck_f32["flash_attention"],
+                    + nd_fwd["float32"] + ck_f32["flash_attention"]
+                    + np_launches["flash_attention"],
                     "bfloat16": bf16_launches["flash_attention"]
                     + nd_fwd["bfloat16"]
                     + gpt_launches["flash_attention"]
@@ -4928,13 +5471,14 @@ def main():
         "vision_zoo": zoo_launches["flash_attention"],
         "train_amp_fp16": amp_launches["flash_attention"],
         "checkpoint_resume": ck_f32["flash_attention"]
-        + ck_bf16["flash_attention"]}
+        + ck_bf16["flash_attention"],
+        "np_front": np_launches["flash_attention"]}
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
         nd_k = nd_launches[kname]
         launches = {"float32": train_launches[kname]
                     + captured_launches[kname] + nd_k["float32"]
-                    + ck_f32[kname],
+                    + ck_f32[kname] + np_launches[kname],
                     "bfloat16": bf16_launches[kname] + nd_k["bfloat16"]
                     + gpt_launches[kname] + ck_bf16[kname],
                     "float16": amp_launches[kname]}
@@ -4960,7 +5504,8 @@ def main():
             "train_vision": vision_launches[kname],
             "vision_zoo": zoo_launches[kname],
             "train_amp_fp16": amp_launches[kname],
-            "checkpoint_resume": ck_f32[kname] + ck_bf16[kname]}
+            "checkpoint_resume": ck_f32[kname] + ck_bf16[kname],
+            "np_front": np_launches[kname]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

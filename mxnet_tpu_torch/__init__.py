@@ -37,6 +37,10 @@ from . import (autograd, base, callback, checkpoint, context,  # noqa: F401
                resilience, serve, step, telemetry, trace)
 from . import data, image, io, native, recordio  # noqa: F401
 from . import ndarray as nd  # noqa: F401
+from . import numpy, numpy_extension, operator, util  # noqa: F401
+from . import numpy as np  # noqa: F401
+from . import numpy_extension as npx  # noqa: F401
+from .util import is_np_array, reset_np, set_np, use_np  # noqa: F401
 from .ndarray import NDArray, waitall  # noqa: F401
 from .optimizer import lr_scheduler  # noqa: F401  (mx.lr_scheduler)
 from .base import MXNetError  # noqa: F401

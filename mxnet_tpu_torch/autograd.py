@@ -38,14 +38,15 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "is_recomputing", "recomputing", "backward",
-           "grad", "mark_variables"]
+           "is_training", "set_recording", "set_training", "is_recomputing",
+           "recomputing", "backward", "grad", "mark_variables", "Function"]
 
 
 class _State(threading.local):
     is_recording = False
     is_training = False
     is_recomputing = False
+    grad_before = None      # torch's grad mode when set_recording(True) ran
 
 
 _STATE = _State()
@@ -57,6 +58,30 @@ def is_recording():
 
 def is_training():
     return _STATE.is_training
+
+
+def set_recording(is_record):
+    """Turn recording on or off outside a scope; returns the previous
+    state.  Torch's grad mode follows: on while recording, and back to
+    what it was when recording was turned on once it is turned off."""
+    prev = _STATE.is_recording
+    is_record = bool(is_record)
+    if is_record and not prev:
+        _STATE.grad_before = torch.is_grad_enabled()
+        torch.set_grad_enabled(True)
+    elif prev and not is_record:
+        before = _STATE.grad_before
+        torch.set_grad_enabled(True if before is None else before)
+        _STATE.grad_before = None
+    _STATE.is_recording = is_record
+    return prev
+
+
+def set_training(train_mode_):
+    """Turn training mode on or off; returns the previous state."""
+    prev = _STATE.is_training
+    _STATE.is_training = bool(train_mode_)
+    return prev
 
 
 def is_recomputing():
@@ -229,3 +254,58 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         leaf._mx_grad = gradient
         _HANDLED[id(leaf)] = leaf
         var._data = leaf
+
+
+class _UserFunction(torch.autograd.Function):
+    """The tape node of one ``Function`` call."""
+
+    @staticmethod
+    def forward(ctx, func, *tensors):
+        from .ndarray.ndarray import NDArray
+
+        with pause():
+            outputs = func.forward(*[NDArray(t) for t in tensors])
+        ctx.func = func
+        func._single = not isinstance(outputs, (list, tuple))
+        return tuple(_tensor(o).detach() for o in _as_list(outputs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray.ndarray import NDArray
+
+        with pause():
+            in_grads = ctx.func.backward(*[NDArray(g) for g in grads])
+        return (None,) + tuple(None if g is None else _tensor(g)
+                               for g in _as_list(in_grads))
+
+
+class Function:
+    """A user-defined differentiable function on NDArrays: subclass it,
+    write ``forward`` and ``backward``, and call an instance.  Inside
+    ``record()`` the call is one node of torch's tape whose backward is
+    the subclass's ``backward``."""
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+
+        tensors = [_tensor(x) for x in inputs]
+        with torch.set_grad_enabled(is_recording()):
+            outs = _UserFunction.apply(self, *tensors)
+        wrapped = [NDArray(o) for o in outs]
+        return wrapped[0] if self._single else tuple(wrapped)

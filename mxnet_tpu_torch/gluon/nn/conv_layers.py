@@ -8,7 +8,9 @@ transposed (in_channels, channels/groups, *kernel)).  ``in_channels=0``
 defers the weight's input size to the first call.  As in the JAX package,
 pooling accepts ``ceil_mode`` and does not use it, and the transposed
 convs accept ``output_padding`` and do not use it (``ops.nn.deconvolution``).
-The deformable convolutions are not ported.
+``DeformableConvolution``/``ModulatedDeformableConvolution`` (DCN v1/v2)
+run a regular conv for the per-tap offsets (and mask) and then
+``ops.contrib_tail.deformable_convolution``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
            "AvgPool1D", "AvgPool2D", "AvgPool3D", "GlobalMaxPool1D",
            "GlobalMaxPool2D", "GlobalMaxPool3D", "GlobalAvgPool1D",
            "GlobalAvgPool2D", "GlobalAvgPool3D", "ReflectionPad2D",
-           "PixelShuffle1D", "PixelShuffle2D", "PixelShuffle3D"]
+           "PixelShuffle1D", "PixelShuffle2D", "PixelShuffle3D",
+           "DeformableConvolution", "ModulatedDeformableConvolution"]
 
 
 def _tuple(x, n):
@@ -307,3 +310,67 @@ class PixelShuffle3D(_PixelShuffle):
 
     def __init__(self, factor):
         super().__init__(factor, 3)
+
+
+class DeformableConvolution(_Resolving):
+    """Deformable convolution v1/v2 (Dai et al. 2017, Zhu et al. 2019).
+
+    Two branches, as in the reference block: a regular conv gives each
+    kernel tap's (dy, dx) offsets (and, when ``modulated``, its mask
+    through a sigmoid), and the deformable conv samples the input there.
+    The offset branch starts at zero, so a fresh layer is the plain conv.
+    """
+
+    def __init__(self, channels, kernel_size=(3, 3), strides=(1, 1),
+                 padding=(1, 1), in_channels=0, num_deformable_group=1,
+                 use_bias=True, modulated=False, weight_initializer=None,
+                 prefix=None):
+        super().__init__()
+        from ... import initializer as init
+
+        self._kernel = _tuple(kernel_size, 2)
+        self._strides = _tuple(strides, 2)
+        self._padding = _tuple(padding, 2)
+        self._channels = channels
+        self._dg = num_deformable_group
+        self._modulated = modulated
+        kh, kw = self._kernel
+        n_off = self._dg * kh * kw * (3 if modulated else 2)
+        self.offset_weight = _param((n_off, in_channels, kh, kw),
+                                    init=init.Zero())
+        self.offset_bias = _param((n_off,), init=init.Zero())
+        self.weight = _param((channels, in_channels, kh, kw),
+                             init=weight_initializer or init.Xavier())
+        self.bias = _param((channels,), init=init.Zero()) if use_bias \
+            else None
+
+    def infer_shape(self, x, *args):
+        in_c = x.shape[1]
+        kh, kw = self._kernel
+        self.weight._finish_deferred_init((self._channels, in_c, kh, kw))
+        self.offset_weight._finish_deferred_init(
+            (self.offset_weight.shape[0], in_c, kh, kw))
+
+    def forward(self, x):
+        from ...ops.contrib_tail import deformable_convolution
+
+        self._resolve(x)
+        kh, kw = self._kernel
+        off = F.convolution(x, self.offset_weight, self.offset_bias,
+                            stride=self._strides, pad=self._padding)
+        mask = None
+        if self._modulated:
+            n2 = self._dg * kh * kw * 2
+            off, mask = off[:, :n2], off[:, n2:].sigmoid()
+        return deformable_convolution(
+            x, off, self.weight, self.bias, kernel=self._kernel,
+            stride=self._strides, pad=self._padding,
+            num_deformable_group=self._dg, mask=mask)
+
+
+class ModulatedDeformableConvolution(DeformableConvolution):
+    """DCNv2: deformable convolution with a per-tap modulation mask."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs["modulated"] = True
+        super().__init__(*args, **kwargs)

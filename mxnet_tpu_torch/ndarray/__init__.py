@@ -18,7 +18,7 @@ import torch
 
 from ..base import MXNetError, _as_torch_dtype
 from ..context import current_context, device_of
-from ..ops.registry import apply_op, get_op, list_ops
+from ..ops.registry import get_op, list_ops
 from .ndarray import NDArray, concatenate, from_torch, waitall
 
 # ---- every registered op under its MXNet name -----------------------------
@@ -62,7 +62,9 @@ def array(source_array, ctx=None, dtype=None):
         if arr.dtype.name == "bfloat16":
             t = torch.from_numpy(arr.view(_np.int16)).view(torch.bfloat16)
         else:
-            t = torch.from_numpy(_np.ascontiguousarray(arr))
+            # np.ascontiguousarray would raise a 0-d array to 1-d
+            t = torch.from_numpy(arr if arr.flags.c_contiguous
+                                 else arr.copy(order="C"))
     dt = _as_torch_dtype(t.dtype if dtype is None else dtype)
     return NDArray(_ctx(ctx).place(t.to(dtype=dt), copy=True))
 
@@ -127,10 +129,6 @@ def zeros_like(other, **kw):
 
 def ones_like(other, **kw):
     return get_op("ones_like")(other)
-
-
-def moveaxis(a, source, destination):
-    return apply_op(lambda x: torch.movedim(x, source, destination), a)
 
 
 # ---- serialization: the JAX package's npz layout, or the reference's -----
@@ -205,9 +203,11 @@ def load(fname, ctx=None):
 
 
 from . import contrib  # noqa: E402  (mx.nd.contrib)
+from . import image, linalg  # noqa: E402  (mx.nd.image, mx.nd.linalg)
 from .. import random  # noqa: E402  (mx.nd.random is mx.random)
+from ..operator import Custom  # noqa: E402  (mx.nd.Custom)
 
 __all__ = ["NDArray", "waitall", "array", "zeros", "ones", "full", "empty",
-           "arange", "linspace", "eye", "zeros_like", "ones_like", "moveaxis",
+           "arange", "linspace", "eye", "zeros_like", "ones_like",
            "save", "load", "concatenate", "from_torch", "random",
-           "contrib", "dropout"] + list_ops()
+           "contrib", "image", "linalg", "Custom", "dropout"] + list_ops()

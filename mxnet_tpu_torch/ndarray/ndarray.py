@@ -48,7 +48,6 @@ class NDArray:
 
     __slots__ = ("_data", "__weakref__")
     __array_priority__ = 100.0
-    __array_ufunc__ = None   # numpy operators defer to the NDArray's own
 
     def __init__(self, data, ctx=None):
         if isinstance(data, NDArray):
@@ -457,6 +456,33 @@ class NDArray:
     def __array__(self, dtype=None, copy=None):
         arr = self.asnumpy()
         return arr.astype(dtype) if dtype is not None else arr
+
+    # NEP-18/NEP-13 dispatch: numpy calls on NDArray operands route
+    # through mx.np, so ``numpy.mean(x)`` stays on x's device and on the
+    # autograd tape instead of reading x back to the host
+    def __array_function__(self, func, types, args, kwargs):
+        from .. import numpy as _mxnp
+
+        target = _mxnp
+        mod = getattr(func, "__module__", "") or ""
+        for part in mod.split(".")[1:]:       # numpy.linalg -> .linalg
+            target = getattr(target, part, None)
+            if target is None:
+                return NotImplemented
+        f = getattr(target, func.__name__, None)
+        if f is None:
+            return NotImplemented
+        return f(*args, **kwargs)
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        if method != "__call__" or kwargs.get("out") is not None:
+            return NotImplemented
+        from .. import numpy as _mxnp
+
+        f = getattr(_mxnp, ufunc.__name__, None)
+        if f is None:
+            return NotImplemented
+        return f(*inputs, **kwargs)
 
     def __dlpack__(self, stream=None):
         return self._data.detach().__dlpack__(stream=stream)

@@ -6,5 +6,7 @@ their functions as they are imported (``legacy`` last, as its aliases
 resolve against the others)."""
 from . import flash_attention, nn  # noqa: F401
 from . import core, tensor_tail, random_ops, legacy  # noqa: F401
+from . import (np_tail, linalg, quantization, image_ops,  # noqa: F401
+               optimizer_ops, contrib_tail)
 from .registry import (Operator, alias, apply_op, get_op, invoke,  # noqa: F401
                        list_ops, register)

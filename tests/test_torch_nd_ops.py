@@ -268,8 +268,30 @@ def _outs(x):
     return list(x) if isinstance(x, tuple) else [x]
 
 
+def _held_elsewhere():
+    """The ops whose cases live in the files of their own modules (the np
+    tail, linear algebra, quantization, image, optimizer update and contrib
+    tail ops), each against the JAX op of the same name."""
+    from test_torch_contrib_tail import CASES as contrib, _name
+    from test_torch_image_quant import IMAGE, QUANT, SAMPLING
+    from test_torch_linalg import CASES as linalg
+    from np_cases import NP_TAIL
+    from test_torch_optimizer_ops import CASES as updates, PLAIN
+
+    names = set(NP_TAIL) | {"linalg_" + n for n in linalg}
+    names |= {_name(k) for k in contrib} | set(updates) | set(PLAIN)
+    names |= {"reset_arrays"} | set(SAMPLING) - {"GridGenerator_warp"}
+    names |= {k.replace("_calib", "").replace("_nhwc", "") for k in QUANT}
+    image = {k.split("_batched")[0] for k in IMAGE}
+    names |= {"image_" + k.rsplit("_", 1)[0] if k.startswith("resize")
+              else "image_" + k for k in image}
+    names.add("image_random_resized_crop")
+    return {n for n in treg.list_ops() if treg.get_op(n).name in names}
+
+
 def test_every_op_has_a_case():
-    missing = sorted(set(treg.list_ops()) - RANDOM - set(SPECS))
+    missing = sorted(set(treg.list_ops()) - RANDOM - set(SPECS)
+                     - _held_elsewhere())
     assert not missing, missing
 
 

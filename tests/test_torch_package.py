@@ -15,6 +15,10 @@
 - The persistence modules (``checkpoint/``, ``legacy_io.py``) never
   import ``ml_dtypes``: the card's machine has none, and bf16 leaves go
   through 16-bit integer views.
+- Names: every public name of the JAX ``mx.nd``, ``mx.np`` and ``mx.npx``
+  is in the port's, but for the names of the modules a later slice ports
+  (``DEFERRED``, each with its ``ROADMAP.md`` item) and the few that are
+  not API (``NOT_API``).
 """
 import ctypes
 import importlib
@@ -94,7 +98,7 @@ _IMPORT = re.compile(r"^\s*(?:from|import)\s+[^#\n]*"
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT) for p in PKG.rglob("*.py")]
-    + [Path("chip_smoke.py")]), ids=str)
+    + [Path("chip_smoke.py"), Path("tests/np_cases.py")]), ids=str)
 def test_source_imports_neither_jax_nor_mxnet_tpu(path):
     assert _IMPORT.findall((ROOT / path).read_text()) == []
 
@@ -411,17 +415,20 @@ sys.path.insert(0, %r)
 import chip_smoke
 import mxnet_tpu_torch.step.capture, mxnet_tpu_torch.monitor.core
 import mxnet_tpu_torch.optimizer.multi_tensor, mxnet_tpu_torch.kvstore.collective
+tables = chip_smoke._np_cases()     # np_front's case tables, as the card loads them
+assert tables.CASES and tables.KEYWORDS and tables.REFERENCE_NP_SURFACE
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu", "pytest"))
 print(json.dumps({"bad": bad, "phases": sorted(
     n for n in dir(chip_smoke) if n.startswith("phase_"))}))
 """
 
 
 def test_chip_smoke_and_step_modules_pull_in_no_jax():
-    """``chip_smoke.py`` and the modules of whole-step capture (the
-    grouped apply, the monitor, the bucket planner) import neither JAX
-    nor the JAX package; the script has its captured phases."""
+    """``chip_smoke.py``, the case tables its ``np_front`` phase loads
+    and the modules of whole-step capture (the grouped apply, the
+    monitor, the bucket planner) import neither JAX, the JAX package nor
+    pytest; the script has its captured phases."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _CHIP_SMOKE_PROBE
                           % str(ROOT)], cwd=str(ROOT), env=env,
@@ -478,6 +485,69 @@ def test_dropout_seed_reaches_the_kernels_by_address(monkeypatch, kind):
             assert addr == seed.data_ptr()
 
 
+# JAX modules whose names a later slice ports: {module: ROADMAP item}
+DEFERRED = {
+    "mxnet_tpu.ops.detection": "ROADMAP.md Queue 1 item 6 (detection)",
+    "mxnet_tpu.ops.parity": "ROADMAP.md Queue 1 item 6 (parity)",
+    "mxnet_tpu.ndarray.sparse": "ROADMAP.md Queue 1 item 6 (sparse)",
+    "mxnet_tpu.ndarray.dgl": "ROADMAP.md Queue 1 item 6 (dgl)",
+}
+# names of the JAX namespaces that are no API of the port:
+# {namespace.name: why}
+NOT_API = {
+    "nd.pickle": "the stdlib module, imported by the JAX ndarray package",
+    "nd.from_jax": "JAX interop; the port's is nd.from_torch",
+    "nd.ROIPooling": "the detection family's ROI op (registered in the "
+                     "JAX ops/legacy.py; ROADMAP.md Queue 1 item 6)",
+    "np.apply_op": "the registry helper the JAX numpy module imports",
+}
+
+
+def _deferred_names():
+    """{JAX registry name: defining module} for the deferred modules'
+    ops.  ``mxnet_tpu/ops/__init__.py`` imports ``parity`` last, after
+    ``image_ops``, whose last registration is ``SpatialTransformer``: the
+    registry's later names are parity's (its aliases of other modules'
+    functions included)."""
+    import mxnet_tpu as mj
+    from mxnet_tpu.ops import registry as jreg
+
+    names = list(jreg._OP_REGISTRY)
+    out = {n: "mxnet_tpu.ops.parity"
+           for n in names[names.index("SpatialTransformer") + 1:]}
+    for n in names:
+        if jreg.get_op(n).fn.__module__ == "mxnet_tpu.ops.detection":
+            out[n] = "mxnet_tpu.ops.detection"
+    out["sparse"] = mj.nd.sparse.__name__
+    out["dgl"] = mj.nd.dgl.__name__
+    return out
+
+
+def test_jax_front_door_names_are_ported_or_deferred():
+    """The name guard of ``mx.nd``, ``mx.np`` and ``mx.npx``."""
+    import mxnet_tpu as mj
+
+    deferred = _deferred_names()
+    seen_not_api, bad = set(), []
+    for ns in ("nd", "np", "npx"):
+        jmod, tmod = getattr(mj, ns), getattr(mx, ns)
+        names = (dir(jmod) if ns != "np" else list(jmod.__dict__))
+        for n in names:
+            if n.startswith("_") or n == "annotations" or hasattr(tmod, n):
+                continue
+            key = "%s.%s" % (ns, n)
+            if key in NOT_API:
+                seen_not_api.add(key)
+            elif deferred.get(n) not in DEFERRED:
+                bad.append(key)
+    assert bad == []
+    assert seen_not_api == set(NOT_API)
+    # every listed module still has a name the port lacks
+    left = {deferred[n] for n in dir(mj.nd)
+            if n in deferred and not hasattr(mx.nd, n)}
+    assert left == set(DEFERRED)
+
+
 # JAX arguments the port lacks on purpose: {"module.name": (arguments,
 # where it is written down)}
 SPELLINGS = {
@@ -485,10 +555,6 @@ SPELLINGS = {
     ".monitor.stats.group_stats": (["g_arrs", "w_arrs"],
                                    "ROADMAP.md Queue 1 item 8"),
     ".trace.span": (["anomaly"], "ROADMAP.md Queue 1 item 8"),
-    # batch statistics are kept in float32 (ops/nn.py batch_norm)
-    ".ops.nn.batch_norm": (["stat_dtype"], "ROADMAP.md Queue 1 item 6"),
-    ".ndarray.batch_norm": (["stat_dtype"], "ROADMAP.md Queue 1 item 6"),
-    ".ndarray.BatchNorm": (["stat_dtype"], "ROADMAP.md Queue 1 item 6"),
     # dropout draws from the port's generators, not threefry keys
     # (random.py; ROADMAP.md Rules, "RNG")
     ".ops.nn.dropout": (["key", "mode"], "ROADMAP.md Rules, RNG"),
@@ -496,6 +562,11 @@ SPELLINGS = {
                                      "ROADMAP.md Rules, RNG"),
     ".ndarray.multi_head_attention": (["dropout_key"],
                                       "ROADMAP.md Rules, RNG"),
+    # the hook of the JAX autotune site ``bn_stat_dtype``; the port has no
+    # autotune yet, and no caller asks for bfloat16 statistics
+    ".ops.nn.batch_norm": (["stat_dtype"], "ROADMAP.md Queue 1 item 8"),
+    ".ndarray.batch_norm": (["stat_dtype"], "ROADMAP.md Queue 1 item 8"),
+    ".ndarray.BatchNorm": (["stat_dtype"], "ROADMAP.md Queue 1 item 8"),
 }
 
 
