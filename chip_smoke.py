@@ -313,6 +313,36 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    step (1e-6*max(1, max|w|)), ``multi_sum_sq``/``multi_lars`` against
    f64, and ``all_finite``/``multi_all_finite`` under CUDA sync debugging
    set to error (no read-back).
+21. nd_tail -- the rest of the ``nd`` front door, synthetic data at
+   published sizes from ``--seed``, one JSON line a part.  (a) Matrix
+   factorization at MovieLens-20M's tables (138,493 users, 27,278
+   movies): two ``Embedding(..., 128, sparse_grad=True)``, a dot product,
+   ``L2Loss``, B=8,192 Zipf ids, ``gluon.Trainer`` with lazy Adam, then
+   lazy SGD (momentum 0.9), 3 + 10 steps each: step and update ms (CUDA
+   events), rows touched, peak memory, and the update's ms with
+   ``lazy_update=False`` from the same weights and batches as the
+   control; on the first timed step the rows no id touched, and their
+   state, are unchanged bit for bit and the touched rows equal the
+   per-row rule on the CPU within 1e-6 relative; the first batch's loss
+   falls.  (b) ``io.LibSVMIter`` over a libsvm file in ``$TMPDIR`` at
+   Avazu-app's 1,000,000 features (15 a row, 4 x 8,192 rows), a linear
+   model ``nd.sparse.dot(csr, W)`` with ``W`` a row_sparse-gradient
+   ``Parameter`` under lazy SGD: CSR batches/s, the dot's ms against a
+   dense matmul over the batch's columns, the cuSPARSE kernels in the
+   profile of the forward (the run fails without one) and the backward,
+   the product within 1e-5 of the CPU's.  (c) SSD-300: ``MultiBoxPrior`` over 38² ..
+   1² maps (8,732 anchors), ``MultiBoxTarget`` (negative mining 3, on the
+   host) and ``MultiBoxDetection`` (NMS 0.45, top 400, anchors in center
+   form) at B=32, 21 classes, 20 boxes; ``ROIAlign`` and ``ROIPooling``
+   at Faster R-CNN C4 shapes (2 x 1,024 x 38 x 63, 512 RoIs each, 14²,
+   ratio 2): each op's ms, each output against the CPU (keep-sets and
+   matches identical, values within 1e-5; 32 RoIs for the ROI ops).  (d)
+   A graph of ogbn-arxiv's size (169,343 nodes, 1,166,243 edges): uniform
+   and weighted 2-hop sampling (25, 10) from 1,024 seeds, host ms a
+   batch, H2D ms of the sampled 128-wide features, every sampled edge in
+   the graph.  (e) ``tests/parity_cases.py`` on the card against the CPU
+   (count, worst error) and ``mx.config.check_unknown()``.  No flash
+   kernel launches.
 
 Then the ``{"kernels": [...]}`` summary (gpt_lm's causal D=32 bf16 route
 as ``routes["bfloat16_causal_d32"]``; ``checkpoint_resume``'s launches in
@@ -5348,6 +5378,634 @@ def phase_np_front(torch, mx, fa, seed, smi, cfg=NP_FRONT_CFG):
     return part_a["launches"]
 
 
+# ---- nd_tail: sparse storage, detection, DGL, parity ops, mx.config -------
+
+MF_CFG = dict(users=138493, items=27278, dim=128, B=8192, warm=3, steps=10,
+              zipf=1.2, adam_lr=0.01, sgd_lr=0.5, momentum=0.9)
+CSR_CFG = dict(features=1000000, B=8192, batches=4, nnz=15, lr=0.1)
+SSD_MAPS = ((38, (0.1, 0.141), (1.0, 2.0, 0.5)),
+            (19, (0.2, 0.272), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)),
+            (10, (0.37, 0.447), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)),
+            (5, (0.54, 0.619), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)),
+            (3, (0.71, 0.79), (1.0, 2.0, 0.5)),
+            (1, (0.88, 0.961), (1.0, 2.0, 0.5)))
+SSD_CFG = dict(B=32, classes=21, max_gt=20, nms_threshold=0.45, nms_topk=400,
+               neg_ratio=3.0)
+ROI_CFG = dict(images=2, channels=1024, H=38, W=63, rois=512, pooled=14,
+               sample_ratio=2, stride=16, img_h=600, img_w=1000,
+               cpu_rois=32)
+DGL_CFG = dict(nodes=169343, edges=1166243, seeds=1024, fanouts=(25, 10),
+               feat=128)
+TOL_LAZY = 1e-6      # touched rows vs the per-row formula on the CPU, rel.
+TOL_ND_TAIL = 1e-5   # card vs CPU: dot, detection values, ROI ops
+ROW_TOL = 1e-6
+
+
+def _zipf_ids(rng, a, n, size):
+    return ((rng.zipf(a, size) - 1) % n).astype(np.int32)
+
+
+def _mf_net(mx, torch, cfg, seed):
+    rng = np.random.RandomState(seed + 160)
+    nets = []
+    for n in (cfg["users"], cfg["items"]):
+        e = mx.gluon.nn.Embedding(n, cfg["dim"], sparse_grad=True)
+        e.initialize(ctx=mx.gpu(0))
+        with torch.no_grad():
+            e.weight.copy_(torch.from_numpy(
+                rng.normal(0, 0.1, (n, cfg["dim"])).astype(np.float32)))
+        nets.append(e)
+    return nets
+
+
+def _mf_batches(cfg, seed, count):
+    rng = np.random.RandomState(seed + 161)
+    return [(_zipf_ids(rng, cfg["zipf"], cfg["users"], cfg["B"]),
+             _zipf_ids(rng, cfg["zipf"], cfg["items"], cfg["B"]),
+             (rng.randint(1, 11, cfg["B"]) / 2.0).astype(np.float32))
+            for _ in range(count)]
+
+
+def _lazy_rows_cpu(opt_name, cfg, w, st, g, t, lr):
+    """The per-row lazy rule on the CPU, in float32: (weight rows, state
+    rows) after one step from rows ``w``/``st`` and gradient rows ``g``."""
+    import torch
+
+    if opt_name == "adam":
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        m, v = st
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * torch.square(g)
+        mhat = m / (1 - b1 ** t)
+        vhat = v / (1 - b2 ** t)
+        return w - lr * mhat / (torch.sqrt(vhat) + eps), (m, v)
+    mom = st[0] * cfg["momentum"] - lr * g
+    return w + mom, (mom,)
+
+
+def _mf_run(torch, mx, cfg, seed, opt_name, lazy=True):
+    """Train the two sparse tables; returns the numbers of part a."""
+    users, items = _mf_net(mx, torch, cfg, seed)
+    params = users.collect_params()
+    params.update({"item_" + k: v
+                   for k, v in items.collect_params().items()})
+    kw = ({"learning_rate": cfg["adam_lr"]} if opt_name == "adam" else
+          {"learning_rate": cfg["sgd_lr"], "momentum": cfg["momentum"]})
+    tr = mx.gluon.Trainer(params, opt_name, dict(kw, lazy_update=lazy))
+    loss_fn = mx.gluon.loss.L2Loss()
+    batches = _mf_batches(cfg, seed, cfg["warm"] + cfg["steps"])
+    losses, step_ms, upd_ms, rows = [], [], [], []
+    check = None
+
+    def held_loss():               # on the first batch, outside autograd
+        u, i, r = batches[0]
+        pred = (users(mx.nd.array(u, ctx=mx.gpu(0), dtype="int32"))
+                * items(mx.nd.array(i, ctx=mx.gpu(0), dtype="int32"))
+                ).sum(axis=1)
+        return float(loss_fn(pred, mx.nd.array(r, ctx=mx.gpu(0)))
+                     .mean().asnumpy())
+
+    held = [held_loss()]
+    for k, (u, i, r) in enumerate(batches):
+        uid = mx.nd.array(u, ctx=mx.gpu(0), dtype="int32")
+        iid = mx.nd.array(i, ctx=mx.gpu(0), dtype="int32")
+        lab = mx.nd.array(r, ctx=mx.gpu(0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            pred = (users(uid) * items(iid)).sum(axis=1)
+            loss = loss_fn(pred, lab)
+        loss.backward()
+        if k == cfg["warm"]:       # the rule's check, on the first timed step
+            check = _mf_snapshot(torch, tr, users.weight, u)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        tr.step(cfg["B"])
+        ev[1].record()
+        losses.append(float(loss.mean().asnumpy()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        upd_ms.append(ev[0].elapsed_time(ev[1]))
+        rows.append(len(np.unique(u)) + len(np.unique(i)))
+        if k == cfg["warm"] and lazy:
+            _mf_check(torch, tr, users.weight, opt_name, cfg, check)
+    held.append(held_loss())
+    if not held[1] < held[0]:
+        fail("nd_tail: %s loss on the first batch did not fall: %s"
+             % (opt_name, held))
+    timed = slice(cfg["warm"], None)
+    return {"optimizer": opt_name, "lazy_update": lazy,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "first_batch_loss_before_after": held,
+            "step_ms_median": float(np.median(step_ms[timed])),
+            "update_ms_median": float(np.median(upd_ms[timed])),
+            "rows_touched_median": float(np.median(rows[timed])),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _mf_snapshot(torch, tr, w, ids):
+    i = next(j for j, p in enumerate(tr._params) if p is w)
+    touched = torch.from_numpy(np.unique(ids)).long().cuda()
+    st = tr._states.get(i)
+    st = () if st is None else (st if isinstance(st, tuple) else (st,))
+    return {"index": i, "touched": touched, "w": w.detach().clone(),
+            "st": tuple(s.clone() for s in st),
+            "g": w.grad[touched].detach().clone(),
+            "t": tr._optimizer._index_update_count.get(i, 0) + 1}
+
+
+def _mf_check(torch, tr, w, opt_name, cfg, snap):
+    """Untouched rows (and their state) bit for bit; touched rows against
+    the per-row rule on the CPU."""
+    i, touched = snap["index"], snap["touched"]
+    keep = torch.ones(w.shape[0], dtype=torch.bool, device=w.device)
+    keep[touched] = False
+    st = tr._states[i]
+    st = st if isinstance(st, tuple) else (st,)
+    for new, old in zip((w.detach(),) + st, (snap["w"],) + snap["st"]):
+        if not torch.equal(new[keep], old[keep]):
+            fail("nd_tail: %s moved an untouched row" % opt_name)
+    lr = tr._optimizer._get_lr(i)
+    g = snap["g"].cpu() * tr._optimizer.rescale_grad
+    if tr._optimizer.clip_gradient is not None:
+        g = g.clamp(-tr._optimizer.clip_gradient,
+                    tr._optimizer.clip_gradient)
+    want_w, want_st = _lazy_rows_cpu(
+        opt_name, cfg, snap["w"][touched].cpu(),
+        tuple(s[touched].cpu() for s in snap["st"]), g, snap["t"], lr)
+    for got, want in zip((w.detach()[touched],) + tuple(
+            s[touched] for s in st), (want_w,) + want_st):
+        err = ((got.cpu() - want).abs().max()
+               / max(1e-30, want.abs().max().item())).item()
+        if err > TOL_LAZY:
+            fail("nd_tail: %s touched rows differ from the per-row rule "
+                 "by %g" % (opt_name, err))
+
+
+def _nd_tail_sparse_embedding(torch, mx, seed):
+    """Part a: matrix factorization at MovieLens-20M's table sizes."""
+    cfg = MF_CFG
+    out = {"users": cfg["users"], "items": cfg["items"], "dim": cfg["dim"],
+           "B": cfg["B"]}
+    for opt_name in ("adam", "sgd"):
+        torch.cuda.reset_peak_memory_stats()
+        lazy = _mf_run(torch, mx, cfg, seed, opt_name, lazy=True)
+        dense = _mf_run(torch, mx, dict(cfg, warm=1, steps=3), seed,
+                        opt_name, lazy=False)
+        lazy["dense_update_ms_median"] = dense["update_ms_median"]
+        lazy["lazy_over_dense_update"] = (lazy["update_ms_median"]
+                                          / dense["update_ms_median"])
+        out[opt_name] = lazy
+        torch.cuda.empty_cache()
+    return out
+
+
+def _write_libsvm(path, cfg, rng):
+    rows = cfg["B"] * cfg["batches"]
+    cols = rng.randint(0, cfg["features"], (rows, cfg["nnz"]))
+    vals = rng.rand(rows, cfg["nnz"]).astype(np.float32)
+    labels = rng.randint(0, 2, rows)
+    with open(path, "w") as f:
+        for r in range(rows):
+            feats = " ".join("%d:%.4f" % (c, v) for c, v in
+                             zip(np.unique(cols[r]), vals[r]))
+            f.write("%d %s\n" % (labels[r], feats))
+
+
+def _sparse_kernel_names(torch, fn, calls=3):
+    """The names of the sparse kernels the card ran in ``calls`` calls of
+    ``fn``, read off the profiler's trace as ``profile_split`` reads it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events
+             if e.get("ph") == "X" and e.get("cat") == "kernel"}
+    return sorted(n for n in names if "sparse" in n.lower()
+                  or "csr" in n.lower() or "spmm" in n.lower())
+
+
+_SPARSE_PROFILE = r"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+import mxnet_tpu_torch as mx
+z = np.load(sys.argv[2])
+x = mx.nd.sparse.csr_matrix((z["data"], z["indices"], z["indptr"]),
+                            shape=tuple(z["shape"]), ctx=mx.gpu(0))
+w = torch.from_numpy(z["w"]).cuda().requires_grad_()
+fwd = chip_smoke._sparse_kernel_names(torch, lambda: mx.nd.sparse.dot(x, w))
+bwd = chip_smoke._sparse_kernel_names(
+    torch, lambda: mx.nd.sparse.dot(x, w)._data.sum().backward())
+print(json.dumps({"forward": fwd, "backward": bwd}))
+"""
+
+
+def _cusparse_kernels(x, w):
+    """(forward, backward) sparse kernel names of ``nd.sparse.dot`` on this
+    CSR batch and weight, profiled in a fresh process: in this one, once
+    the decode phase has profiled its scheduler's steps, the profiler
+    records no kernel at all."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "batch.npz")
+        np.savez(path, data=x.data.asnumpy(), indices=x.indices.asnumpy(),
+                 indptr=x.indptr.asnumpy(), shape=np.asarray(x.shape),
+                 w=w.detach().cpu().numpy())
+        here = os.path.dirname(os.path.abspath(__file__))
+        out = subprocess.run([sys.executable, "-c", _SPARSE_PROFILE, here,
+                              path], capture_output=True, text=True,
+                             timeout=300)
+    if out.returncode:
+        fail("nd_tail: the sparse profile exited %d: %s"
+             % (out.returncode, out.stderr[-500:]))
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    if not names["forward"]:
+        fail("nd_tail: no cuSPARSE kernel in the CSR dot's profile")
+    return names["forward"], names["backward"]
+
+
+def _nd_tail_csr(torch, mx, seed):
+    """Part b: LibSVMIter CSR batches at Avazu-app's feature width through
+    a linear model, W row_sparse under lazy SGD."""
+    cfg = CSR_CFG
+    rng = np.random.RandomState(seed + 162)
+    tmp = tempfile.mkdtemp(prefix="nd_tail_")
+    try:
+        path = os.path.join(tmp, "avazu_synth.libsvm")
+        _write_libsvm(path, cfg, rng)
+        t0 = time.perf_counter()
+        with mx.gpu(0):
+            it = mx.io.LibSVMIter(data_libsvm=path,
+                                  data_shape=(cfg["features"],),
+                                  batch_size=cfg["B"])
+            parse_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            batches = list(it)
+            torch.cuda.synchronize()
+            iter_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    w0 = rng.normal(0, 0.01, (cfg["features"], 1)).astype(np.float32)
+    W = mx.gluon.Parameter("weight", shape=w0.shape,
+                           grad_stype="row_sparse")
+    W.initialize(ctx=mx.gpu(0))
+    with torch.no_grad():
+        W.copy_(torch.from_numpy(w0))
+    tr = mx.gluon.Trainer({"weight": W}, "sgd",
+                          {"learning_rate": cfg["lr"]})
+    losses = []
+    for b in batches:
+        x, y = b.data[0], b.label[0]
+        if x.stype != "csr" or not x._data.is_cuda:
+            fail("nd_tail: LibSVMIter gave %s on %s" % (x.stype,
+                                                       x._data.device))
+        with mx.autograd.record():
+            z = mx.nd.sparse.dot(x, W).reshape((-1,))
+            loss = mx.nd.log(1 + mx.nd.exp(-(2 * y - 1) * z))
+        loss.backward()
+        tr.step(cfg["B"])
+        losses.append(float(loss.mean().asnumpy()))
+    x = batches[0].data[0]
+    got = mx.nd.sparse.dot(x, W)._data
+    xc = mx.nd.sparse.csr_matrix((x.data.asnumpy(), x.indices.asnumpy(),
+                                  x.indptr.asnumpy()), shape=x.shape,
+                                 ctx=mx.cpu())
+    want = mx.nd.sparse.dot(xc, W.detach().cpu())._data
+    err = ((got.cpu() - want).abs().max()
+           / max(1.0, want.abs().max().item())).item()
+    if err > TOL_ND_TAIL:
+        fail("nd_tail: CSR dot differs from the CPU by %g" % err)
+    dot_ms = cuda_ms(lambda: mx.nd.sparse.dot(x, W), 20)
+    # the control: the same product dense over the batch's columns alone
+    cols = torch.unique(x.indices_.long())
+    remap = torch.zeros(cfg["features"], dtype=torch.long, device="cuda")
+    remap[cols] = torch.arange(cols.numel(), device="cuda")
+    dense = torch.zeros(cfg["B"], cols.numel(), device="cuda")
+    dense.index_put_((x._rows(), remap[x.indices_.long()]), x._data,
+                     accumulate=True)
+    wc = W.detach()[cols]
+    matmul_ms = cuda_ms(lambda: dense @ wc, 20)
+    kernels, bwd_kernels = _cusparse_kernels(x, W)
+    return {"features": cfg["features"], "B": cfg["B"],
+            "nnz_per_row": cfg["nnz"], "batches": len(batches),
+            "parse_s": parse_s,
+            "csr_batches_per_s": len(batches) / iter_s,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "dot_ms": dot_ms, "dense_matmul_ms": matmul_ms,
+            "dense_columns": int(cols.numel()), "max_rel_err": err,
+            "cusparse_kernels": kernels,
+            "cusparse_kernels_backward": bwd_kernels}
+
+
+def _ssd_anchors(torch, mx, ctx):
+    parts = []
+    for side, sizes, ratios in SSD_MAPS:
+        fmap = mx.nd.zeros((1, 1, side, side), ctx=ctx)
+        parts.append(mx.nd.contrib.MultiBoxPrior(fmap, sizes=sizes,
+                                                 ratios=ratios)._data)
+    return torch.cat(parts, dim=1)
+
+
+def _ssd_inputs(cfg, n, seed):
+    rng = np.random.RandomState(seed + 163)
+    B, M = cfg["B"], cfg["max_gt"]
+    label = -np.ones((B, M, 5), np.float32)
+    for b in range(B):
+        k = rng.randint(1, M + 1)
+        xy = rng.uniform(0.0, 0.7, (k, 2))
+        wh = rng.uniform(0.05, 0.3, (k, 2))
+        label[b, :k, 0] = rng.randint(0, cfg["classes"] - 1, k)
+        label[b, :k, 1:3] = xy
+        label[b, :k, 3:5] = np.minimum(xy + wh, 1.0)
+    logits = rng.randn(B, cfg["classes"], n).astype(np.float32)
+    e = np.exp(logits - logits.max(axis=1, keepdims=True))
+    prob = (e / e.sum(axis=1, keepdims=True)).astype(np.float32)
+    loc = (rng.randn(B, n * 4) * 0.1).astype(np.float32)
+    return label, logits, prob, loc
+
+
+def _timed(torch, fn, iters=3):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _same_outputs(torch, what, got, want, tol=TOL_ND_TAIL, exact=False):
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = getattr(g, "_data", g).cpu()
+        w = getattr(w, "_data", w).cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail("nd_tail: %s gives %s %s on the card, %s %s on the CPU"
+                 % (what, tuple(g.shape), g.dtype, tuple(w.shape), w.dtype))
+        if exact or not g.is_floating_point():
+            if not torch.equal(g, w):
+                fail("nd_tail: %s differs from the CPU" % what)
+            continue
+        err = ((g - w).abs().max() / max(1.0, w.abs().max().item())).item()
+        worst = max(worst, err)
+        if err > tol:
+            fail("nd_tail: %s differs from the CPU by %g" % (what, err))
+    return worst
+
+
+def _nd_tail_detection(torch, mx, seed):
+    """Part c: the SSD-300 chain and Faster R-CNN's ROI ops."""
+    cfg = SSD_CFG
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    anchors = _ssd_anchors(torch, mx, gpu)
+    n = anchors.shape[1]
+    if n != 8732:
+        fail("nd_tail: SSD-300 anchors %d, want 8732" % n)
+    anchors_cpu = _ssd_anchors(torch, mx, cpu)
+    out = {"anchors": n, "B": cfg["B"], "classes": cfg["classes"]}
+    out["prior_err"] = _same_outputs(torch, "MultiBoxPrior", anchors,
+                                     anchors_cpu)
+    label, logits, prob, loc = _ssd_inputs(cfg, n, seed)
+    args = {}
+    for name, ctx in (("gpu", gpu), ("cpu", cpu)):
+        args[name] = [mx.nd.array(a, ctx=ctx) for a in (label, logits,
+                                                        prob, loc)]
+    tgt = {}
+    for name, anc in (("gpu", anchors), ("cpu", anchors_cpu)):
+        lab, lg = args[name][0], args[name][1]
+        tgt[name], ms = _timed(torch, lambda: mx.nd.multibox_target(
+            mx.nd.NDArray(anc), lab, lg,
+            negative_mining_ratio=cfg["neg_ratio"]), iters=1)
+        if name == "gpu":
+            out["multibox_target_ms"] = ms
+    out["multibox_target_err"] = _same_outputs(
+        torch, "MultiBoxTarget", tgt["gpu"][:2], tgt["cpu"][:2])
+    _same_outputs(torch, "MultiBoxTarget's matches", tgt["gpu"][2:],
+                  tgt["cpu"][2:], exact=True)
+    det = {}
+    for name, anc in (("gpu", anchors), ("cpu", anchors_cpu)):
+        center = mx.nd.NDArray(mx.ops.detection._center(anc))
+        pr, lc = args[name][2], args[name][3]
+        det[name], ms = _timed(torch, lambda: mx.nd.contrib.MultiBoxDetection(
+            pr, lc, center, nms_threshold=cfg["nms_threshold"],
+            nms_topk=cfg["nms_topk"]), iters=3 if name == "gpu" else 1)
+        out["multibox_detection_ms_" + name] = ms
+    keep_g = (det["gpu"]._data[..., 1] >= 0).cpu()
+    keep_c = det["cpu"]._data[..., 1] >= 0
+    if not torch.equal(keep_g, keep_c):
+        fail("nd_tail: NMS keep-sets differ on %d rows"
+             % int((keep_g != keep_c).sum()))
+    out["kept_per_image"] = float(keep_c.sum(dim=1).float().mean())
+    out["detection_err"] = _same_outputs(torch, "MultiBoxDetection",
+                                         det["gpu"], det["cpu"])
+    out["roi"] = _nd_tail_roi(torch, mx, seed)
+    return out
+
+
+def _nd_tail_roi(torch, mx, seed):
+    cfg = ROI_CFG
+    rng = np.random.RandomState(seed + 164)
+    feats = rng.randn(cfg["images"], cfg["channels"], cfg["H"],
+                      cfg["W"]).astype(np.float32)
+    R = cfg["rois"] * cfg["images"]
+    x1 = rng.uniform(0, cfg["img_w"] * 0.8, R)
+    y1 = rng.uniform(0, cfg["img_h"] * 0.8, R)
+    w = rng.uniform(16, cfg["img_w"] * 0.5, R)
+    h = rng.uniform(16, cfg["img_h"] * 0.5, R)
+    rois = np.stack([np.repeat(np.arange(cfg["images"]), cfg["rois"]), x1,
+                     y1, np.minimum(x1 + w, cfg["img_w"] - 1),
+                     np.minimum(y1 + h, cfg["img_h"] - 1)],
+                    axis=1).astype(np.float32)
+    scale = 1.0 / cfg["stride"]
+    pooled = (cfg["pooled"], cfg["pooled"])
+    f_g, r_g = (torch.from_numpy(a).cuda() for a in (feats, rois))
+    out = {"rois": R, "channels": cfg["channels"],
+           "map": [cfg["H"], cfg["W"]], "pooled": cfg["pooled"]}
+
+    def align(f, r):
+        return mx.nd.contrib.ROIAlign(f, r, pooled_size=pooled,
+                                      spatial_scale=scale,
+                                      sample_ratio=cfg["sample_ratio"])
+
+    def pool(f, r):
+        return mx.nd.ROIPooling(f, r, pooled_size=pooled,
+                                spatial_scale=scale)
+
+    # the CPU checks the first and the last RoIs of each image
+    k = cfg["cpu_rois"] // 2
+    pick = np.concatenate([np.arange(i * cfg["rois"], i * cfg["rois"] + k)
+                           for i in range(cfg["images"])])
+    for name, fn in (("roi_align", align), ("roi_pooling", pool)):
+        torch.cuda.reset_peak_memory_stats()
+        res, ms = _timed(torch, lambda: fn(f_g, r_g), iters=3)
+        out[name + "_ms"] = ms
+        out[name + "_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        want = fn(torch.from_numpy(feats), torch.from_numpy(rois[pick]))
+        out[name + "_err"] = _same_outputs(
+            torch, name, res._data[torch.from_numpy(pick).cuda()], want)
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def _synthetic_graph(cfg, rng):
+    """A CSR graph with ogbn-arxiv's node and edge counts: a power-law
+    out-degree, uniform targets, edge ids 0..E-1 in row order."""
+    n, e = cfg["nodes"], cfg["edges"]
+    deg = rng.zipf(1.8, n).astype(np.float64)
+    deg = np.maximum(1, np.round(deg / deg.sum() * e)).astype(np.int64)
+    deg[np.argmax(deg)] -= deg.sum() - e
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    return indptr, rng.randint(0, n, e).astype(np.int64)
+
+
+def _nd_tail_dgl(torch, mx, seed):
+    """Part d: GraphSAGE's 2-hop sampling on an ogbn-arxiv-sized graph."""
+    cfg = DGL_CFG
+    rng = np.random.RandomState(seed + 165)
+    t0 = time.perf_counter()
+    indptr, cols = _synthetic_graph(cfg, rng)
+    build_s = time.perf_counter() - t0
+    eids = np.arange(cfg["edges"], dtype=np.int64)
+    with mx.cpu():
+        g = mx.nd.sparse.csr_matrix((eids, cols, indptr),
+                                    shape=(cfg["nodes"], cfg["nodes"]))
+    prob = (rng.rand(cfg["nodes"]) + 0.1).astype(np.float32)
+    feats = torch.from_numpy(rng.randn(cfg["nodes"], cfg["feat"]).astype(
+        np.float32)).pin_memory()
+    seeds = rng.choice(cfg["nodes"], cfg["seeds"], replace=False)
+    out = {"nodes": cfg["nodes"], "edges": cfg["edges"],
+           "seeds": cfg["seeds"], "fanouts": list(cfg["fanouts"]),
+           "graph_build_s": build_s}
+    for kind in ("uniform", "non_uniform"):
+        t0 = time.perf_counter()
+        frontier, sampled_edges = seeds, 0
+        with mx.cpu():
+            for fan in cfg["fanouts"]:
+                cap = min(cfg["nodes"], len(frontier) * (fan + 1))
+                if kind == "uniform":
+                    ids, sub, _layer = \
+                        mx.nd.contrib.dgl_csr_neighbor_uniform_sample(
+                            g, mx.nd.array(frontier.astype(np.int64)),
+                            num_hops=1, num_neighbor=fan,
+                            max_num_vertices=cap)
+                else:
+                    ids, sub, _p, _layer = \
+                        mx.nd.contrib.dgl_csr_neighbor_non_uniform_sample(
+                            g, mx.nd.array(prob),
+                            mx.nd.array(frontier.astype(np.int64)),
+                            num_hops=1, num_neighbor=fan,
+                            max_num_vertices=cap)
+                ids = ids.asnumpy()
+                verts = ids[:ids[-1]]
+                sampled_edges += _check_sampled(sub, verts, indptr, cols)
+                frontier = verts
+        host_ms = (time.perf_counter() - t0) * 1e3
+        rows = torch.from_numpy(frontier.astype(np.int64))
+        batch = feats[rows].pin_memory()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        on_card = batch.to("cuda", non_blocking=True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if not torch.equal(on_card.cpu(), batch):
+            fail("nd_tail: the sampled features changed on the way")
+        out[kind] = {"host_ms_per_batch": host_ms,
+                     "sampled_vertices": int(len(frontier)),
+                     "sampled_edges": sampled_edges,
+                     "h2d_ms": ev[0].elapsed_time(ev[1]),
+                     "h2d_mb": batch.numel() * 4 / 1e6}
+    return out
+
+
+def _check_sampled(sub, verts, indptr, cols):
+    """Every sampled edge (row vertex, column, edge id) is an edge of the
+    parent graph; returns the number checked."""
+    sp = sub.indptr.asnumpy().astype(np.int64)
+    sc = sub.indices.asnumpy().astype(np.int64)
+    se = sub.data.asnumpy().astype(np.int64)
+    rows = np.repeat(np.arange(len(sp) - 1), np.diff(sp))
+    src = verts[rows]
+    ok = (se >= indptr[src]) & (se < indptr[src + 1]) & (cols[se] == sc)
+    if not ok.all():
+        fail("nd_tail: %d sampled edges are not in the graph"
+             % int((~ok).sum()))
+    return int(len(se))
+
+
+def _parity_cases():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "parity_cases.py")
+    spec = importlib.util.spec_from_file_location("parity_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _nd_tail_parity(torch, mx):
+    """Part e: every parity case on the card against the CPU."""
+    cases = _parity_cases().CASES
+    worst, bad = 0.0, []
+    for name, args, kwargs in cases:
+        outs = []
+        try:
+            for ctx in (mx.cpu(), mx.gpu(0)):
+                with ctx:
+                    arrs = [mx.nd.array(a, dtype=np.asarray(a).dtype)
+                            for a in args]
+                    outs.append(getattr(mx.nd, name)(*arrs, **dict(kwargs)))
+            worst = max(worst, _same_outputs(
+                torch, name, outs[1], outs[0], tol=TOL_NP_CASE[0]))
+        except (Exception, SystemExit) as e:
+            bad.append("%s: %s" % (name, str(e).splitlines()[0]))
+    if bad:
+        fail("nd_tail: %d of %d parity cases: %s" % (len(bad), len(cases),
+                                                     bad))
+    return {"cases": len(cases), "worst_rel_err": worst}
+
+
+def phase_nd_tail(torch, mx, fa, seed, smi):
+    """The rest of the nd front door on the card (see the module doc)."""
+    t0 = time.perf_counter()
+    _reset_flash(fa)
+    part_s = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        part_s[name] = time.perf_counter() - t
+        emit({"phase": "nd_tail", "part": name, "result": res})
+        return res
+
+    part("a_sparse_embedding", _nd_tail_sparse_embedding, torch, mx, seed)
+    part("b_csr", _nd_tail_csr, torch, mx, seed)
+    part("c_detection", _nd_tail_detection, torch, mx, seed)
+    part("d_dgl", _nd_tail_dgl, torch, mx, seed)
+    part("e_parity", _nd_tail_parity, torch, mx)
+    unknown = mx.config.check_unknown(warn=False)
+    launches = _flash_counts(fa)
+    if any(launches.values()):
+        fail("nd_tail: flash kernels launched %s" % launches)
+    emit({"phase": "nd_tail", "config_unknown": unknown,
+          "config_vars": len(mx.config.ENV_VARS), "launches": launches,
+          "part_s": part_s, "phase_s": time.perf_counter() - t0,
+          "card": smi})
+    return launches
+
+
 def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
     """One kernel route's summary from its case: ``bound_key`` None for
     the forward's bound (``bound_ms``), else "dq"/"dkv"; ``errs`` the
@@ -5424,6 +6082,7 @@ def main():
     ckpt_launches = phase_checkpoint_resume(torch, mx, fa, args.seed, smi)
     phase_decode(torch, mx, fa, args.seed, smi)
     np_launches = phase_np_front(torch, mx, fa, args.seed, smi)
+    tail_launches = phase_nd_tail(torch, mx, fa, args.seed, smi)
 
     # each route's numbers at its main path's shape, not causal: f32 at
     # (8, 12, 512, 512, 64), the forward as served (no dropout), the
@@ -5472,7 +6131,8 @@ def main():
         "train_amp_fp16": amp_launches["flash_attention"],
         "checkpoint_resume": ck_f32["flash_attention"]
         + ck_bf16["flash_attention"],
-        "np_front": np_launches["flash_attention"]}
+        "np_front": np_launches["flash_attention"],
+        "nd_tail": tail_launches["flash_attention"]}
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
         nd_k = nd_launches[kname]
@@ -5505,7 +6165,8 @@ def main():
             "vision_zoo": zoo_launches[kname],
             "train_amp_fp16": amp_launches[kname],
             "checkpoint_resume": ck_f32[kname] + ck_bf16[kname],
-            "np_front": np_launches[kname]}
+            "np_front": np_launches[kname],
+            "nd_tail": tail_launches[kname]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

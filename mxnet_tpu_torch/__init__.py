@@ -43,6 +43,7 @@ from . import numpy_extension as npx  # noqa: F401
 from .util import is_np_array, reset_np, set_np, use_np  # noqa: F401
 from .ndarray import NDArray, waitall  # noqa: F401
 from .optimizer import lr_scheduler  # noqa: F401  (mx.lr_scheduler)
-from .base import MXNetError  # noqa: F401
+from . import config, metric  # noqa: F401  (mx.config, mx.metric)
+from .base import MXNetError, get_env  # noqa: F401
 from .context import (Context, cpu, cpu_pinned,  # noqa: F401
                       current_context, gpu, num_gpus)

@@ -1,0 +1,162 @@
+"""``mx.config``: the registry of the ``MXNET_*`` environment variables the
+port reads.
+
+Counterpart of ``mxnet_tpu/config.py``.  Each variable here is one that
+some module of the port reads through ``base.get_env`` (a test holds the
+sources to this table both ways), with the type and default that module
+passes and what it changes in the port.  ``describe()`` prints the table
+(the reference's env_var.md), ``current()`` gives each variable's
+effective value, and ``check_unknown()`` lists the ``MXNET_*`` variables
+set in the environment that the port does not read: a typo, or a knob of
+the reference or of the JAX package that does nothing here.
+"""
+from __future__ import annotations
+
+import os
+
+from .base import get_env
+
+__all__ = ["ENV_VARS", "describe", "current", "check_unknown"]
+
+# name -> (type, default, doc)
+ENV_VARS = {
+    "MXNET_MULTI_TENSOR": (
+        bool, True,
+        "Grouped optimizer apply in gluon.Trainer (optimizer/"
+        "multi_tensor.py): one torch._foreach_* rule per parameter group "
+        "a step.  0 forces the per-parameter updates (row_sparse "
+        "gradients take them regardless)."),
+    "MXNET_KVSTORE_BUCKET_BYTES": (
+        int, 4 << 20,
+        "Gradient-fusion bucket size in bytes of the collective bucket "
+        "planner (kvstore/collective.py)."),
+    "MXNET_STEP_CAPTURE": (
+        bool, True,
+        "Kill switch of mx.step: 0 makes every StepProgram run the "
+        "stitched record/backward/step sequence instead of a CUDA graph "
+        "(step/capture.py)."),
+    "MXNET_STEP_REMAT": (
+        str, "off",
+        "Recompute policy inside a captured step: off, all (one "
+        "torch.utils.checkpoint around forward + loss) or blocks (one "
+        "per direct child block) (step/capture.py)."),
+    "MXNET_DATA_WORKERS": (
+        int, 2,
+        "Reader threads of mx.data.StreamLoader (data/loader.py)."),
+    "MXNET_DATA_PREFETCH": (
+        int, 2,
+        "Depth of mx.data's staging ring: batches copied onto the card "
+        "ahead of the loop (data/ring.py)."),
+    "MXNET_DATA_ALLOW_UNSHARDED": (
+        bool, False,
+        "Allow a whole-dataset iterator where the launcher's environment "
+        "names several hosts (data/__init__.py)."),
+    "MXNET_DIST_NUM_WORKERS": (
+        int, 0,
+        "Number of hosts, read by mx.data's readers to shard a dataset "
+        "(data/reader.py); 0 or unset is one host."),
+    "MXNET_DIST_RANK": (
+        int, 0,
+        "This host's rank among MXNET_DIST_NUM_WORKERS (data/reader.py)."),
+    "MXNET_FAULTS": (
+        str, "",
+        "Fault plan of mx.resilience drills: comma-separated "
+        "site@key[:kind][*count] entries (resilience/inject.py)."),
+    "MXNET_MONITOR": (
+        bool, False,
+        "Arm mx.monitor: per-group gradient and weight statistics and "
+        "the nonfinite sentinel at each trainer step (monitor/core.py)."),
+    "MXNET_MONITOR_INTERVAL": (
+        int, 1,
+        "Observe every Nth trainer step (monitor/core.py)."),
+    "MXNET_MONITOR_SENTINEL": (
+        str, "warn",
+        "Nonfinite-gradient policy: warn, skip_step (drop the step before "
+        "anything changes) or raise (monitor/sentinel.py)."),
+    "MXNET_TELEMETRY_DISABLE": (
+        bool, False,
+        "Disable mx.telemetry's counters and histograms (telemetry.py)."),
+    "MXNET_TRACE_DISABLE": (
+        bool, False,
+        "Disable mx.trace's span recording (trace/__init__.py)."),
+    "MXNET_TRACE_RING_EVENTS": (
+        int, 8192,
+        "Capacity of mx.trace's in-memory ring of recent events "
+        "(trace/__init__.py)."),
+    "MXNET_NP_FALLBACK_LOG_VERBOSE": (
+        bool, True,
+        "Warn once per name when mx.np resolves a function to host numpy "
+        "(off the card and off the tape; numpy/__init__.py)."),
+    "MXNET_STORAGE_FALLBACK_LOG_VERBOSE": (
+        bool, False,
+        "Log each sparse array densified on the storage-fallback path "
+        "(ndarray/sparse.py)."),
+    "MXNET_SERVE_BREAKER_THRESHOLD": (
+        int, 5,
+        "Consecutive failed dispatches that open a serving bucket's "
+        "circuit breaker (serve/server.py; <= 0 disables breakers)."),
+    "MXNET_SERVE_BREAKER_COOLDOWN": (
+        float, 30.0,
+        "Seconds an open breaker waits before a half-open probe "
+        "(serve/server.py)."),
+    "MXNET_SERVE_RETRY_AFTER": (
+        float, 1.0,
+        "Retry-After seconds the HTTP front sends with a 503 "
+        "(serve/server.py)."),
+    "MXNET_SERVE_DECODE_PAGE_SIZE": (
+        int, 16,
+        "Tokens a page of the paged KV cache holds (serve/decode.py)."),
+    "MXNET_SERVE_DECODE_POOL_PAGES": (
+        int, 256,
+        "Pages in the KV cache's pool on the card (serve/decode.py)."),
+    "MXNET_SERVE_DECODE_MAX_LIVE": (
+        int, 8,
+        "Sequences decoding at once in the running batch "
+        "(serve/decode.py)."),
+    "MXNET_SERVE_DECODE_MAX_NEW": (
+        int, 64,
+        "Default max_new_tokens of a decode request (serve/decode.py)."),
+    "MXNET_SERVE_DECODE_STREAM": (
+        bool, True,
+        "Stream decoded tokens as they come (serve/decode.py)."),
+    "MXNET_SERVE_PREFIX_CACHE": (
+        bool, False,
+        "The radix prefix cache: shared prompt prefixes prefill once "
+        "(serve/decode.py, serve/cache.py)."),
+    "MXNET_SERVE_SPEC_K": (
+        int, 0,
+        "Draft tokens a round of speculative decoding proposes; 0 takes "
+        "the built-in default (serve/decode.py, serve/spec.py)."),
+}
+
+
+def describe():
+    """Human-readable table of every variable the port reads (the
+    env_var.md equivalent)."""
+    lines = ["%-38s %-8s %-22s %s" % ("Variable", "Type", "Default", "Doc")]
+    for name, (typ, default, doc) in sorted(ENV_VARS.items()):
+        lines.append("%-38s %-8s %-22s %s"
+                     % (name, typ.__name__, repr(default), doc))
+    return "\n".join(lines)
+
+
+def current():
+    """{name: effective value} for every registered variable."""
+    return {name: get_env(name, typ, default)
+            for name, (typ, default, _doc) in ENV_VARS.items()}
+
+
+def check_unknown(warn=True):
+    """The ``MXNET_*`` variables set in the environment that the port does
+    not read: typos, or knobs of the reference or the JAX package that do
+    nothing here."""
+    unknown = sorted(k for k in os.environ
+                     if k.startswith("MXNET_") and k not in ENV_VARS)
+    if unknown and warn:
+        import warnings
+
+        warnings.warn(
+            "unrecognized MXNET_* environment variables (no effect in "
+            "mxnet_tpu_torch): %s; see mxnet_tpu_torch.config.describe()"
+            % unknown, stacklevel=2)
+    return unknown

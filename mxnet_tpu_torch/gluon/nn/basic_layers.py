@@ -238,9 +238,20 @@ class LayerNorm(_Resolving):
 
 
 class Embedding(HybridBlock):
-    def __init__(self, input_dim, output_dim, dtype="float32", **kwargs):
+    """Lookup table of ``input_dim`` rows of ``output_dim``.  With
+    ``sparse_grad`` the weight's gradient is ``row_sparse``
+    (``grad_stype``): ``gluon.Trainer`` then hands a lazy-update optimizer
+    only the rows a batch touched, and the others, with their optimizer
+    state, stay as they were."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False):
         super().__init__()
-        self.weight = _param((input_dim, output_dim), dtype)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self.weight = _param((input_dim, output_dim), dtype,
+                             init=weight_initializer)
+        self.weight.grad_stype = "row_sparse" if sparse_grad else "default"
 
     def forward(self, x):
         return F.embedding(x, self.weight)

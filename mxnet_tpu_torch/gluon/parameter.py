@@ -9,10 +9,14 @@ package's arguments; the port's own layers hand it its first values
 instead (``Parameter(data=tensor)``, or a tensor as the first argument).
 A parameter assigned to a block attribute under one of the default names
 (``weight``, ``bias``, ``gamma``, ``beta``, ``const``, ``param``) takes
-the attribute's name, as in the JAX package.  ``stype``/``grad_stype``
-other than ``'default'`` and a ``sharding`` are not ported (sparse
-storage and sharded parameters wait in ``ROADMAP.md`` Queue 1 items 6-7)
-and raise.  ``Constant`` is a parameter with ``grad_req='null'`` that
+the attribute's name, as in the JAX package.  ``stype`` and
+``grad_stype`` take ``'default'``, ``'row_sparse'`` or ``'csr'``: the data
+and the gradient stay dense tensors, and ``gluon.Trainer`` hands a
+lazy-update optimizer a ``'row_sparse'`` gradient as an
+``nd.sparse.RowSparseNDArray`` of its nonzero rows, as the JAX package
+does.  A ``sharding`` is not ported (sharded parameters wait in
+``ROADMAP.md`` Queue 1 item 7) and raises.  ``Constant`` is a parameter
+with ``grad_req='null'`` that
 keeps its value through ``initialize``.
 
 Two of the JAX package's methods are spelled the PyTorch way, because a
@@ -43,6 +47,7 @@ from ..context import Context, device_of
 __all__ = ["Parameter", "Constant", "DeferredInitializationError"]
 
 _GRAD_REQS = ("write", "add", "null")
+_STYPES = ("default", "row_sparse", "csr")
 
 
 class DeferredInitializationError(MXNetError):
@@ -71,9 +76,10 @@ class Parameter(torch.nn.Parameter):
             name, data = "weight", name      # the port's own spelling
         if isinstance(grad_req, bool):       # torch's (data, requires_grad)
             grad_req = "write" if grad_req else "null"
-        if stype != "default" or grad_stype != "default":
-            raise MXNetError("Parameter(stype=%r, grad_stype=%r): sparse "
-                             "storage is not ported" % (stype, grad_stype))
+        for what, st in (("stype", stype), ("grad_stype", grad_stype)):
+            if st not in _STYPES:
+                raise MXNetError("Parameter(%s=%r): one of %s"
+                                 % (what, st, _STYPES))
         if sharding is not None:
             raise MXNetError("Parameter(sharding=...): sharded parameters "
                              "are not ported")

@@ -161,14 +161,23 @@ class Trainer:
         """``[(index, param, grad)]`` of every parameter that takes a
         gradient, states made on first use.  A parameter no backward
         reached gets a zero gradient, as the JAX package's zero-filled
-        gradient buffer gives."""
+        gradient buffer gives.  A ``grad_stype='row_sparse'`` gradient
+        goes to an optimizer with a lazy update (``lazy_update``: SGD,
+        Adam) as an ``nd.sparse.RowSparseNDArray`` of its nonzero rows, so
+        that only those rows and their state change; other optimizers
+        take it dense, as in the JAX package."""
+        from ..ndarray import sparse
+
+        lazy = getattr(self._optimizer, "lazy_update", False)
         items = []
         for i, p in enumerate(self._params):
             if getattr(p, "grad_req", "write") == "null":
                 continue
             self._maybe_init_states(i, p)
-            items.append((i, p, p.grad if p.grad is not None
-                          else torch.zeros_like(p)))
+            grad = p.grad if p.grad is not None else torch.zeros_like(p)
+            if lazy and getattr(p, "grad_stype", "default") == "row_sparse":
+                grad = sparse.row_sparse_from_dense(grad)
+            items.append((i, p, grad))
         return items
 
     def _update(self, ignore_stale_grad=False):

@@ -18,8 +18,8 @@ a ``data.ring.Placer``, which copies it on a side stream; the caller's
 stream waits for the copy, and a slot is refilled only after the event of
 its last copy has passed.
 
-``LibSVMIter`` yields dense batches: the sparse NDArray is not ported
-(``ROADMAP.md`` Queue 1 item 6).
+``LibSVMIter`` yields CSR batches (``nd.sparse.CSRNDArray``) on the
+current context, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -285,8 +285,9 @@ class MNISTIter(NDArrayIter):
 
 
 class LibSVMIter(DataIter):
-    """LibSVM-format iterator; its batches are dense (see the module
-    docstring)."""
+    """LibSVM-format iterator yielding CSR batches: ``batch.data[0]`` is
+    an ``nd.sparse.CSRNDArray`` of (batch_size, num_features), a short
+    last batch padded with empty rows (``pad``)."""
 
     def __init__(self, data_libsvm, data_shape, batch_size=1,
                  label_libsvm=None, round_batch=True, **kwargs):
@@ -317,18 +318,27 @@ class LibSVMIter(DataIter):
     def next(self):
         if self._cursor >= len(self._rows):
             raise StopIteration
+        from ..ndarray import sparse as sp
+
         rows = self._rows[self._cursor:self._cursor + self.batch_size]
         pad = self.batch_size - len(rows)
         self._cursor += self.batch_size
-        dense = _np.zeros((self.batch_size, self._num_features), _np.float32)
-        labels = []
-        for r, (label, feats) in enumerate(rows):
+        data, indices, indptr, labels = [], [], [0], []
+        for label, feats in rows:
             for c in sorted(feats):
-                dense[r, c] = feats[c]
+                indices.append(c)
+                data.append(feats[c])
+            indptr.append(len(indices))
             labels.append(label)
-        labels += [0.0] * pad
-        return DataBatch([nd.array(dense)],
-                         [nd.array(_np.asarray(labels, _np.float32))],
+        for _ in range(pad):
+            indptr.append(len(indices))
+            labels.append(0.0)
+        csr = sp.csr_matrix(
+            (_np.asarray(data, _np.float32),
+             _np.asarray(indices, _np.int64),
+             _np.asarray(indptr, _np.int64)),
+            shape=(self.batch_size, self._num_features))
+        return DataBatch([csr], [nd.array(_np.asarray(labels, _np.float32))],
                          pad=pad)
 
 

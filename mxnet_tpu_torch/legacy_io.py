@@ -17,8 +17,9 @@ read through a 16-bit integer view (``ml_dtypes`` is not used).
   [aux dtypes+shapes if sparse], raw data, [aux data]
 - vector<string> keys: uint64 count, then per-key uint64 len + bytes
 
-Sparse payloads (kCSRStorage=2, kRowSparseStorage=1) raise: sparse
-storage is not ported (``ROADMAP.md`` Queue 1 item 6).
+Sparse payloads (kCSRStorage=2: aux [indptr, indices];
+kRowSparseStorage=1: aux [indices]) load into ``nd.sparse``'s
+``CSRNDArray`` and ``RowSparseNDArray``.
 """
 from __future__ import annotations
 
@@ -111,9 +112,15 @@ def _read_one(r):
         r.i32(), r.i32()  # dev_type, dev_id — always loaded to our context
         flag = r.i32()
         if nad:
-            raise MXNetError(
-                "reference params: sparse storage (stype %d) is not ported"
-                % stype)
+            aux_meta = []
+            for _ in range(nad):
+                aux_flag = r.i32()
+                aux_shape = _read_shape(r)
+                aux_meta.append((aux_flag, aux_shape))
+            data = _read_tensor_data(r, flag, storage_shape)
+            aux = [_read_tensor_data(r, aux_flag, aux_shape)
+                   for aux_flag, aux_shape in aux_meta]
+            return _Sparse(stype, shape, data, aux)
         return _read_tensor_data(r, flag, shape)
     # V1 / raw-ndim legacy header
     if magic == V1:
@@ -128,6 +135,26 @@ def _read_one(r):
     r.i32(), r.i32()
     flag = r.i32()
     return _read_tensor_data(r, flag, shape)
+
+
+class _Sparse:
+    """A sparse record as read: ``stype`` (1 row_sparse, 2 CSR), the dense
+    shape, the stored data and the aux arrays (row_sparse: indices; CSR:
+    indptr, indices)."""
+
+    def __init__(self, stype, shape, data, aux):
+        self.stype, self.shape, self.data, self.aux = stype, shape, data, aux
+
+    def to_ndarray(self, ctx=None):
+        from .ndarray import sparse as _sp
+
+        if self.stype == _STYPE_CSR:
+            indptr, indices = self.aux
+            return _sp.csr_matrix((self.data, indices, indptr),
+                                  shape=self.shape, ctx=ctx)
+        return _sp.row_sparse_array((self.data, self.aux[0]),
+                                    shape=self.shape, ctx=ctx,
+                                    dtype=self.data.dtype)
 
 
 def is_reference_format(head8):
@@ -164,6 +191,8 @@ def load(fname, ctx=None):
     arrays, keys = load_buffer(buf)
 
     def wrap(a):
+        if isinstance(a, _Sparse):
+            return a.to_ndarray(ctx)
         return None if a is None else array(a, ctx=ctx)
 
     arrays = [wrap(a) for a in arrays]

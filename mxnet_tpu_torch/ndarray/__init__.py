@@ -204,10 +204,11 @@ def load(fname, ctx=None):
 
 from . import contrib  # noqa: E402  (mx.nd.contrib)
 from . import image, linalg  # noqa: E402  (mx.nd.image, mx.nd.linalg)
+from . import sparse  # noqa: E402  (mx.nd.sparse: row_sparse and CSR)
 from .. import random  # noqa: E402  (mx.nd.random is mx.random)
 from ..operator import Custom  # noqa: E402  (mx.nd.Custom)
 
 __all__ = ["NDArray", "waitall", "array", "zeros", "ones", "full", "empty",
            "arange", "linspace", "eye", "zeros_like", "ones_like",
-           "save", "load", "concatenate", "from_torch", "random",
+           "save", "load", "concatenate", "from_torch", "random", "sparse",
            "contrib", "image", "linalg", "Custom", "dropout"] + list_ops()

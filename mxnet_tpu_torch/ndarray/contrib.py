@@ -11,8 +11,10 @@ on axis 0, and ``while_loop`` stacks them over ``max_iterations`` steps,
 the steps after the loop ended holding zeros.  Loop arrays may be NDArrays
 or tensors (nested in lists).
 
-Not ported yet: the detection helpers (``box_iou``, ``box_nms``,
-``MultiBoxPrior``...) and the DGL graph helpers.
+The detection ops (``ops/detection.py``) are here under the reference's
+names (``box_iou``, ``box_nms``, ``ROIAlign``, ``MultiBoxPrior``,
+``MultiBoxDetection``...), and so are the DGL graph-sampling ops
+(``ndarray/dgl.py``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,26 @@ from .ndarray import NDArray
 
 __all__ = ["foreach", "while_loop", "cond", "isfinite", "isnan", "isinf",
            "arange_like", "index_copy", "index_array", "getnnz",
-           "boolean_mask"]
+           "boolean_mask", "box_iou", "box_nms", "box_encode", "box_decode",
+           "bipartite_matching", "ROIAlign", "MultiBoxPrior",
+           "MultiBoxDetection", "dgl_csr_neighbor_uniform_sample",
+           "dgl_csr_neighbor_non_uniform_sample", "dgl_subgraph",
+           "dgl_graph_compact", "dgl_adjacency", "edge_id"]
+
+from .dgl import (  # noqa: E402,F401
+    dgl_adjacency, dgl_csr_neighbor_non_uniform_sample,
+    dgl_csr_neighbor_uniform_sample, dgl_graph_compact, dgl_subgraph,
+    edge_id)
+from ..ops.registry import get_op as _get_op  # noqa: E402
+
+box_iou = _get_op("box_iou")
+box_nms = _get_op("box_nms")
+box_encode = _get_op("box_encode")
+box_decode = _get_op("box_decode")
+bipartite_matching = _get_op("bipartite_matching")
+ROIAlign = _get_op("roi_align")
+MultiBoxPrior = _get_op("multibox_prior")
+MultiBoxDetection = _get_op("multibox_detection")
 
 
 def _flatten(x, out):

@@ -360,9 +360,13 @@ class NDArray:
                               off_value=off_value)
 
     def tostype(self, stype):
-        if stype != "default":
-            raise MXNetError("sparse storage is not ported")
-        return self
+        """This array in ``stype`` storage (``'default'``: itself;
+        ``'row_sparse'``/``'csr'``: ``nd.sparse.cast_storage``)."""
+        if stype == "default":
+            return self
+        from . import sparse
+
+        return sparse.cast_storage(self, stype)
 
     # ---- operators --------------------------------------------------------
     def _binop(self, other, name, reverse=False):

@@ -294,6 +294,8 @@ def _histogram_bin_edges(a, bins=10, range=None, weights=None):
 
 
 def _nan_fill(a, fill):
+    if _integral(a):
+        return a                # no NaN to fill (and no room for +-inf)
     return torch.where(torch.isnan(a), torch.full_like(a, fill), a)
 
 
@@ -478,7 +480,7 @@ def _select(condlist, choicelist, default=0):
                           else None)
     for cond, choice in zip(reversed(list(condlist)),
                             reversed(list(choicelist))):
-        out = torch.where(cond, choice, out)
+        out = torch.where(cond.to(torch.bool), choice, out)
     return out
 
 
@@ -539,6 +541,7 @@ def _polymul(a1, a2):
 
 
 def _polyder(p, m=1):
+    p = _float(p)               # jnp.polyder promotes integers
     for _ in range(m):
         n = p.shape[0] - 1
         p = p[:-1] * torch.arange(n, 0, -1, device=p.device, dtype=p.dtype)
@@ -647,6 +650,110 @@ _OWN_SUB = {"linalg": {
         _float(x), ord, axis, keepdims)}}
 
 
+def _floats(x1, x2):
+    """Both operands as tensors (a Python scalar becomes a 0-dim one) with
+    integers promoted to float32, as ``jax.numpy`` promotes them."""
+    return [_float(x) for x in _tensors(x1, x2)]
+
+
+def _binary_float(name, fn):
+    def call(x1, x2, /, out=None, where=None):
+        _no_out(name, out)
+        if where is not None:
+            raise NotImplementedError(
+                "The 'where' argument to mx.np.%s is not supported." % name)
+        return fn(*_floats(x1, x2))
+
+    return call
+
+
+def _modf(x, /, out=None):
+    _no_out("modf", out)
+    x = _float(x)
+    whole = torch.trunc(x)      # numpy's split, toward zero
+    return x - whole, whole
+
+
+def _frexp(x, /):
+    m, e = torch.frexp(_float(x))
+    return m, e.to(torch.int32)
+
+
+def _heaviside(x1, x2, /):
+    x1, x2 = _floats(x1, x2)
+    dt = torch.promote_types(x1.dtype, x2.dtype)
+    x1, x2 = x1.to(dt), x2.to(dt)
+    return torch.where(x1 < 0, torch.zeros_like(x1),
+                       torch.where(x1 > 0, torch.ones_like(x1), x2))
+
+
+def _clip(arr=None, /, min=None, max=None, *, a=None, a_min=None,
+          a_max=None):
+    """``jnp.clip`` (``a``, ``a_min``, ``a_max`` are its deprecated
+    spellings)."""
+    arr = a if arr is None else arr
+    lo = a_min if min is None else min
+    hi = a_max if max is None else max
+    return _op_fn("clip")(arr, lo, hi)
+
+
+def _full_like(a, fill_value, dtype=None, shape=None, *, device=None):
+    if device is not None:
+        raise NotImplementedError("mx.np.full_like(device=...): pass ctx "
+                                  "through the input array")
+    dt = a.dtype if dtype is None else _as_torch_dtype(dtype)
+    shape = tuple(a.shape) if shape is None else (
+        (shape,) if isinstance(shape, int) else tuple(shape))
+    fill = torch.as_tensor(fill_value, device=a.device).to(dt)
+    return torch.broadcast_to(fill, shape).clone()
+
+
+def _take_along_axis(arr, indices, axis=-1, mode=None, fill_value=None):
+    if mode is not None or fill_value is not None:
+        raise NotImplementedError("mx.np.take_along_axis takes no mode or "
+                                  "fill_value")
+    if axis is None:
+        arr, axis = arr.reshape(-1), 0
+    n = arr.shape[axis]
+    idx = indices.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    out = torch.take_along_dim(arr, torch.where(ok, idx, 0), dim=axis)
+    # jnp's default mode "fill": an index out of range reads NaN, or the
+    # least value of a signed integer type (the greatest of an unsigned)
+    if out.is_floating_point() or out.is_complex():
+        fill = float("nan")
+    elif out.dtype == torch.bool:
+        fill = True
+    else:
+        info = torch.iinfo(out.dtype)
+        fill = info.min if info.min < 0 else info.max
+    return torch.where(ok, out, torch.full_like(out, fill))
+
+
+def _tri_indices_from(fn):
+    def call(arr, k=0):
+        rows, cols = arr.shape[-2], arr.shape[-1]
+        ij = fn(rows, cols, k, device=arr.device, dtype=torch.int32)
+        return ij[0], ij[1]
+
+    return call
+
+
+def _unique_all(x, /, *, size=None, fill_value=None):
+    """(values, first indices, inverse indices, counts), as
+    ``jnp.unique_all`` returns them."""
+    _no_size("unique_all", size, fill_value)
+    flat = x.reshape(-1)
+    values, inverse, counts = torch.unique(
+        flat, sorted=True, return_inverse=True, return_counts=True)
+    pos = torch.arange(flat.numel(), device=flat.device)
+    first = torch.full((values.numel(),), flat.numel(), dtype=pos.dtype,
+                       device=flat.device).scatter_reduce(
+        0, inverse, pos, reduce="amin")
+    return values, first, inverse.reshape(x.shape), counts
+
+
 # 2. the port's own torch functions: the hot element-wise ops, ``matmul``
 # and the common reductions as direct torch expressions (a call costs a
 # few µs, where ``torch._numpy``'s argument normalisation costs tens), and
@@ -692,7 +799,7 @@ _OWN = {
     "bitwise_left_shift": torch.bitwise_left_shift,
     "bitwise_right_shift": torch.bitwise_right_shift,
     "matrix_transpose": lambda x, /: x.transpose(-1, -2),
-    "astype": _astype, "frexp": torch.frexp, "isin": _isin,
+    "astype": _astype, "frexp": _frexp, "isin": _isin,
     "nanargmax": _nanarg("nanargmax", torch.argmax, float("-inf")),
     "nanargmin": _nanarg("nanargmin", torch.argmin, float("inf")),
     "nancumsum": _nancum("nancumsum", torch.cumsum, 0.0),
@@ -718,6 +825,25 @@ _OWN = {
         x1, x2.unsqueeze(-1)).squeeze(-1),
     "vecmat": lambda x1, x2, /: torch.matmul(x1.conj().unsqueeze(-2),
                                              x2).squeeze(-2),
+    # where ``torch._numpy`` answers otherwise than ``jax.numpy``: a NaN
+    # cube root of a negative, a floor split in modf, integer results
+    # where JAX promotes (or promoted ones where it keeps integers),
+    # integer inputs refused, 1-D outer only, a Number-only fill
+    "cbrt": lambda x, /: _op_fn("cbrt")(x), "modf": _modf,
+    "fabs": lambda x, /: torch.abs(_float(x)),
+    "rint": lambda x, /: torch.round(_float(x)),
+    "trunc": lambda x: _op_fn("trunc")(x), "heaviside": _heaviside,
+    "hypot": _binary_float("hypot", torch.hypot),
+    "logaddexp": _binary_float("logaddexp", torch.logaddexp),
+    "logaddexp2": _binary_float("logaddexp2", torch.logaddexp2),
+    "nextafter": lambda x, y, /: torch.nextafter(*_floats(x, y)),
+    "outer": lambda a, b, out=None: (_no_out("outer", out),
+                                     _op_fn("outer")(a, b))[1],
+    "full_like": _full_like, "clip": _clip,
+    "take_along_axis": _take_along_axis,
+    "tril_indices_from": _tri_indices_from(torch.tril_indices),
+    "triu_indices_from": _tri_indices_from(torch.triu_indices),
+    "unique_all": _unique_all,
 }
 # names of ``_OWN`` whose functions make no tensor of their own, so their
 # calls skip the ``torch.device`` scope (µs a call on the hot path)

@@ -437,8 +437,10 @@ def interleaved_matmul_encdec_valatt(keys_values, attention, heads=1):
 
 @register("div_sqrt_dim")
 def div_sqrt_dim(data):
-    """data / sqrt(data.shape[-1])."""
-    return data / math.sqrt(data.shape[-1])
+    """data / sqrt(data.shape[-1]), the root taken in float32 and cast to
+    ``data``'s dtype first, as the JAX op does (truncated for integers)."""
+    root = torch.tensor(math.sqrt(data.shape[-1]), dtype=torch.float32)
+    return data / root.to(device=data.device, dtype=data.dtype)
 
 
 for _n in ("interleaved_matmul_selfatt_qk",

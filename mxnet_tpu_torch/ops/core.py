@@ -220,14 +220,15 @@ def rint(x):
     return torch.round(_inexact(x))
 
 
+# ceil, floor and fix return integer inputs as they are, as jnp's do
 @register("ceil")
 def ceil(x):
-    return torch.ceil(_inexact(x))
+    return torch.ceil(x) if x.is_floating_point() else x
 
 
 @register("floor")
 def floor(x):
-    return torch.floor(_inexact(x))
+    return torch.floor(x) if x.is_floating_point() else x
 
 
 @register("trunc")
@@ -237,7 +238,7 @@ def trunc(x):
 
 @register("fix")
 def fix(x):
-    return torch.trunc(_inexact(x))
+    return torch.trunc(x) if x.is_floating_point() else x
 
 
 @register("square")
@@ -299,7 +300,17 @@ erf = _unary("erf", torch.erf)
 erfinv = _unary("erfinv", torch.erfinv)
 gamma = _unary("gamma", lambda x: torch.exp(torch.lgamma(x)))
 gammaln = _unary("gammaln", torch.lgamma)
-digamma = _unary("digamma", torch.digamma)
+
+
+def _digamma(x):
+    """NaN at the poles (0, -1, -2, ...), as ``jax.scipy.special.digamma``
+    gives, where ``torch.digamma`` gives -inf at 0."""
+    pole = (x <= 0) & (x == torch.floor(x))
+    return torch.where(pole, torch.full_like(x, float("nan")),
+                       torch.digamma(x))
+
+
+digamma = _unary("digamma", _digamma)
 
 
 @register("isnan", differentiable=False)
@@ -319,6 +330,8 @@ def isfinite(x):
 
 @register("clip")
 def clip(x, a_min=None, a_max=None):
+    if a_min is None and a_max is None:
+        return x                      # jnp.clip's answer; clamp refuses
     return torch.clamp(x, a_min, a_max)
 
 
@@ -680,9 +693,17 @@ register("pick")(_nn.pick)
 register("take_along_axis")(_nn.take_along_axis)
 
 
+def _in_bounds(idx, n):
+    """Indices as XLA's gather reads them: a negative one counts from the
+    end, and one out of range is clamped to the edge."""
+    idx = idx.long()
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
 @register("gather_nd")
 def gather_nd(data, indices):
-    return data[tuple(indices[i].long() for i in range(indices.shape[0]))]
+    return data[tuple(_in_bounds(indices[i], data.shape[i])
+                      for i in range(indices.shape[0]))]
 
 
 @register("scatter_nd")
@@ -855,6 +876,8 @@ def ones_like(x):
 
 @register("full_like")
 def full_like(x, fill_value=0.0):
+    if isinstance(fill_value, torch.Tensor):      # broadcast, as JAX does
+        return torch.broadcast_to(fill_value.to(x.dtype), x.shape).clone()
     return torch.full_like(x, fill_value)
 
 

@@ -140,3 +140,55 @@ def RNN(data, parameters, state, state_cell=None, state_size=None,
 
 
 register("RNN", num_outputs=_rnn_num_outputs)(RNN)
+
+
+_ROI_POOL_CHUNK_BYTES = 256 << 20   # bound on one chunk's gathered maps
+
+
+@register("ROIPooling")
+def ROIPooling(data, rois, pooled_size=(7, 7), spatial_scale=1.0):
+    """Max-pool each RoI's bins, quantized to the feature grid: rois (R, 5)
+    rows [batch_idx, x1, y1, x2, y2] in image coordinates, rounded after
+    scaling; bin (i, j) covers rows [floor(y1 + i*bin_h), ceil(y1 +
+    (i+1)*bin_h)) and the like for columns; an empty bin gives 0.  The
+    RoIs' maps are gathered a chunk at a time, and each bin row reduced
+    over the rows, then the columns."""
+    ph, pw = (pooled_size if isinstance(pooled_size, (tuple, list))
+              else (pooled_size, pooled_size))
+    N, C, H, W = data.shape
+    R = rois.shape[0]
+    dev, dt = data.device, data.dtype
+    bidx = rois[:, 0].long()
+    x1 = torch.round(rois[:, 1] * spatial_scale)
+    y1 = torch.round(rois[:, 2] * spatial_scale)
+    x2 = torch.round(rois[:, 3] * spatial_scale)
+    y2 = torch.round(rois[:, 4] * spatial_scale)
+    # correctly rounded divisions (CUDA divides by a Python scalar through
+    # its reciprocal, which can move a bin edge across an integer)
+    bin_h = torch.clamp(y2 - y1 + 1.0, min=1.0) / torch.tensor(
+        float(ph), device=dev)
+    bin_w = torch.clamp(x2 - x1 + 1.0, min=1.0) / torch.tensor(
+        float(pw), device=dev)
+
+    def mask(lo, size, n, step):
+        k = torch.arange(n, dtype=torch.float32, device=dev)
+        start = torch.floor(lo[:, None] + k[None] * step[:, None])
+        end = torch.ceil(lo[:, None] + (k[None] + 1.0) * step[:, None])
+        pos = torch.arange(size, dtype=torch.float32, device=dev)
+        return (pos >= start[..., None]) & (pos < end[..., None])
+
+    hmask = mask(y1.float(), H, ph, bin_h.float())    # (R, ph, H)
+    wmask = mask(x1.float(), W, pw, bin_w.float())    # (R, pw, W)
+    neg = torch.tensor(-float("inf"), dtype=dt, device=dev)
+    out = data.new_empty((R, C, ph, pw))
+    chunk = max(1, _ROI_POOL_CHUNK_BYTES // max(1, C * H * W
+                                                * data.element_size()))
+    for lo in range(0, R, chunk):
+        sel = slice(lo, lo + chunk)
+        x = data[bidx[sel]]                          # (n, C, H, W)
+        for i in range(ph):
+            row = torch.where(hmask[sel, i][:, None, :, None], x, neg).amax(
+                dim=2)                                # (n, C, W)
+            out[sel, :, i] = torch.where(
+                wmask[sel][:, None], row[:, :, None, :], neg).amax(dim=-1)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))

@@ -27,6 +27,20 @@ def _t(x):
     return x.transpose(-1, -2)
 
 
+def _promotes(fn):
+    """``fn`` with integer tensor arguments in float32, as the
+    ``jnp.linalg`` functions promote them (torch's refuse integers)."""
+    import functools
+
+    @functools.wraps(fn)
+    def op(*args, **kwargs):
+        return fn(*[a.to(torch.float32) if isinstance(a, torch.Tensor)
+                    and not (a.is_floating_point() or a.is_complex())
+                    else a for a in args], **kwargs)
+
+    return op
+
+
 # The float32 routes torch takes on the card for ``eigh`` and ``svd``
 # (cuSOLVER; for the SVD its default ``gesvdj``) are far less accurate
 # than LAPACK's float32: relative errors of 2.2e-4 in the eigenvalues and
@@ -131,6 +145,7 @@ def linalg_syrk(A, transpose=False, alpha=1.0):
 
 
 @register("linalg_gelqf", num_outputs=2)
+@_promotes
 def linalg_gelqf(A):
     """LQ factorization A = L Q with Q's rows orthonormal: the QR of A^T."""
     q, r = torch.linalg.qr(_t(A), mode="reduced")
@@ -214,17 +229,20 @@ def linalg_cholesky(A, upper=False):
 
 
 @register("linalg_qr", num_outputs=2)
+@_promotes
 def linalg_qr(A, mode="reduced"):
     q, r = torch.linalg.qr(A, mode=mode)
     return q, r
 
 
 @register("linalg_svd", num_outputs=3)
+@_promotes
 def linalg_svd(A, full_matrices=False):
     return _svd(A, full_matrices)
 
 
 @register("linalg_svdvals")
+@_promotes
 def linalg_svdvals(A):
     return _svdvals(A)
 
@@ -259,10 +277,11 @@ def linalg_solve(A, b):
 
 
 @register("linalg_lstsq", num_outputs=4, differentiable=False)
+@_promotes
 def linalg_lstsq(A, b, rcond=None):
-    """(x, residuals, rank, singular values), as numpy returns them: the
-    SVD route (``gelsd``'s answer), written out so the card runs it too
-    (``torch.linalg.lstsq`` takes only ``gels`` there)."""
+    """(x, residuals, rank, singular values), as ``jnp.linalg.lstsq``
+    returns them: the SVD route (``gelsd``'s answer), written out so the
+    card runs it too (``torch.linalg.lstsq`` takes only ``gels`` there)."""
     vec = b.dim() == 1
     bb = b.unsqueeze(-1) if vec else b
     m, n = A.shape[-2], A.shape[-1]
@@ -274,14 +293,14 @@ def linalg_lstsq(A, b, rcond=None):
                        torch.zeros_like(s))
     x = _t(vt) @ (sinv.unsqueeze(-1) * (_t(u) @ bb))
     rank = keep.sum().to(torch.int32)
-    if int(rank) == n and m > n:
-        resid = ((A @ x - bb) ** 2).sum(-2)
-    else:
-        resid = torch.zeros((0,), dtype=A.dtype, device=A.device)
+    # every column's residual, whatever the rank: ``jnp.linalg.lstsq``'s
+    # answer (numpy's is empty for a deficient or wide A)
+    resid = ((A @ x - bb) ** 2).sum(-2)
     return (x.squeeze(-1) if vec else x), resid, rank, s
 
 
 @register("linalg_pinv")
+@_promotes
 def linalg_pinv(A, rcond=None):
     if rcond is None:
         rcond = 10 * max(A.shape[-2:]) * torch.finfo(A.dtype).eps
@@ -289,6 +308,7 @@ def linalg_pinv(A, rcond=None):
 
 
 @register("linalg_matrix_rank", differentiable=False)
+@_promotes
 def linalg_matrix_rank(A, tol=None):
     if tol is None:
         return torch.linalg.matrix_rank(_up(A), rtol=torch.finfo(
@@ -302,6 +322,7 @@ def linalg_matrix_power(A, n=1):
 
 
 @register("linalg_norm")
+@_promotes
 def linalg_norm(A, ord=None, axis=None, keepdims=False):
     if ord is None and axis is None:
         return torch.linalg.vector_norm(A, keepdim=keepdims) if not keepdims \
@@ -320,6 +341,7 @@ def linalg_norm(A, ord=None, axis=None, keepdims=False):
 
 
 @register("linalg_cond", differentiable=False)
+@_promotes
 def linalg_cond(A, p=None):
     return _down(torch.linalg.cond(_up(A), p=p), A)
 

@@ -48,9 +48,15 @@ __all__ = ["fully_connected", "dot", "activation", "gelu", "layer_norm",
            "softmax_cross_entropy", "ctc_loss"]
 
 
+def _inexact(x):
+    """Integer inputs as float32, as ``jax.nn``'s functions promote them."""
+    return x if x.is_floating_point() or x.is_complex() else x.to(
+        torch.float32)
+
+
 def gelu(x, approximate=True):
     # the JAX op defaults to the tanh approximation (jax.nn.gelu)
-    return F.gelu(x, approximate="tanh" if approximate else "none")
+    return F.gelu(_inexact(x), approximate="tanh" if approximate else "none")
 
 
 def relu(x):
@@ -62,11 +68,11 @@ def sigmoid(x):
 
 
 def log_sigmoid(x):
-    return F.logsigmoid(x)
+    return F.logsigmoid(_inexact(x))
 
 
 def softrelu(x):
-    return F.softplus(x)
+    return F.softplus(_inexact(x))
 
 
 def softsign(x):
@@ -78,7 +84,7 @@ def silu(x):
 
 
 def mish(x):
-    return F.mish(x)
+    return F.mish(_inexact(x))
 
 
 _ACTIVATIONS = {
@@ -236,13 +242,13 @@ def softmax(x, axis=-1, temperature=None, length=None):
         mask = pos < length.reshape(tuple(length.shape)
                                     + (1,) * (x.dim() - length.dim()))
         x = x.masked_fill(~mask, float("-inf"))
-    return torch.softmax(x, dim=axis)
+    return torch.softmax(_inexact(x), dim=axis)
 
 
 def log_softmax(x, axis=-1, temperature=None):
     if temperature is not None and temperature != 1.0:
         x = x / temperature
-    return torch.log_softmax(x, dim=axis)
+    return torch.log_softmax(_inexact(x), dim=axis)
 
 
 def softmax_cross_entropy(logits, labels):
@@ -600,11 +606,11 @@ def elu(x, alpha=1.0):
 
 
 def selu(x):
-    return F.selu(x)
+    return F.selu(_inexact(x))
 
 
 def softmin(x, axis=-1):
-    return torch.softmax(-x, dim=axis)
+    return torch.softmax(-_inexact(x), dim=axis)
 
 
 def _moments(x, dims):

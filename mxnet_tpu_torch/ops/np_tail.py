@@ -83,7 +83,15 @@ def _flat_or(a, axis):
 
 # ---- nan-reductions -------------------------------------------------------
 
+def _float(a):
+    return a if a.is_floating_point() or a.is_complex() else a.to(
+        torch.float32)
+
+
 def _nan_extreme(a, axis, keepdims, fill, reduce):
+    if not (a.is_floating_point() or a.is_complex()):
+        # no NaN to skip: the extreme in the input's dtype, as JAX gives
+        return reduce(a, dim=_axes(a, axis), keepdim=keepdims)
     nan = torch.isnan(a)
     out = reduce(torch.where(nan, torch.full_like(a, fill), a),
                  dim=_axes(a, axis), keepdim=keepdims)
@@ -113,10 +121,11 @@ def nanprod(a, axis=None, keepdims=False):
 
 
 def nanmean(a, axis=None, keepdims=False):
-    return torch.nanmean(a, dim=_axes(a, axis), keepdim=keepdims)
+    return torch.nanmean(_float(a), dim=_axes(a, axis), keepdim=keepdims)
 
 
 def nanvar(a, axis=None, ddof=0, keepdims=False):
+    a = _float(a)
     dims = _axes(a, axis)
     ok = ~torch.isnan(a)
     mean = torch.nanmean(a, dim=dims, keepdim=True)
@@ -159,7 +168,8 @@ _reg("percentile", percentile)
 _reg("quantile", quantile)
 _reg("median", median)
 _reg("average", lambda a, weights=None, axis=None:
-     _average(a, axis=axis, weights=weights))
+     _average(a, axis=axis) if weights is None
+     else _average(a, axis=axis, weights=weights))
 _reg("cov", lambda m, y=None, rowvar=True, bias=False:
      _cov(m, y, rowvar=rowvar, bias=bias))
 _reg("corrcoef", lambda x, y=None, rowvar=True:
@@ -217,7 +227,9 @@ def interp(x, xp, fp, left=None, right=None):
 
 
 def polyval(p, x):
-    """Horner's rule: ``p[0] x^(n-1) + ... + p[n-1]``."""
+    """Horner's rule: ``p[0] x^(n-1) + ... + p[n-1]``, in floating point
+    (``jnp.polyval`` promotes integers)."""
+    p, x = _float(p), _float(x)
     y = torch.zeros_like(x * p[0])
     for i in range(p.shape[0]):
         y = y * x + p[i]
@@ -226,6 +238,7 @@ def polyval(p, x):
 
 def spacing(x):
     """Distance from ``x`` to the next float away from zero."""
+    x = _float(x)
     away = torch.where(torch.signbit(x), torch.full_like(x, float("-inf")),
                        torch.full_like(x, float("inf")))
     return torch.nextafter(x, away) - x
@@ -244,7 +257,8 @@ _reg("interp", interp)
 _nan_to_num = tnp("nan_to_num")
 _reg("nan_to_num", lambda x, nan=0.0, posinf=None, neginf=None:
      _nan_to_num(x, nan=nan, posinf=posinf, neginf=neginf))
-_reg("heaviside", lambda x1, x2: torch.heaviside(x1, x2.to(x1.dtype)))
+_reg("heaviside", lambda x1, x2: torch.heaviside(
+    _float(x1), _float(x2).to(_float(x1).dtype)))
 _reg("copysign", lambda x1, x2: torch.copysign(x1, x2))
 _reg("ldexp", lambda x1, x2: torch.ldexp(x1, x2))
 _reg("signbit", lambda x: torch.signbit(x), differentiable=False)
@@ -442,8 +456,10 @@ def fill_diagonal(a, val):
     n = min(a.shape)
     idx = torch.arange(n, device=a.device)
     out = a.clone()
-    out[(idx,) * a.dim()] = torch.as_tensor(val, dtype=a.dtype,
-                                            device=a.device)
+    v = torch.as_tensor(val, dtype=a.dtype, device=a.device).reshape(-1)
+    if v.numel() > 1:      # numpy's rule: the values in order, repeated
+        v = v.repeat(-(-n // v.numel()))[:n]
+    out[(idx,) * a.dim()] = v
     return out
 
 

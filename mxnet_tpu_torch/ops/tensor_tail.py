@@ -68,6 +68,8 @@ def slice(data, begin, end, step=None):  # noqa: A001 - the op's name
 def moments(data, axes=None, keepdims=False):
     """Mean and (biased) variance over ``axes``."""
     ax = tuple(axes) if axes is not None else tuple(range(data.dim()))
+    if not data.is_floating_point():
+        data = data.to(torch.float32)     # JAX's mean promotes integers
     mean = data.mean(dim=ax, keepdim=True)
     var = (data - mean).square().mean(dim=ax, keepdim=keepdims)
     if not keepdims:

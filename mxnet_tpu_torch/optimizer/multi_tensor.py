@@ -211,8 +211,15 @@ def _group_key(trainer, i, param, grad):
             _state_sig(trainer._states[i]), str(param.device))
 
 
-def _sparse(t):
-    return t.layout != torch.strided
+def _sparse_grad(g):
+    """A gradient the grouped rule cannot take: an
+    ``nd.sparse.RowSparseNDArray`` (or a ``torch.sparse`` tensor)."""
+    return not isinstance(g, torch.Tensor) or g.layout != torch.strided
+
+
+def _sparse_param(p):
+    return getattr(p, "stype", "default") != "default" \
+        or p.layout != torch.strided
 
 
 def partition(trainer, items):
@@ -234,10 +241,10 @@ def partition(trainer, items):
         return {}, [(i, p, g, "optimizer") for i, p, g in items]
     rounds, eager, listed = [], [], {}
     for i, param, grad in items:
-        if _sparse(grad):
+        if _sparse_grad(grad):
             eager.append((i, param, grad, "row_sparse"))
             continue
-        if _sparse(param):
+        if _sparse_param(param):
             eager.append((i, param, grad, "stype"))
             continue
         k = listed.get(id(param), 0)

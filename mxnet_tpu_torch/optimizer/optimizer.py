@@ -20,7 +20,13 @@ float64 -> float32 rounding the JAX package's Python scalar takes where it
 meets an array.  Constants (momentum, betas, eps) stay Python numbers.
 The arithmetic runs in float32: a 16-bit weight updates through an f32
 copy, or, with ``multi_precision``, through the f32 master its state
-carries.  Sparse gradients are not ported (the dense rules apply).
+carries.  
+A row_sparse gradient (``nd.sparse.RowSparseNDArray``, which
+``gluon.Trainer`` makes for a ``grad_stype='row_sparse'`` parameter)
+takes the lazy update of SGD and Adam when ``lazy_update`` is set (and of
+their subclasses that keep the rule, ``LBSGD``): repeated indices summed,
+only the stored rows of the weight and of its state change, with Python
+scalars as the JAX rule has them.  Every other rule takes it densified.
 """
 from __future__ import annotations
 
@@ -198,12 +204,49 @@ class Optimizer:
         self._update_count(index)
 
     def _step_one(self, index, weight, grad, state, masters):
+        from ..ndarray.sparse import RowSparseNDArray
         from .multi_tensor import refill
 
+        if isinstance(grad, RowSparseNDArray):
+            if getattr(self, "lazy_update", False) and \
+                    self._lazy_rule is not None:
+                return self._lazy_step(index, weight, grad, state, masters)
+            grad = grad.tostype("default")._data
         self._bump(index)
         slots = self._slots[index] = refill(
             self._slots.get(index), self._scalars(index), weight.device)
         self._apply([weight], [grad], [state], slots.values, masters)
+
+    # ---- the lazy update of a row_sparse gradient ---------------------------
+    _lazy_rule = None   # (index, w, idx, g, state, lr, wd): rows in place
+
+    def _sparse_rows(self, grad):
+        """(indices, f32 rows) of a RowSparseNDArray gradient: repeated
+        indices summed (a host sync on the card, unless the array's rows
+        are known unique), then rescaled and clipped."""
+        idx = grad.indices_.long()
+        rows = grad._data.to(_f32)
+        if not grad._unique_rows:
+            uniq, inv = torch.unique(idx, sorted=True, return_inverse=True)
+            if uniq.numel() != rows.shape[0]:
+                rows = torch.zeros((uniq.numel(),) + rows.shape[1:],
+                                   dtype=_f32, device=rows.device
+                                   ).index_add(0, inv, rows)
+                idx = uniq
+        rows = rows * self.rescale_grad
+        if self.clip_gradient is not None:
+            rows = rows.clamp(-self.clip_gradient, self.clip_gradient)
+        return idx, rows
+
+    @torch.no_grad()
+    def _lazy_step(self, index, weight, grad, state, masters):
+        self._bump(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        idx, g = self._sparse_rows(grad)
+        work, st = (state[0], state[1]) if masters else (weight, state)
+        self._lazy_rule(index, work, idx, g, st, lr, wd)
+        if masters:
+            weight.copy_(work)
 
     def update(self, index, weight, grad, state):
         """Apply one step to ``weight`` in place; ``state`` as made by
@@ -260,10 +303,23 @@ class SGD(Optimizer):
         else:
             _add_(w, mom)
 
+    def _lazy_rule(self, index, w, idx, g, state, lr, wd):
+        w_rows = w[idx].to(_f32)
+        g = g + wd * w_rows
+        if state is not None:
+            mom_rows = state[idx] * self.momentum - lr * g
+            state[idx] = mom_rows
+            new_rows = w_rows + mom_rows
+        else:
+            new_rows = w_rows - lr * g
+        w[idx] = new_rows.to(w.dtype)
+
 
 @register
 class NAG(SGD):
     """Nesterov momentum: w += momentum*mom - lr*g, mom as SGD's."""
+
+    _lazy_rule = None
 
     def _rule(self, w, grads, states, s):
         g = _with_wd(self._preprocess(grads, s), w, s)
@@ -327,10 +383,26 @@ class Adam(_Moments):
         _div_(step, den)
         _sub_(w, step)
 
+    def _lazy_rule(self, index, w, idx, g, state, lr, wd):
+        t = self._index_update_count[index]
+        w_rows = w[idx].to(_f32)
+        g = g + wd * w_rows
+        m, v = state
+        m_rows = self.beta1 * m[idx] + (1 - self.beta1) * g
+        v_rows = self.beta2 * v[idx] + (1 - self.beta2) * torch.square(g)
+        m[idx] = m_rows
+        v[idx] = v_rows
+        mhat = m_rows / (1 - self.beta1 ** t)
+        vhat = v_rows / (1 - self.beta2 ** t)
+        new_rows = w_rows - lr * mhat / (torch.sqrt(vhat) + self.epsilon)
+        w[idx] = new_rows.to(w.dtype)
+
 
 @register
 class AdamW(Adam):
     """Adam with decoupled weight decay: w -= lr*(step + wd*w)."""
+
+    _lazy_rule = None
 
     def _rule(self, w, grads, states, s):
         g = self._preprocess(grads, s)

@@ -392,6 +392,12 @@ class StepProgram:
                 raise CaptureError("grad_req_add",
                                    "parameter %s accumulates gradients"
                                    % (trainer._param_names[i],))
+            if getattr(p, "grad_stype", "default") == "row_sparse" and \
+                    getattr(trainer._optimizer, "lazy_update", False):
+                # the lazy update's rows depend on the batch's ids
+                raise CaptureError("row_sparse",
+                                   "parameter %s has a row_sparse gradient"
+                                   % (trainer._param_names[i],))
             trainer._maybe_init_states(i, p)
             items.append((i, p, p))   # gradients take the parameter's form
         if not items:

@@ -270,9 +270,12 @@ def _outs(x):
 
 def _held_elsewhere():
     """The ops whose cases live in the files of their own modules (the np
-    tail, linear algebra, quantization, image, optimizer update and contrib
-    tail ops), each against the JAX op of the same name."""
+    tail, linear algebra, quantization, image, optimizer update, contrib
+    tail, detection and parity ops), each against the JAX op of the same
+    name, and the reference-name aliases of any op with a case."""
+    from parity_cases import CASES as parity, DRAWS
     from test_torch_contrib_tail import CASES as contrib, _name
+    from test_torch_detection import OPS as detection
     from test_torch_image_quant import IMAGE, QUANT, SAMPLING
     from test_torch_linalg import CASES as linalg
     from np_cases import NP_TAIL
@@ -286,6 +289,8 @@ def _held_elsewhere():
     names |= {"image_" + k.rsplit("_", 1)[0] if k.startswith("resize")
               else "image_" + k for k in image}
     names.add("image_random_resized_crop")
+    names |= {c[0] for c in parity} | set(DRAWS) | detection | set(SPECS)
+    names |= set(RANDOM)
     return {n for n in treg.list_ops() if treg.get_op(n).name in names}
 
 

@@ -69,8 +69,11 @@ def _tail(mx, name):
 def test_every_np_tail_op_has_a_case():
     from mxnet_tpu_torch.ops import registry
 
+    # an alias (``ops/parity.py``'s reference names) is the op under
+    # another name, which its own case covers
     own = {n for n in registry.list_ops()
-           if registry.get_op(n).fn.__module__.endswith(".np_tail")}
+           if registry.get_op(n).fn.__module__.endswith(".np_tail")
+           and registry.get_op(n).name == n}
     assert own == set(NP_TAIL)
 
 

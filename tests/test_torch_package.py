@@ -87,7 +87,9 @@ def test_import_pulls_in_no_jax():
                 "gluon.model_zoo.vision.inception", "checkpoint",
                 "checkpoint.layout", "checkpoint.manager",
                 "checkpoint.writer", "resilience", "resilience.inject",
-                "legacy_io", "callback"):
+                "legacy_io", "callback", "config", "metric",
+                "ndarray.sparse", "ndarray.dgl", "ops.detection",
+                "ops.parity"):
         assert "mxnet_tpu_torch." + mod in res["modules"]
     assert res["bad"] == []
 
@@ -98,7 +100,8 @@ _IMPORT = re.compile(r"^\s*(?:from|import)\s+[^#\n]*"
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT) for p in PKG.rglob("*.py")]
-    + [Path("chip_smoke.py"), Path("tests/np_cases.py")]), ids=str)
+    + [Path("chip_smoke.py"), Path("tests/np_cases.py"),
+       Path("tests/parity_cases.py")]), ids=str)
 def test_source_imports_neither_jax_nor_mxnet_tpu(path):
     assert _IMPORT.findall((ROOT / path).read_text()) == []
 
@@ -417,6 +420,7 @@ import mxnet_tpu_torch.step.capture, mxnet_tpu_torch.monitor.core
 import mxnet_tpu_torch.optimizer.multi_tensor, mxnet_tpu_torch.kvstore.collective
 tables = chip_smoke._np_cases()     # np_front's case tables, as the card loads them
 assert tables.CASES and tables.KEYWORDS and tables.REFERENCE_NP_SURFACE
+assert chip_smoke._parity_cases().CASES    # and nd_tail's
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu", "pytest"))
 print(json.dumps({"bad": bad, "phases": sorted(
@@ -425,8 +429,8 @@ print(json.dumps({"bad": bad, "phases": sorted(
 
 
 def test_chip_smoke_and_step_modules_pull_in_no_jax():
-    """``chip_smoke.py``, the case tables its ``np_front`` phase loads
-    and the modules of whole-step capture (the grouped apply, the
+    """``chip_smoke.py``, the case tables its ``np_front`` and ``nd_tail``
+    phases load and the modules of whole-step capture (the grouped apply, the
     monitor, the bucket planner) import neither JAX, the JAX package nor
     pytest; the script has its captured phases."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -440,7 +444,7 @@ def test_chip_smoke_and_step_modules_pull_in_no_jax():
             "phase_train_lstm", "phase_train_gpt_lm", "phase_rnn_parts",
             "phase_train_vision", "phase_vision_zoo",
             "phase_train_amp_fp16",
-            "phase_checkpoint_resume"} <= set(res["phases"])
+            "phase_checkpoint_resume", "phase_nd_tail"} <= set(res["phases"])
 
 
 @pytest.mark.parametrize("kind", ["int", "tensor"])
@@ -486,19 +490,13 @@ def test_dropout_seed_reaches_the_kernels_by_address(monkeypatch, kind):
 
 
 # JAX modules whose names a later slice ports: {module: ROADMAP item}
-DEFERRED = {
-    "mxnet_tpu.ops.detection": "ROADMAP.md Queue 1 item 6 (detection)",
-    "mxnet_tpu.ops.parity": "ROADMAP.md Queue 1 item 6 (parity)",
-    "mxnet_tpu.ndarray.sparse": "ROADMAP.md Queue 1 item 6 (sparse)",
-    "mxnet_tpu.ndarray.dgl": "ROADMAP.md Queue 1 item 6 (dgl)",
-}
+# (none is left: the second slice of Queue 1 item 6 ported the last ones)
+DEFERRED = {}
 # names of the JAX namespaces that are no API of the port:
 # {namespace.name: why}
 NOT_API = {
     "nd.pickle": "the stdlib module, imported by the JAX ndarray package",
     "nd.from_jax": "JAX interop; the port's is nd.from_torch",
-    "nd.ROIPooling": "the detection family's ROI op (registered in the "
-                     "JAX ops/legacy.py; ROADMAP.md Queue 1 item 6)",
     "np.apply_op": "the registry helper the JAX numpy module imports",
 }
 
@@ -545,7 +543,7 @@ def test_jax_front_door_names_are_ported_or_deferred():
     # every listed module still has a name the port lacks
     left = {deferred[n] for n in dir(mj.nd)
             if n in deferred and not hasattr(mx.nd, n)}
-    assert left == set(DEFERRED)
+    assert left == set()
 
 
 # JAX arguments the port lacks on purpose: {"module.name": (arguments,
