@@ -44,6 +44,8 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    forward, dq and dk/dv kernels each launch exactly 12 x 10 times; one
    step's parameter gradients at B=1 with dropout off match the same model
    on the CPU within 1e-3*max(1, max|g|).
+5b. ops_planes -- the operational planes around BERT-base (below), and
+   after ``decode`` its part e, ``profiler_trap``.
 6. train_bf16 -- the JAX package's BERT recipe (``bench.py``
    ``_bench_bert``): full-width BERT-base pretraining through
    ``parallel.FusedTrainer(dtype='bfloat16')`` with Adam at lr 1e-4, B=16,
@@ -344,9 +346,34 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    (count, worst error) and ``mx.config.check_unknown()``.  No flash
    kernel launches.
 
+After ``train``, phase ``ops_planes`` (the operational planes around
+BERT-base, files under ``$TMPDIR``; before ``checkpoint_resume`` and
+``decode``, after either of which torch's profiler records no kernel in
+this process): (a)
+``autotune.tune("flash_attention", key)`` at BERT's f32 key, its bf16
+B=16 key and the GPT LM's causal D=32 key on a fresh store, each tile's
+ms (10 launches and a synchronize a run), verdict and the winner; (b)
+BERT-base fp32 serving the serve recipe's 32 requests in full batches of
+8 in a child process with ``MXNET_AUTOTUNE=1`` on that store: every
+lookup ``tuned``, the launches a tile, every answer bit-identical to the
+untuned pass; (c) three ``train`` steps (fp32, B=8, T=512, Adam) with the
+monitor's JSONL stream, a watchdog, ``mx.profiler`` and the tuned store
+on: the profile holds the three flash kernels and ``device_op_stats``
+ranks them, a line a step; a poisoned gradient fires one divergence dump
+naming its group, a step held up on the host one slow_step dump, a 2 s
+watch around a blocked wait one watchdog fire with stacks; (d) a burst of
+deadline misses on a Server, one deadline_burst dump.  After ``decode``,
+part (e), ``phase_profiler_trap``: ``mx.profiler`` once more in this
+process, either recording the flash kernels or refused (torch's profiler
+records no device activity here, a fresh process does), with the
+evidence (no session open, the threads alive, a probe from a new thread).
+Every compiled forward tile is held against the plain version in phase
+``kernels`` (``case["tiles"]``), and each phase prints its seconds.
+
 Then the ``{"kernels": [...]}`` summary (gpt_lm's causal D=32 bf16 route
-as ``routes["bfloat16_causal_d32"]``; ``checkpoint_resume``'s launches in
-the f32 and bf16 routes and ``launches_by_path``), the ``nvidia-smi``
+as ``routes["bfloat16_causal_d32"]``; ``checkpoint_resume``'s and
+``ops_planes``' launches in the routes and ``launches_by_path``), the
+``nvidia-smi``
 line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero and prints no result line.  Without a card,
@@ -626,14 +653,20 @@ def phase_kernels(torch, fa, seed):
                            for T in (Tq, Tk, Tk))
                 do = torch.randn(B, H, Tq, D, device="cuda", generator=gen,
                                  dtype=dt)
-                iters = 20 if B * H * Tq * Tk > 1 << 22 else 50
+                # timed windows of 10 (large) or 25 (small) calls: the
+                # script's time limit, the events resolve either
+                iters = 10 if B * H * Tq * Tk > 1 << 22 else 25
                 for p in (0.0, DROPOUT_P):
                     if serve_shape and B not in (8, 16) and p:
                         continue
+                    t0 = time.perf_counter()
                     fwd_cases.append(_fwd_case(torch, F, fa, q, k, v, causal,
                                                p, dname, iters))
+                    t1 = time.perf_counter()
                     bwd_cases.append(_bwd_case(torch, F, fa, q, k, v, do,
                                                causal, p, dname, iters))
+                    fwd_cases[-1]["case_s"] = t1 - t0
+                    bwd_cases[-1]["case_s"] = time.perf_counter() - t1
     emit({"phase": "kernels", "kernel": "flash_fwd", "cases": fwd_cases})
     emit({"phase": "kernels", "kernel": "flash_bwd_dq+flash_bwd_dkv",
           "cases": bwd_cases})
@@ -685,7 +718,7 @@ def _seed_routes(torch, fa, gen):
     stream = torch.cuda.current_stream().cuda_stream
     null_seed = lib.mx_flash_fwd(p, p, p, do.data_ptr(),
                                  out["int"][1].data_ptr(), 24, 512, 512, 64,
-                                 ctypes.c_float(0.125), 0, 0, 1, None,
+                                 ctypes.c_float(0.125), 0, 0, 128, 1, None,
                                  fa._keep_threshold(DROPOUT_P),
                                  ctypes.c_float(1.0 / (1 - DROPOUT_P)), 0,
                                  stream)
@@ -787,8 +820,9 @@ def _misaligned_refused(torch, fa):
     tail = [ctypes.c_float(0.125), 0, 0,
             *fa._dropout_args(0.0, 0, good.device)[0], 0,
             torch.cuda.current_stream().cuda_stream]
-    errs = {"mx_flash_fwd": lib.mx_flash_fwd(
-                p[0], p[0], p[0], p[1], p[2], 2, 64, 64, 64, *tail),
+    errs = {"mx_flash_fwd": lib.mx_flash_fwd(   # rows: the f32 default
+                p[0], p[0], p[0], p[1], p[2], 2, 64, 64, 64, *tail[:3], 128,
+                *tail[3:]),
             "mx_flash_bwd_dq": lib.mx_flash_bwd_dq(
                 p[1], p[1], p[1], p[0], p[2], p[2], p[1], 2, 64, 64, 64,
                 *tail),
@@ -845,7 +879,47 @@ def _fwd_case(torch, F, fa, q, k, v, causal, p, dname, iters):
         emit({"phase": "kernels", "failed_case": case})
         fail("flash_fwd disagrees with its plain version at %s"
              % case["shape"])
+    case["tiles"] = _tile_cases(torch, fa, q, k, v, causal, p, dname, out,
+                                lse, ref_out, ref_lse, seed, iters)
     return case
+
+
+def _bits(torch, t):
+    """A tensor's bytes as integers (so -0.0 and NaN payloads count)."""
+    t = t.contiguous().reshape(-1)
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _tile_cases(torch, fa, q, k, v, causal, p, dname, out, lse, ref_out,
+                ref_lse, seed, iters):
+    """Every compiled forward tile (``fa.compiled_tiles``) at this case,
+    each held against the plain version at the same gates, with its ms
+    and whether its O and LSE equal the default tile's bit for bit."""
+    tiles = {}
+    for i, (bq, bk) in enumerate(fa.compiled_tiles(dname, q.shape[-1],
+                                                   p > 0.0)):
+        if i == 0:    # the default tile: the case itself
+            tiles["%dx%d" % (bq, bk)] = {"default": True}
+            continue
+        o_t, l_t = fa._flash_forward(q, k, v, causal, fa._scale(q, None), p,
+                                     seed, bq, bk)
+        torch.cuda.synchronize()
+        err_o = (o_t.float() - ref_out.float()).abs().max().item()
+        err_l = (l_t - ref_lse).abs().max().item()
+        t = {"max_abs_err_o": err_o, "max_abs_err_lse": err_l,
+             "bit_identical_to_default":
+                 bool(torch.equal(_bits(torch, o_t), _bits(torch, out))
+                      and torch.equal(_bits(torch, l_t), _bits(torch, lse))),
+             "ms": cuda_ms(lambda: fa.flash_attention(
+                 q, k, v, causal, block_q=bq, block_k=bk, dropout_p=p,
+                 seed=seed), iters)}
+        tiles["%dx%d" % (bq, bk)] = t
+        if err_o > TOL_O[dname] or err_l > TOL_LSE:
+            emit({"phase": "kernels", "failed_tile": t, "tile": [bq, bk],
+                  "shape": list(q.shape), "dtype": dname, "causal": causal})
+            fail("flash_fwd tile %dx%d disagrees with its plain version at "
+                 "%s %s" % (bq, bk, list(q.shape), dname))
+    return tiles
 
 
 def _bwd_case(torch, F, fa, q, k, v, do, causal, p, dname, iters):
@@ -6006,6 +6080,447 @@ def phase_nd_tail(torch, mx, fa, seed, smi):
     return launches
 
 
+# ---- the operational planes (autotune, recorder, watchdog, monitor,
+# profiler) around BERT-base ---------------------------------------------------
+
+PLANES_CFG = dict(
+    # the flash site's keys: BERT's f32 (the served and trained shape),
+    # its bf16 recipe's B=16, the GPT LM's causal D=32
+    tune_keys=((8, 12, 512, 512, 64, "float32", False),
+               (16, 12, 512, 512, 64, "bfloat16", False),
+               (8, 8, 1024, 1024, 32, "bfloat16", True)),
+    tune_budget_ms=20000.0, tune_repeats=10, tune_warmup=3,
+    T=512, vocab=30522, n_req=32, B=8, M=76, train_steps=3,
+    slow_step_sleep_s=2.5, watch_timeout_s=2.0, deadline_burst=8)
+# the kernels as torch.profiler names them (their __global__ functions)
+PLANE_KERNELS = {"flash_fwd": "flash_fwd_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+def _plane_dumps(mx, reason):
+    """The set of dumps of ``reason`` this process wrote, once every dump
+    thread has ended."""
+    for t in threading.enumerate():
+        if t.name == "mx-trace-dump":
+            t.join(timeout=60)
+    return {p for r, p in mx.trace.last_dumps() if r == reason}
+
+
+def _planes_tune(mx, cfg, store):
+    """Part a: ``autotune.tune`` of the flash site at each key, with a
+    fresh store, under ``MXNET_AUTOTUNE=search``."""
+    from mxnet_tpu_torch import autotune
+
+    autotune.enable("search", root=store)
+    out = []
+    t0 = time.perf_counter()
+    try:
+        for key in cfg["tune_keys"]:
+            res = autotune.tune("flash_attention", key,
+                                budget_ms=cfg["tune_budget_ms"],
+                                repeats=cfg["tune_repeats"],
+                                warmup=cfg["tune_warmup"])
+            row = res.as_dict()
+            if not res.committed or res.budget_exhausted:
+                fail("ops_planes: the tune at %s did not commit (budget "
+                     "exhausted: %s)" % (key, res.budget_exhausted))
+            out.append(row)
+    finally:
+        autotune.disable()
+    return {"keys": out, "tune_s": time.perf_counter() - t0}
+
+
+_PLANES_SERVE = r"""
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+print(json.dumps(chip_smoke._planes_serve_child(int(sys.argv[2]))))
+"""
+
+
+def _planes_serve_child(seed, cfg=PLANES_CFG):
+    """Part b, in a child process started with ``MXNET_AUTOTUNE=1`` on
+    part a's store: BERT-base fp32 serves the serve recipe's requests in
+    full batches of 8 (a long ``max_wait_us``, so both passes batch
+    alike), tuned; then the same requests with autotune off.  Returns the
+    lookups by provenance, the flash launches by tile, and whether every
+    answer is bit-identical."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    T, vocab, n_req = cfg["T"], cfg["vocab"], cfg["n_req"]
+    block = bert.bert_12_768_12(vocab_size=vocab, max_length=T)
+    mx.convert.load_jax_params(block, bert_params(block, seed))
+    rng = np.random.default_rng(seed + 1)
+    lengths = rng.integers(64, T + 1, n_req)
+    reqs = [(rng.integers(0, vocab, L).astype(np.int32),
+             (np.arange(L) >= L // 2).astype(np.int32)) for L in lengths]
+
+    def serve_all():
+        srv = mx.serve.Server(block, config=mx.serve.ServeConfig(
+            max_batch_size=8, max_wait_us=5_000_000,
+            sample_shapes=[((T,), (T,))], dtype="int32"))
+        try:
+            mx.telemetry.reset()
+            fa.flash_attention.launches = 0
+            fa.flash_attention.launches_by_tile = {}
+            with ThreadPoolExecutor(max_workers=n_req) as pool:
+                outs = list(pool.map(srv.submit, reqs))
+            stats = {
+                "launches": fa.flash_attention.launches,
+                "launches_by_tile": {"%dx%d" % t: n for t, n in
+                                     fa.flash_attention.launches_by_tile
+                                     .items()},
+                "batches": int(mx.telemetry.value("serve_batches_total")),
+                "lookups": {r: mx.telemetry.value(
+                    "autotune_lookup_total",
+                    {"site": "flash_attention", "result": r})
+                    for r in ("tuned", "default")},
+                "fallbacks": mx.telemetry.value("autotune_fallback_total")}
+        finally:
+            srv.shutdown()
+        return outs, stats
+
+    if autotune.mode() != "on":
+        raise SystemExit("the child was not started with MXNET_AUTOTUNE=1")
+    t0 = time.perf_counter()
+    tuned, tuned_stats = serve_all()
+    key = (8, 12, T, T, 64, "float32", False)
+    winner, prov = autotune.lookup_info("flash_attention", key, None)
+    autotune.disable()
+    plain, plain_stats = serve_all()
+    same = all(a.tobytes() == b.tobytes() and a.shape == b.shape
+               for ta, tb in zip(tuned, plain) for a, b in zip(ta, tb))
+    finite = all(np.isfinite(a).all() for t in tuned for a in t)
+    return {"tuned": tuned_stats, "untuned": plain_stats,
+            "winner": winner, "provenance": prov,
+            "bit_identical": bool(same), "finite": bool(finite),
+            "serve_s": time.perf_counter() - t0}
+
+
+def _planes_serve(mx, seed, store):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MXNET_AUTOTUNE="1", MXNET_AUTOTUNE_DIR=store)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _PLANES_SERVE, here,
+                          str(seed)], capture_output=True, text=True,
+                         env=env, timeout=600)
+    if out.returncode:
+        fail("ops_planes: the serving child exited %d: %s"
+             % (out.returncode, out.stderr[-2000:]))
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    res["child_s"] = time.perf_counter() - t0
+    t, u = res["tuned"], res["untuned"]
+    if res["provenance"] != "tuned" or t["lookups"]["tuned"] != \
+            12 * t["batches"] or t["lookups"]["default"]:
+        fail("ops_planes: served lookups not all tuned: %s" % res)
+    if not res["bit_identical"] or not res["finite"]:
+        fail("ops_planes: tuned answers differ from the untuned ones")
+    if t["launches"] != 12 * t["batches"] or u["launches"] != \
+            12 * u["batches"] or t["batches"] != 4 or u["batches"] != 4:
+        fail("ops_planes: flash launches %s" % res)
+    if t["launches_by_tile"] != {"%dx%d" % tuple(res["winner"]):
+                                 t["launches"]}:
+        fail("ops_planes: the tuned launches ran %s, not the winner %s"
+             % (t["launches_by_tile"], res["winner"]))
+    return res
+
+
+def _planes_train(torch, mx, fa, seed, cfg, tmp):
+    """Part c: ``train`` steps of fp32 BERT-base (B=8, T=512, Adam) with
+    the monitor publishing to a JSONL stream, a watchdog, the flight
+    recorder, ``mx.profiler`` and autotune (on the tuned store) all on;
+    then a poisoned gradient (one divergence dump naming the group), a
+    step held up on the host (one slow_step dump, from a detector with
+    min_samples 2), and a watch around a blocked wait (one watchdog
+    fire with stacks)."""
+    from mxnet_tpu_torch import monitor, profiler, telemetry, trace
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    B, T, M, vocab = cfg["B"], cfg["T"], cfg["M"], cfg["vocab"]
+    stream = os.path.join(tmp, "monitor.jsonl")
+    os.environ["MXNET_MONITOR_STREAM"] = stream
+    os.environ["MXNET_MONITOR_SENTINEL"] = "warn"
+    net = bert.bert_12_768_12(pretraining=True, vocab_size=vocab,
+                              max_length=T, dropout=DROPOUT_P)
+    net.initialize()
+    mx.convert.load_jax_params(net, bert_params(net, seed))
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-4})
+    rng = np.random.default_rng(seed + 2)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _train_batch(rng, B, T, M, vocab).items()}
+    mx.random.seed(seed)
+    monitor.reset()
+    monitor.enable()
+    trace.clear()
+    wd = trace.watchdog.install(timeout=120.0, poll=0.25)
+    telemetry.reset()
+    profiler.set_config(filename=os.path.join(tmp, "profile.json"))
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    out = {}
+    try:
+        # the main path: the train steps, counted and profiled
+        profiler.set_state("run")
+        for c in counters:
+            c.launches = 0
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(cfg["train_steps"]):
+            loss = _train_step(mx, bert, net, batch)
+            trainer.step(1)
+            losses.append(loss.item())
+        launches = {c.__name__: c.launches for c in counters}
+        train_s = time.perf_counter() - t0
+        profiler.set_state("stop")
+        dump_path = profiler.dump()
+        stats = profiler.device_op_stats(top=40)
+        with open(dump_path) as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"]]
+        found = {k: sum(v in n for n in names)
+                 for k, v in PLANE_KERNELS.items()}
+        if not all(found.values()):
+            fail("ops_planes: the profile lacks a flash kernel: %s" % found)
+        flash_rows = [r for r in stats
+                      if any(v in r["name"] for v in PLANE_KERNELS.values())]
+        ranks = [i for i, r in enumerate(stats)
+                 if any(v in r["name"] for v in PLANE_KERNELS.values())]
+        if not all(np.isfinite(losses)):
+            fail("ops_planes: nonfinite loss %s" % losses)
+        if not monitor.flush(60):
+            fail("ops_planes: the monitor's publisher did not drain")
+        with open(stream) as f:
+            lines = [json.loads(x) for x in f]
+        if len(lines) != cfg["train_steps"]:
+            fail("ops_planes: %d stream lines for %d steps"
+                 % (len(lines), cfg["train_steps"]))
+        out.update(losses=losses, launches=launches, train_s=train_s,
+                   profile={"path_events": len(names),
+                            "kernel_events": found,
+                            "flash_ranks": ranks,
+                            "flash_rows": flash_rows, "top": stats[:8]},
+                   stream_lines=len(lines),
+                   grad_global_norm=[x["grad_global_norm"] for x in lines])
+
+        # a nonfinite gradient in one group: one divergence dump
+        before = _plane_dumps(mx, "divergence")
+        loss = _train_step(mx, bert, net, batch)
+        name, p = next(iter(net.collect_params().items()))
+        p.grad.view(-1)[0] = float("nan")
+        trainer.step(1)
+        if not monitor.flush(60):
+            fail("ops_planes: the monitor's publisher did not drain")
+        div = sorted(_plane_dumps(mx, "divergence") - before)
+        if len(div) != 1:
+            fail("ops_planes: %d divergence dumps for one poisoned step"
+                 % len(div))
+        with open(div[0]) as f:
+            meta = json.load(f)["traceEvents"][0]["args"]
+        if meta.get("kind") != "nonfinite_grads" or name not in \
+                str(meta.get("group")):
+            fail("ops_planes: the divergence dump names %s, not %s"
+                 % (meta.get("group"), name))
+        out["divergence"] = {"path": div[0], "group": meta["group"],
+                             "poisoned": name}
+        # restore finite weights for the timing steps below
+        mx.convert.load_jax_params(net, bert_params(net, seed))
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 1e-4})
+
+        # a step held up on the host: one slow_step dump, from a detector
+        # whose window holds this drill's own steps
+        trace.anomaly.STEP_DETECTOR = trace.anomaly.SlowStepDetector(
+            factor=3.0, min_samples=2)
+        before = _plane_dumps(mx, "slow_step")
+        durs = []
+        for i in range(4):
+            if i == 3:
+                trainer.allreduce_grads = \
+                    lambda: time.sleep(cfg["slow_step_sleep_s"])
+            _train_step(mx, bert, net, batch).item()
+            t1 = time.perf_counter()
+            trainer.step(1)
+            durs.append(time.perf_counter() - t1)
+        del trainer.allreduce_grads
+        slow = sorted(_plane_dumps(mx, "slow_step") - before)
+        if len(slow) != 1:
+            fail("ops_planes: %d slow_step dumps for one delayed step "
+                 "(step host s %s)" % (len(slow), durs))
+        out["slow_step"] = {"path": slow[0], "step_host_s": durs}
+
+        # a watch around a blocked host wait: one fire, stacks and a dump
+        fires0 = telemetry.value("trace_watchdog_fires_total",
+                                 {"scope": "planes_blocked_wait"})
+        with trace.watchdog.watch("planes_blocked_wait",
+                                  timeout=cfg["watch_timeout_s"]):
+            threading.Event().wait(cfg["watch_timeout_s"] * 1.5)
+        fires = telemetry.value("trace_watchdog_fires_total",
+                                {"scope": "planes_blocked_wait"}) - fires0
+        scope, stacks, trace_path = wd.last_report or (None, None, None)
+        if fires != 1 or scope != "planes_blocked_wait" or not stacks \
+                or not trace_path:
+            fail("ops_planes: the watchdog fired %s times (%s)"
+                 % (fires, wd.last_report))
+        with open(stacks) as f:
+            text = f.read()
+        if "planes_blocked_wait" not in text or "_planes_train" not in text:
+            fail("ops_planes: the watchdog's stacks lack the blocked wait")
+        out["watchdog"] = {"fires": fires, "stacks": stacks,
+                           "trace": trace_path}
+    finally:
+        if profiler.state() == "run":
+            profiler.set_state("stop")
+        trace.watchdog.uninstall()
+        monitor.disable()
+        monitor.shutdown(timeout=60)
+        monitor.reset()
+        trace.anomaly.STEP_DETECTOR = trace.anomaly.SlowStepDetector()
+        for k in ("MXNET_MONITOR_STREAM", "MXNET_MONITOR_SENTINEL"):
+            os.environ.pop(k, None)
+    return out
+
+
+def _planes_deadlines(torch, mx, cfg):
+    """Part d: requests whose deadline has passed when the scheduler
+    looks: a burst of misses on a Server fires one deadline_burst dump."""
+    from mxnet_tpu_torch.gluon import nn
+
+    block = nn.Dense(16, in_units=16)
+    block.initialize()
+    srv = mx.serve.Server(block, config=mx.serve.ServeConfig(
+        max_batch_size=4, sample_shapes=[(16,)]))
+    before = _plane_dumps(mx, "deadline_burst")
+    n = cfg["deadline_burst"] + 3
+    misses = 0
+    try:
+        futs = [srv.submit_async(np.ones(16, np.float32), timeout_ms=0.0)
+                for _ in range(n)]
+        for f in futs:
+            try:
+                f.result(timeout=60)
+            except mx.serve.RequestTimeout:
+                misses += 1
+    finally:
+        srv.shutdown()
+    dumps = sorted(_plane_dumps(mx, "deadline_burst") - before)
+    if misses != n or len(dumps) != 1:
+        fail("ops_planes: %d deadline misses gave %d deadline_burst dumps"
+             % (misses, len(dumps)))
+    return {"misses": misses, "dumps": dumps}
+
+
+def phase_ops_planes(torch, mx, fa, seed, smi, cfg=PLANES_CFG):
+    """The operational planes around BERT-base on the card: (a) the flash
+    site tuned at three keys, (b) a tuned server in a child process,
+    bit-identical to the untuned one, (c) training with every plane on,
+    the divergence, slow-step and watchdog drills, (d) a deadline burst.
+    Every file goes under ``$TMPDIR``."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mx-planes-")
+    store = os.path.join(tmp, "autotune")
+    os.environ["MXNET_TRACE_DUMP_DIR"] = os.path.join(tmp, "dumps")
+    os.environ["MXNET_TRACE_DUMP_MIN_SECONDS"] = "0"
+    try:
+        t0 = time.perf_counter()
+        tune = _planes_tune(mx, cfg, store)
+        emit({"phase": "ops_planes", "part": "tune", **tune, "card": smi})
+        serve = _planes_serve(mx, seed, store)
+        emit({"phase": "ops_planes", "part": "serve", **serve, "card": smi})
+        from mxnet_tpu_torch import autotune
+
+        autotune.enable("on", root=store)
+        try:
+            train = _planes_train(torch, mx, fa, seed, cfg, tmp)
+        finally:
+            autotune.disable()
+        emit({"phase": "ops_planes", "part": "train", **train, "card": smi})
+        dead = _planes_deadlines(torch, mx, cfg)
+        emit({"phase": "ops_planes", "part": "deadlines", **dead,
+              "phase_s": time.perf_counter() - t_phase, "card": smi})
+    finally:
+        os.environ.pop("MXNET_TRACE_DUMP_MIN_SECONDS", None)
+        os.environ.pop("MXNET_TRACE_DUMP_DIR", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(train["launches"])
+    launches["flash_attention"] += serve["tuned"]["launches"] + \
+        serve["untuned"]["launches"]
+    return launches
+
+
+_TRAP_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from mxnet_tpu_torch import profiler
+print(json.dumps({"kernels": len(profiler._probe_device_events())}))
+"""
+
+
+def phase_profiler_trap(torch, mx, fa, seed, smi):
+    """Part e of ``ops_planes``, after ``phase_decode``: ``mx.profiler``
+    once more in this process.  Either a session records the flash
+    kernels, or ``set_state('run')`` refuses it because torch's profiler
+    records no device activity here (and a fresh process does); a session
+    that runs and holds no kernel fails the run."""
+    from mxnet_tpu_torch import profiler
+
+    t0 = time.perf_counter()
+    out = {"autograd_profiler_enabled": bool(
+        torch.autograd.profiler._is_profiler_enabled),
+        "kineto_session_open": bool(
+            torch._C._autograd._profiler_enabled()),
+        "threads": sorted(t.name for t in threading.enumerate())}
+    q = torch.randn(8, 12, 512, 64, device="cuda", requires_grad=True)
+    try:
+        profiler.set_state("run")
+    except mx.MXNetError as exc:
+        out["run"] = "refused"
+        out["error"] = str(exc)
+        here = os.path.dirname(os.path.abspath(__file__))
+        child = subprocess.run([sys.executable, "-c", _TRAP_PROBE, here],
+                               capture_output=True, text=True, timeout=300)
+        out["fresh_process_kernels"] = json.loads(
+            child.stdout.strip().splitlines()[-1])["kernels"] \
+            if child.returncode == 0 else None
+        out["probe_in_new_thread"] = _probe_in_thread(profiler)
+        if not out["fresh_process_kernels"]:
+            fail("ops_planes: the profiler refused here and a fresh "
+                 "process records no kernel either: %s" % out)
+    else:
+        fa.flash_attention(q, q, q).sum().backward()
+        profiler.set_state("stop")
+        stats = profiler.device_op_stats(top=40)
+        found = {k: sum(r["occurrences"] for r in stats if v in r["name"])
+                 for k, v in PLANE_KERNELS.items()}
+        out["run"] = "recorded"
+        out["kernel_events"] = found
+        if not all(found.values()):
+            fail("ops_planes: a profile after the decode phase holds no "
+                 "flash kernel: %s" % out)
+    out["trap_s"] = time.perf_counter() - t0
+    emit({"phase": "ops_planes", "part": "profiler_trap", **out,
+          "card": smi})
+    return out
+
+
+def _probe_in_thread(profiler):
+    """Kernels a probe session sees from a thread of its own (whether
+    the fault follows the thread)."""
+    got = []
+    t = threading.Thread(target=lambda: got.append(
+        len(profiler._probe_device_events())), name="mx-trap-probe")
+    t.start()
+    t.join(timeout=120)
+    return got[0] if got else None
+
+
 def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
     """One kernel route's summary from its case: ``bound_key`` None for
     the forward's bound (``bound_ms``), else "dq"/"dkv"; ``errs`` the
@@ -6028,6 +6543,14 @@ def _kernel_entry(name, launches, case, ms, plain_ms, bound_key, errs):
     if prefix + "bound_3xtf32_ms" in case:
         entry["bound_3xtf32_ms"] = case[prefix + "bound_3xtf32_ms"]
     return entry
+
+
+def run_phase(fn, *args):
+    """Call a phase; print its seconds in the script on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase_time": fn.__name__, "s": time.perf_counter() - t0})
+    return out
 
 
 def main():
@@ -6062,27 +6585,30 @@ def main():
                       for s in _ext.SOURCES],
           "ptxas": ptxas_report(_ext.build_log)})
 
-    fwd_cases, bwd_cases = phase_kernels(torch, fa, args.seed)
-    serve_launches = phase_serve(torch, mx, fa, args.seed, smi)
-    train_launches, train_fp32 = phase_train(torch, mx, fa, args.seed, smi)
-    bf16_launches = phase_train_bf16(torch, mx, fa, args.seed, smi)
-    resnet_launches = phase_train_resnet(torch, mx, fa, args.seed, smi)
-    captured_launches = phase_train_captured(torch, mx, fa, args.seed, smi)
-    phase_train_captured_resnet(torch, mx, fa, args.seed, smi)
-    nd_launches = phase_nd_imperative(torch, mx, fa, args.seed, smi)
-    lstm_launches = phase_train_lstm(torch, mx, fa, args.seed, smi)
-    gpt_launches, gpt_fwd, gpt_bwd = phase_train_gpt_lm(torch, mx, fa,
-                                                        args.seed, smi)
-    phase_rnn_parts(torch, mx, fa, args.seed, smi)
-    data_launches = phase_data_pipeline(torch, mx, fa, args.seed, smi)
-    vision_launches = phase_train_vision(torch, mx, fa, args.seed, smi)
-    zoo_launches = phase_vision_zoo(torch, mx, fa, args.seed, smi)
-    amp_launches = phase_train_amp_fp16(torch, mx, fa, args.seed, smi,
-                                        train_fp32)
-    ckpt_launches = phase_checkpoint_resume(torch, mx, fa, args.seed, smi)
-    phase_decode(torch, mx, fa, args.seed, smi)
-    np_launches = phase_np_front(torch, mx, fa, args.seed, smi)
-    tail_launches = phase_nd_tail(torch, mx, fa, args.seed, smi)
+    fwd_cases, bwd_cases = run_phase(phase_kernels, torch, fa, args.seed)
+    common = (torch, mx, fa, args.seed, smi)
+    serve_launches = run_phase(phase_serve, *common)
+    train_launches, train_fp32 = run_phase(phase_train, *common)
+    # the planes' profile must hold kernels: before checkpoint_resume and
+    # decode, after which torch's profiler records none in this process
+    planes_launches = run_phase(phase_ops_planes, *common)
+    bf16_launches = run_phase(phase_train_bf16, *common)
+    resnet_launches = run_phase(phase_train_resnet, *common)
+    captured_launches = run_phase(phase_train_captured, *common)
+    run_phase(phase_train_captured_resnet, *common)
+    nd_launches = run_phase(phase_nd_imperative, *common)
+    lstm_launches = run_phase(phase_train_lstm, *common)
+    gpt_launches, gpt_fwd, gpt_bwd = run_phase(phase_train_gpt_lm, *common)
+    run_phase(phase_rnn_parts, *common)
+    data_launches = run_phase(phase_data_pipeline, *common)
+    vision_launches = run_phase(phase_train_vision, *common)
+    zoo_launches = run_phase(phase_vision_zoo, *common)
+    amp_launches = run_phase(phase_train_amp_fp16, *common, train_fp32)
+    ckpt_launches = run_phase(phase_checkpoint_resume, *common)
+    run_phase(phase_decode, *common)
+    run_phase(phase_profiler_trap, *common)
+    np_launches = run_phase(phase_np_front, *common)
+    tail_launches = run_phase(phase_nd_tail, *common)
 
     # each route's numbers at its main path's shape, not causal: f32 at
     # (8, 12, 512, 512, 64), the forward as served (no dropout), the
@@ -6101,7 +6627,8 @@ def main():
                     + train_launches["flash_attention"]
                     + captured_launches["flash_attention"]
                     + nd_fwd["float32"] + ck_f32["flash_attention"]
-                    + np_launches["flash_attention"],
+                    + np_launches["flash_attention"]
+                    + planes_launches["flash_attention"],
                     "bfloat16": bf16_launches["flash_attention"]
                     + nd_fwd["bfloat16"]
                     + gpt_launches["flash_attention"]
@@ -6132,13 +6659,15 @@ def main():
         "checkpoint_resume": ck_f32["flash_attention"]
         + ck_bf16["flash_attention"],
         "np_front": np_launches["flash_attention"],
-        "nd_tail": tail_launches["flash_attention"]}
+        "nd_tail": tail_launches["flash_attention"],
+        "ops_planes": planes_launches["flash_attention"]}
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
         nd_k = nd_launches[kname]
         launches = {"float32": train_launches[kname]
                     + captured_launches[kname] + nd_k["float32"]
-                    + ck_f32[kname] + np_launches[kname],
+                    + ck_f32[kname] + np_launches[kname]
+                    + planes_launches[kname],
                     "bfloat16": bf16_launches[kname] + nd_k["bfloat16"]
                     + gpt_launches[kname] + ck_bf16[kname],
                     "float16": amp_launches[kname]}
@@ -6166,7 +6695,8 @@ def main():
             "train_amp_fp16": amp_launches[kname],
             "checkpoint_resume": ck_f32[kname] + ck_bf16[kname],
             "np_front": np_launches[kname],
-            "nd_tail": tail_launches[kname]}
+            "nd_tail": tail_launches[kname],
+            "ops_planes": planes_launches[kname]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

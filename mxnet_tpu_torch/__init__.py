@@ -31,9 +31,9 @@ Ground rules:
 """
 __version__ = "2.0.0-torch0"
 
-from . import (autograd, base, callback, checkpoint, context,  # noqa: F401
-               contrib, convert, error, gluon, initializer, kvstore,
-               monitor, ndarray, ops, optimizer, parallel, random,
+from . import (autograd, autotune, base, callback, checkpoint,  # noqa: F401
+               context, contrib, convert, error, gluon, initializer, kvstore,
+               monitor, ndarray, ops, optimizer, parallel, profiler, random,
                resilience, serve, step, telemetry, trace)
 from . import data, image, io, native, recordio  # noqa: F401
 from . import ndarray as nd  # noqa: F401
@@ -47,3 +47,6 @@ from . import config, metric  # noqa: F401  (mx.config, mx.metric)
 from .base import MXNetError, get_env  # noqa: F401
 from .context import (Context, cpu, cpu_pinned,  # noqa: F401
                       current_context, gpu, num_gpus)
+
+if get_env("MXNET_PROFILER_AUTOSTART", bool, False):
+    profiler.set_state("run")  # reference env_var.md MXNET_PROFILER_AUTOSTART

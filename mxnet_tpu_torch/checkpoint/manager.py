@@ -286,7 +286,8 @@ class CheckpointManager:
                 with trace.span("checkpoint_save", hist=False,
                                 cat="checkpoint",
                                 args={"step": int(step),
-                                      "attempt": attempt}):
+                                      "attempt": attempt}), \
+                        trace.watchdog.watch("checkpoint_commit"):
                     path = self._commit_once(step, spec, host, dtypes)
                 if telemetry.ENABLED:
                     telemetry.CHECKPOINT_SAVES.labels(result="ok").inc()

@@ -127,6 +127,101 @@ ENV_VARS = {
         int, 0,
         "Draft tokens a round of speculative decoding proposes; 0 takes "
         "the built-in default (serve/decode.py, serve/spec.py)."),
+    # the operational planes: autotune, the flight recorder's
+    # dumps and detectors, the monitor's publisher, the profiler, the
+    # telemetry log line
+    "MXNET_AUTOTUNE": (
+        str, "0",
+        "mx.autotune mode: 0 (default) the hand-set choice everywhere and "
+        "no store I/O; 1 lookups read the TuningStore; search also runs "
+        "the serving and decode idle tuners."),
+    "MXNET_AUTOTUNE_DIR": (
+        str, None,
+        "TuningStore directory (default <MXNET_HOME>/autotune); records "
+        "are keyed by the torch and CUDA versions, the card and a hash of "
+        "the kernel sources (autotune/store.py)."),
+    "MXNET_HOME": (
+        str, "~/.mxnet",
+        "Root of the default autotune store (autotune/store.py)."),
+    "MXNET_AUTOTUNE_BUDGET_MS": (
+        float, 2000.0,
+        "Wall-clock budget of one tune() search and of an idle-tuning "
+        "pass; candidates past it are recorded as skipped."),
+    "MXNET_AUTOTUNE_REPEATS": (
+        int, 5,
+        "Timed runs a measured candidate (trimmed mean: min and max "
+        "dropped at 4 or more)."),
+    "MXNET_AUTOTUNE_WARMUP": (
+        int, 2,
+        "Discarded warm-up runs a measured candidate, after its first "
+        "(build and correctness) run."),
+    "MXNET_AUTOTUNE_PRUNE": (
+        int, 0,
+        "When > 0, the table cost model keeps the N candidates predicted "
+        "cheapest before measuring; a cold model measures every one."),
+    "MXNET_TRACE_DUMP_DIR": (
+        str, None,
+        "Where flight-record dumps (mxtrace-<pid>-<reason>-*.json) and "
+        "watchdog stack reports land (default <tempdir>/mxnet_trace)."),
+    "MXNET_TRACE_DUMP_ON_CRASH": (
+        bool, True,
+        "Dump the flight record from sys/threading excepthook on an "
+        "uncaught exception (trace/export.py)."),
+    "MXNET_TRACE_DUMP_AT_EXIT": (
+        bool, False,
+        "Also dump the flight record at normal interpreter exit."),
+    "MXNET_TRACE_DUMP_MIN_SECONDS": (
+        float, 30.0,
+        "Seconds between two anomaly dumps of one reason (slow_step, "
+        "deadline_burst, divergence, hang)."),
+    "MXNET_TRACE_DUMP_MAX_EVENTS": (
+        int, 0,
+        "Keep only the newest N ring events in a dump (0: the whole "
+        "ring); a clipped dump says so in its metadata."),
+    "MXNET_TRACE_SLOW_STEP_FACTOR": (
+        float, 3.0,
+        "Dump the flight record when a step takes more than this factor "
+        "x the trailing p99 (0 disables)."),
+    "MXNET_TRACE_DEADLINE_BURST": (
+        int, 8,
+        "Serve deadline misses within MXNET_TRACE_DEADLINE_WINDOW that "
+        "trigger a flight-record dump (0 disables)."),
+    "MXNET_TRACE_DEADLINE_WINDOW": (
+        float, 5.0,
+        "Sliding window (seconds) of the deadline-miss burst detector."),
+    "MXNET_TRACE_WATCHDOG": (
+        bool, False,
+        "Arm the hang watchdog at the first watched scope (trainer step, "
+        "captured step, serve dispatch, checkpoint commit)."),
+    "MXNET_TRACE_WATCHDOG_SECONDS": (
+        float, 120.0,
+        "Default no-progress timeout of a watched scope."),
+    "MXNET_MONITOR_RING": (
+        int, 256,
+        "Stat entries the monitor's ring holds for its publisher; a full "
+        "ring displaces its oldest entry (monitor_dropped_total)."),
+    "MXNET_MONITOR_STREAM": (
+        str, None,
+        "Append one JSON line of per-group health stats an observed step "
+        "to this path."),
+    "MXNET_MONITOR_SPIKE_FACTOR": (
+        float, 10.0,
+        "Divergence detector: dump when the global grad norm exceeds this "
+        "factor x the trailing window's max (0 disables)."),
+    "MXNET_MONITOR_SPIKE_WINDOW": (
+        int, 64,
+        "Observed steps in the grad-norm spike detector's window."),
+    "MXNET_MONITOR_PLATEAU_WINDOW": (
+        int, 0,
+        "Loss observations without a new best before a loss_plateau "
+        "divergence dump (0 disables; fed by monitor.observe_loss)."),
+    "MXNET_PROFILER_AUTOSTART": (
+        bool, False,
+        "Start an mx.profiler session when the package is imported."),
+    "MXNET_TELEMETRY_LOG_INTERVAL": (
+        float, 0.0,
+        "Seconds between periodic 'telemetry k=v ...' log lines "
+        "(telemetry.start_logger; 0 disables)."),
 }
 
 

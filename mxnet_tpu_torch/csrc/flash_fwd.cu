@@ -359,51 +359,80 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// Head-dim buckets.  fp32 runs 128-row blocks (8 warps: each K/V tile
-// read from L2 serves twice the rows) except at D > 128, where it takes
-// 64-row blocks and 32-key tiles to fit shared memory; bf16 and fp16 run
-// 64-row blocks (4 warps), which keep more blocks resident.
+// Head-dim buckets.  The default tile: fp32 runs 128-row blocks (8 warps:
+// each K/V tile read from L2 serves twice the rows) except at D > 128,
+// where it takes 64-row blocks and 32-key tiles to fit shared memory; bf16
+// and fp16 run 64-row blocks (4 warps), which keep more blocks resident.
+// Without dropout the other row count (`rows` 64 <-> 128, kWarps 4 <-> 8)
+// is instantiated too, at the same key tile, where its shared memory fits
+// (not fp32 at D > 128): the autotune site's candidates.  Each warp's 16
+// rows run the same K/V tiles in the same order whatever the block's
+// height, and a tile a causal block runs past a warp's last row is all
+// masked for that warp (p = 0 adds exact zeros), so both heights give the
+// same bits.  Key tiles stay one per bucket: another one would change the
+// online softmax's partition and so the bits.  Dropout pins the default.
+template <typename T, int kD, int kBlockN, int kWDef, bool kAlt, bool kDropout>
+cudaError_t launch_rows(const void* q, const void* k, const void* v, void* o,
+                        float* lse, int bh, int Tq, int Tk, int D,
+                        float scale, int causal, int rows, Dropout drop,
+                        cudaStream_t stream) {
+  constexpr int kWAlt = 12 - kWDef;  // 8 <-> 4 warps
+  if (rows == kWDef * 16)
+    return launch<T, kD, kBlockN, kWDef, kDropout>(
+        q, k, v, o, lse, bh, Tq, Tk, D, scale, causal, drop, stream);
+  if constexpr (kAlt && !kDropout) {
+    if (rows == kWAlt * 16)
+      return launch<T, kD, kBlockN, kWAlt, kDropout>(
+          q, k, v, o, lse, bh, Tq, Tk, D, scale, causal, drop, stream);
+  }
+  return cudaErrorInvalidValue;  // a row count that was not compiled
+}
+
 template <typename T, bool kDropout>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      float* lse, int bh, int Tq, int Tk, int D, float scale,
-                     int causal, Dropout drop, cudaStream_t stream) {
+                     int causal, int rows, Dropout drop, cudaStream_t stream) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kW = kF32 ? 8 : 4;
   if (D <= 32)
-    return launch<T, 32, 64, kW, kDropout>(q, k, v, o, lse, bh, Tq, Tk, D,
-                                           scale, causal, drop, stream);
+    return launch_rows<T, 32, 64, kW, true, kDropout>(
+        q, k, v, o, lse, bh, Tq, Tk, D, scale, causal, rows, drop, stream);
   if (D <= 64)
-    return launch<T, 64, 64, kW, kDropout>(q, k, v, o, lse, bh, Tq, Tk, D,
-                                           scale, causal, drop, stream);
+    return launch_rows<T, 64, 64, kW, true, kDropout>(
+        q, k, v, o, lse, bh, Tq, Tk, D, scale, causal, rows, drop, stream);
   if (D <= 128)
-    return launch<T, 128, 64, kW, kDropout>(q, k, v, o, lse, bh, Tq, Tk, D,
-                                            scale, causal, drop, stream);
-  return launch<T, 256, kF32 ? 32 : 64, 4, kDropout>(
-      q, k, v, o, lse, bh, Tq, Tk, D, scale, causal, drop, stream);
+    return launch_rows<T, 128, 64, kW, true, kDropout>(
+        q, k, v, o, lse, bh, Tq, Tk, D, scale, causal, rows, drop, stream);
+  // D = 256: fp32 with 128 rows would need 266,240 bytes of shared memory
+  return launch_rows<T, 256, kF32 ? 32 : 64, 4, !kF32, kDropout>(
+      q, k, v, o, lse, bh, Tq, Tk, D, scale, causal, rows, drop, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_dropout(const void* q, const void* k, const void* v,
                              void* o, float* lse, int bh, int Tq, int Tk,
-                             int D, float scale, int causal, int dropout,
-                             Dropout drop, cudaStream_t stream) {
+                             int D, float scale, int causal, int rows,
+                             int dropout, Dropout drop, cudaStream_t stream) {
   return dropout ? dispatch<T, true>(q, k, v, o, lse, bh, Tq, Tk, D, scale,
-                                     causal, drop, stream)
+                                     causal, rows, drop, stream)
                  : dispatch<T, false>(q, k, v, o, lse, bh, Tq, Tk, D, scale,
-                                      causal, drop, stream);
+                                      causal, rows, drop, stream);
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  q/k/v/o: contiguous (B*H, T, D)
-// of dtype 0 = float32, 1 = bfloat16 or 2 = float16; lse: (B*H, Tq) float32.  dropout != 0
-// drops attention probabilities with the mask of flash_common.cuh (the
-// address of the 64-bit seed in device memory, keep threshold, 1 / (1 - p)).  Launches on `stream` of `device` and
-// returns cudaGetLastError() (0 on success).
+// of dtype 0 = float32, 1 = bfloat16 or 2 = float16; lse: (B*H, Tq) float32.
+// rows: query rows a block, one of the compiled tiles (64 or 128; see
+// dispatch); any other is refused.  dropout != 0 drops attention
+// probabilities with the mask of flash_common.cuh (the address of the
+// 64-bit seed in device memory, keep threshold, 1 / (1 - p)).  Launches on
+// `stream` of `device` and returns cudaGetLastError() (0 on success).
 extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int Tq, int Tk,
                             int D, float scale, int causal, int dtype,
-                            int dropout, const unsigned long long* seed,
+                            int rows, int dropout,
+                            const unsigned long long* seed,
                             unsigned int thresh, float inv_keep, int device,
                             void* stream) {
   if (D <= 0 || D > 256 || D % 8 != 0 || bh <= 0 || Tq <= 0 || Tk <= 0 ||
@@ -421,13 +450,13 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
   const Dropout drop{seed, thresh, inv_keep};
   if (dtype == 0)
     err = dispatch_dropout<float>(q, k, v, o, l, bh, Tq, Tk, D, scale, causal,
-                                  dropout, drop, s);
+                                  rows, dropout, drop, s);
   else if (dtype == 1)
     err = dispatch_dropout<__nv_bfloat16>(q, k, v, o, l, bh, Tq, Tk, D, scale,
-                                          causal, dropout, drop, s);
+                                          causal, rows, dropout, drop, s);
   else if (dtype == 2)
     err = dispatch_dropout<__half>(q, k, v, o, l, bh, Tq, Tk, D, scale,
-                                   causal, dropout, drop, s);
+                                   causal, rows, dropout, drop, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

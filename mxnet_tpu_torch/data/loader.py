@@ -14,20 +14,24 @@ next ``iter()`` starts the next epoch's differently shuffled stream.
 skipped).  The epoch order is a pure function of ``(seed, epoch)``, so a
 restart resumes the exact remaining sample order.
 
+The ring depth and reader count left unset come from the ``data_prefetch``
+autotune site (a structural site: they change overlap, never the sample
+stream) when autotune is on, else from ``MXNET_DATA_PREFETCH`` and
+``MXNET_DATA_WORKERS`` (2 and 2 by default).
+
 Not ported: a ``mesh`` (sharded placement, ``ROADMAP.md`` Queue 1 item 7)
-raises; the ``data_prefetch`` autotune site is not consulted, so the
-depth and reader count are ``MXNET_DATA_PREFETCH`` and
-``MXNET_DATA_WORKERS`` (2 and 2 by default), the values the JAX package
-falls back to; the preemption drain hook (``resilience.preempt``) is not
+raises; the preemption drain hook (``resilience.preempt``) is not
 installed.
 """
 from __future__ import annotations
 
+import os
 import threading
 import weakref
 
 import numpy as _np
 
+from .. import autotune
 from .. import telemetry as _tel
 from ..base import MXNetError, get_env
 from ..context import current_context
@@ -51,6 +55,21 @@ def live_loaders():
 def default_workers():
     """``MXNET_DATA_WORKERS`` reader threads per host."""
     return max(1, get_env("MXNET_DATA_WORKERS", int, 2))
+
+
+def _tuned_prefetch(local_batch, sample_nbytes):
+    """(depth, workers) from the ``data_prefetch`` autotune site, else the
+    env defaults."""
+    from .. import autotune
+
+    default = {"depth": default_depth(), "workers": default_workers()}
+    key = (int(local_batch), int(sample_nbytes))
+    cfg = autotune.lookup("data_prefetch", key, default)
+    try:
+        return max(1, int(cfg["depth"])), max(1, int(cfg["workers"]))
+    except (TypeError, KeyError, ValueError):
+        autotune.fallback("invalid_config")
+        return default["depth"], default["workers"]
 
 
 class StreamLoader:
@@ -106,10 +125,15 @@ class StreamLoader:
                 "local batch of %d" % (self.host, self.num_hosts,
                                        len(self._entries),
                                        self.local_batch))
-        self.num_workers = default_workers() if num_workers is None \
+        depth, workers = default_depth(), default_workers()
+        if (num_workers is None or prefetch is None) and \
+                autotune.is_enabled():
+            depth, workers = _tuned_prefetch(
+                self.local_batch,
+                max(1, self._probe_sample_bytes()) if self._entries else 1)
+        self.num_workers = workers if num_workers is None \
             else int(num_workers)
-        self.prefetch = default_depth() if prefetch is None \
-            else int(prefetch)
+        self.prefetch = depth if prefetch is None else int(prefetch)
         if self.num_workers < 1 or self.prefetch < 1:
             raise MXNetError(
                 "StreamLoader needs num_workers >= 1 and prefetch >= 1 "
@@ -131,6 +155,15 @@ class StreamLoader:
             _LIVE.add(self)
 
     # -- lifecycle ------------------------------------------------------------
+    def _probe_sample_bytes(self):
+        """A shard's bytes over its records: the mean framed record size,
+        the ``data_prefetch`` key's second number."""
+        shard = self._set.shards[self._entries[0][0]]
+        try:
+            return os.path.getsize(shard.path) // max(1, len(shard))
+        except OSError:
+            return 1
+
     def _teardown(self):
         ring, pool = self._ring, self._pool
         self._ring = None

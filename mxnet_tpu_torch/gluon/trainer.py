@@ -144,8 +144,9 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """allreduce_grads + update, gradients scaled by 1/batch_size."""
         self._optimizer.rescale_grad = self._scale / batch_size
-        with trace.span("trainer_step", hist=False,
-                        args={"step": self._step_count}):
+        with trace.span("trainer_step", hist=False, anomaly=True,
+                        args={"step": self._step_count}), \
+                trace.watchdog.watch("trainer_step"):
             self.allreduce_grads()
             self._update(ignore_stale_grad)
 

@@ -2,24 +2,33 @@
 
 Counterpart of ``mxnet_tpu/monitor/``: per-parameter-group gradient and
 weight norms, max |x| and nonfinite counts, reduced on the device in the
-same groups the grouped optimizer apply runs, and the nonfinite sentinel
-(``MXNET_MONITOR_SENTINEL=off|warn|skip_step|raise``) that warns about,
-skips or raises on a step with NaN/Inf gradients.  A captured step
-(``mx.step``) computes the stats inside its graph.
+same groups the grouped optimizer apply runs, read by a publisher thread
+off the step's path, and acted on:
 
-Off by default; arm with ``MXNET_MONITOR=1`` or ``enable()``.  Not ported
-yet: the publisher thread and its ring, the JSONL stream and the
-divergence detector (``monitor/divergence.py``).
+- the nonfinite sentinel (``MXNET_MONITOR_SENTINEL=off|warn|skip_step|
+  raise``) warns about, skips or raises on a step with NaN/Inf gradients;
+- the divergence detector (``divergence.py``): nonfinite gradients
+  naming the group, grad-norm spikes against a trailing window, a
+  nonfinite loss or a plateau (``observe_loss``), each one rate-limited
+  flight-record dump (reason ``divergence``) through mx.trace;
+- exports: the ``monitor_*`` telemetry and a per-step JSONL stream
+  (``MXNET_MONITOR_STREAM=<path>``).
+
+A captured step (``mx.step``) computes the stats inside its graph.  Off by
+default; arm with ``MXNET_MONITOR=1`` or ``enable()``.
 """
 from __future__ import annotations
 
-from . import core, sentinel, stats
+from . import core, divergence, sentinel, stats
 from .core import (disable, enable, flush, group_values, health,
-                   is_enabled, observe_update, reset, summary)
+                   is_enabled, observe_update, reset, shutdown,
+                   stream_path, summary)
+from .divergence import DETECTOR, DivergenceDetector, observe_loss
 
-__all__ = ["enable", "disable", "is_enabled", "observe_update", "flush",
-           "summary", "group_values", "health", "reset", "core",
-           "sentinel", "stats"]
+__all__ = ["enable", "disable", "is_enabled", "observe_update",
+           "observe_loss", "flush", "summary", "group_values", "health",
+           "reset", "shutdown", "stream_path", "DETECTOR",
+           "DivergenceDetector", "core", "divergence", "sentinel", "stats"]
 
 
 def __getattr__(name):

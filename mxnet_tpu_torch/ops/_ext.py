@@ -96,7 +96,8 @@ def bind(lib):
     # dropout flag, the seed's address in device memory, keep threshold,
     # 1 / keep
     drop = [ci, vp, ctypes.c_uint32, cf]
-    sigs = {"mx_flash_fwd": [vp] * 5 + [ci] * 4 + [cf, ci, ci],
+    # the forward also takes its tile's query rows after the dtype
+    sigs = {"mx_flash_fwd": [vp] * 5 + [ci] * 4 + [cf, ci, ci, ci],
             "mx_flash_bwd_dq": [vp] * 7 + [ci] * 4 + [cf, ci, ci],
             "mx_flash_bwd_dkv": [vp] * 8 + [ci] * 4 + [cf, ci, ci]}
     for name, args in sigs.items():

@@ -21,6 +21,18 @@ Counterpart of ``mxnet_tpu/ops/pallas_attention.py``.  Layout is
 - ``blockwise_attention``    -- a plain port of the JAX blockwise
                                 online-softmax scan (``impl='flash'``).
 
+The forward's tile is a choice: ``block_q`` query rows a block (16 a warp)
+and ``block_k`` keys a K/V tile.  ``compiled_tiles`` lists the pairs
+``csrc/flash_fwd.cu`` instantiates for a dtype and head dim, the hand-set
+default first (``default_tiles``); without dropout the other row count
+(64 <-> 128) is compiled too, where its shared memory fits.  An explicit
+pair wins; else, with ``mx.autotune`` on, the ``flash_attention`` site's
+stored winner; else the default.  A stored winner that is not compiled is
+counted (``autotune_fallback_total{reason="invalid_config"}``) and gives
+the default; an explicit pair that is not compiled raises on the card.
+The plain versions are exact whatever the tiling and ignore the pair.
+The backward kernels keep their one tile.
+
 Every wrapper takes its plain version for tensors on the CPU only; a CUDA
 tensor launches the kernel or raises.  The kernels take float32, bfloat16
 and float16 and any head dim D <= 256: a D that is no multiple of 8 is
@@ -51,7 +63,7 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["flash_attention", "flash_attention_lse",
-           "flash_attention_reference",
+           "flash_attention_reference", "compiled_tiles", "default_tiles",
            "flash_attention_backward_reference", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "dropout_keep_mask",
@@ -60,6 +72,95 @@ __all__ = ["flash_attention", "flash_attention_lse",
 _NEG_INF = -1e30
 DEFAULT_BLOCKWISE_K = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+               torch.float16: "float16"}
+# a block's shared memory on an H100 (csrc/flash_fwd.cu's Smem::kBytes
+# must not exceed it)
+_SMEM_LIMIT = 232448
+
+
+def _head_bucket(D):
+    """The head-dim instance a D runs in (D padded to a multiple of 8)."""
+    Dp = D + (-D % 8)
+    return next(b for b in (32, 64, 128, 256) if Dp <= b)
+
+
+def _smem_bytes(dtype, kD, rows, keys):
+    """Shared memory of one forward instance: Q and a two-stage K/V ring,
+    rows padded by 16 bytes (``Smem`` of csrc/flash_fwd.cu)."""
+    size = 4 if dtype == "float32" else 2
+    ld = kD + 16 // size
+    return (rows + 4 * keys) * ld * size
+
+
+def default_tiles(dtype, D):
+    """The forward's hand-set (block_q, block_k) for a dtype name and head
+    dim: 128 rows (8 warps) for float32, 64 (4 warps) for the 16-bit types
+    and for float32 at D > 128; 64 keys, 32 for float32 at D > 128."""
+    kD = _head_bucket(D)
+    if dtype == "float32":
+        return (64, 32) if kD > 128 else (128, 64)
+    return (64, 64)
+
+
+def compiled_tiles(dtype, D, dropout=False):
+    """The (block_q, block_k) pairs csrc/flash_fwd.cu instantiates for
+    ``dtype`` (a name) and head dim ``D``, the default first.  Dropout runs
+    the default alone; without it the other row count (64 <-> 128) at the
+    default key tile, where its shared memory fits a block."""
+    rows, keys = default_tiles(dtype, D)
+    out = [(rows, keys)]
+    other = 192 - rows
+    if not dropout and \
+            _smem_bytes(dtype, _head_bucket(D), other, keys) <= _SMEM_LIMIT:
+        out.append((other, keys))
+    return out
+
+
+def _tuned_tiles(q, k, causal, dropout_p, compiled):
+    """The ``flash_attention`` autotune winner for this workload among
+    ``compiled``, or the default (``compiled[0]``): off, cold, under
+    dropout (it pins the default, as in the JAX package) or for a stored
+    pair that is not compiled (counted as ``invalid_config``)."""
+    from .. import autotune as _at
+
+    if dropout_p > 0.0 or not _at.is_enabled():
+        return compiled[0]
+    B, H, Tq, D = q.shape
+    cfg = _at.lookup("flash_attention",
+                     (B, H, Tq, k.shape[2], D, _DTYPE_NAME[q.dtype],
+                      bool(causal)), list(compiled[0]))
+    try:
+        tuned = (int(cfg[0]), int(cfg[1]))
+    except (TypeError, ValueError, IndexError):
+        tuned = None
+    if tuned in compiled:
+        return tuned
+    _at.fallback("invalid_config")
+    return compiled[0]
+
+
+def _resolve_tiles(q, k, causal, dropout_p, block_q, block_k):
+    """(block_q, block_k) of a forward launch: the explicit values, else
+    the autotune winner, else the default.  Raises on a pair that was not
+    compiled."""
+    dname = _DTYPE_NAME[q.dtype]
+    D = q.shape[-1]
+    compiled = compiled_tiles(dname, D, dropout_p > 0.0)
+    tiles = compiled[0]
+    if block_q is None or block_k is None:
+        tiles = _tuned_tiles(q, k, causal, dropout_p, compiled)
+    want = (int(block_q) if block_q is not None else tiles[0],
+            int(block_k) if block_k is not None else tiles[1])
+    if want not in compiled:
+        raise MXNetError(
+            "flash_attention: tiles (block_q=%d, block_k=%d) are not compiled "
+            "for %s at D=%d%s; compiled: %s"
+            % (want + (dname, D, " with dropout" if dropout_p else "",
+                       [list(t) for t in compiled])))
+    return want
+
+
 # the launch counts are read across threads (a server's scheduler and a
 # hot swap's warm-up launch at once): each increment under one lock
 _COUNT = threading.Lock()
@@ -340,9 +441,18 @@ def _unpad(t, D):
     return t if t.shape[-1] == D else t[..., :D].contiguous()
 
 
-def _flash_forward(q, k, v, causal, scale, dropout_p, seed):
-    """Forward wrapper: plain version on the CPU, the kernel on the card."""
+def _flash_forward(q, k, v, causal, scale, dropout_p, seed, block_q=None,
+                   block_k=None):
+    """Forward wrapper: plain version on the CPU (exact whatever the
+    tiling: the tiles are ignored), the kernel on the card at the tiles
+    ``_resolve_tiles`` gives."""
     if _on_cpu(q, k, v):
+        if (block_q is None or block_k is None) and q.dim() == 4 and \
+                q.dtype in _DTYPE_NAME and q.shape[-1] <= 256:
+            # the lookup is counted as on the card; its answer is moot
+            _tuned_tiles(q, k, causal, dropout_p,
+                         compiled_tiles(_DTYPE_NAME[q.dtype], q.shape[-1],
+                                        dropout_p > 0.0))
         return flash_attention_reference(q, k, v, causal, scale, dropout_p,
                                          seed)
     from . import _ext
@@ -353,6 +463,7 @@ def _flash_forward(q, k, v, causal, scale, dropout_p, seed):
     Tk = k.shape[2]
     _check_cuda("flash_attention", (q, k, v),
                 ((B, H, Tq, D), (B, H, Tk, D), (B, H, Tk, D)))
+    rows, keys = _resolve_tiles(q, k, causal, dropout_p, block_q, block_k)
     q, k, v = _pad_head_dim(q, k, v)
     _check_aligned("flash_attention", "q, k and v", (q, k, v))
     # seed_mem holds the seed's memory until the launch is enqueued
@@ -364,10 +475,12 @@ def _flash_forward(q, k, v, causal, scale, dropout_p, seed):
     _launch("flash_fwd", lib.mx_flash_fwd,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), B * H, Tq, Tk, q.shape[-1],
-            ctypes.c_float(scale), int(causal), _DTYPE_CODE[q.dtype], *drop,
-            q.device.index or 0, stream)
+            ctypes.c_float(scale), int(causal), _DTYPE_CODE[q.dtype], rows,
+            *drop, q.device.index or 0, stream)
     with _COUNT:
         flash_attention.launches += 1
+        flash_attention.launches_by_tile[rows, keys] = \
+            flash_attention.launches_by_tile.get((rows, keys), 0) + 1
     return _unpad(out, D), lse
 
 
@@ -474,15 +587,17 @@ class _FlashAttention(torch.autograd.Function):
     then the dq and dk/dv kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, dropout_p, seed):
-        out, lse = _flash_forward(q, k, v, causal, scale, dropout_p, seed)
+    def forward(ctx, q, k, v, causal, scale, dropout_p, seed, block_q,
+                block_k):
+        out, lse = _flash_forward(q, k, v, causal, scale, dropout_p, seed,
+                                  block_q, block_k)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, scale, dropout_p, seed)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        return _flash_backward(ctx, do) + (None,) * 4
+        return _flash_backward(ctx, do) + (None,) * 6
 
 
 class _FlashAttentionLSE(torch.autograd.Function):
@@ -490,47 +605,59 @@ class _FlashAttentionLSE(torch.autograd.Function):
     LSE's cotangent folded into Δ."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = _flash_forward(q, k, v, causal, scale, 0.0, 0)
+    def forward(ctx, q, k, v, causal, scale, block_q, block_k):
+        out, lse = _flash_forward(q, k, v, causal, scale, 0.0, 0, block_q,
+                                  block_k)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, scale, 0.0, 0)
         return out, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        return _flash_backward(ctx, do, dlse) + (None,) * 2
+        return _flash_backward(ctx, do, dlse) + (None,) * 4
 
 
-def flash_attention(q, k, v, causal=False, sm_scale=None, dropout_p=0.0,
-                    seed=0):
+def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=None,
+                    block_k=None, dropout_p=0.0, seed=0):
     """Flash attention -> ``out``, differentiable in q, k, v.
 
     q: (B, H, Tq, D); k, v: (B, H, Tk, D); out like q.  Tensors on the CPU
     take the plain versions.  CUDA tensors launch the kernels: contiguous
     float32, bfloat16 or float16 with D <= 256 (a D that is no multiple of
     8 is zero-padded for the launch); anything else raises.
-    ``dropout_p`` drops attention probabilities with the mask of 64-bit
-    ``seed`` (``dropout_keep_mask``): an int, or an int64 tensor on q's
-    device that the kernels read (``random.draw_seed``); forward and
-    backward read the same one.  ``flash_attention.launches`` counts
-    forward kernel launches."""
+    ``block_q``/``block_k`` pick the forward kernel's tile (query rows a
+    block, keys a K/V tile) among ``compiled_tiles``; None takes the
+    ``mx.autotune`` winner or the default, and a pair that was not
+    compiled raises on the card.  ``dropout_p`` drops attention
+    probabilities with the mask of 64-bit ``seed`` (``dropout_keep_mask``):
+    an int, or an int64 tensor on q's device that the kernels read
+    (``random.draw_seed``); forward and backward read the same one.  The
+    JAX package's ``dropout_key`` (a threefry key) and ``interpret``
+    (Pallas' interpret mode) have no counterpart: ``seed`` takes the
+    key's place and the CPU's plain version interpret's.
+    ``flash_attention.launches`` counts forward kernel launches, and
+    ``flash_attention.launches_by_tile`` those of each (block_q,
+    block_k)."""
     if not isinstance(seed, torch.Tensor):
         seed = int(seed)
     return _FlashAttention.apply(q, k, v, bool(causal), _scale(q, sm_scale),
-                                 float(dropout_p), seed)
+                                 float(dropout_p), seed, block_q, block_k)
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_tile = {}
 
 
-def flash_attention_lse(q, k, v, causal=False, sm_scale=None):
+def flash_attention_lse(q, k, v, causal=False, sm_scale=None, block_q=None,
+                        block_k=None):
     """Flash attention -> ``(out, lse)``, both differentiable: ``lse``
     (B, H, Tq) fp32 is log sum_k exp(scale * q.k), and its cotangent
     folds into the backward as Δ − dlse (the kernels are
-    ``flash_attention``'s).  No dropout, as in the JAX package, where it
-    merges partial results of ring attention."""
+    ``flash_attention``'s, ``block_q``/``block_k`` as there).  No
+    dropout, as in the JAX package, where it merges partial results of
+    ring attention."""
     return _FlashAttentionLSE.apply(q, k, v, bool(causal),
-                                    _scale(q, sm_scale))
+                                    _scale(q, sm_scale), block_q, block_k)
 
 
 def blockwise_attention(q, k, v, causal=False, sm_scale=None, block_k=None,

@@ -23,7 +23,10 @@ here too.
 Convolutions on the card run in ``torch.channels_last`` memory format
 (the logical layout stays NCHW): 4-D inputs are made channels-last at the
 conv, and the ops after it keep that format.  It is the faster layout of
-the two for the bf16 ResNet-50 recipe on the H100 (``PERF.md`` §5).  The
+the two for the bf16 ResNet-50 recipe on the H100 (``PERF.md`` §5); with
+``mx.autotune`` on, a stored ``conv_layout`` winner of "NCHW" keeps a
+convolution's input contiguous instead.  ``batch_norm`` takes the JAX
+package's ``stat_dtype`` (the ``bn_stat_dtype`` site).  The
 first conv on the card also turns on ``torch.backends.cudnn.benchmark``,
 cuDNN's counterpart of XLA's own conv algorithm tuning: the first call at
 each shape tunes.
@@ -404,13 +407,37 @@ def _from_nc(y, back):
     return y if back is None else y.permute(back)
 
 
-def _card_format(x):
+def _card_format(x, weight=None, stride=None):
     """On the card, a 4-D conv input in the conv memory format, with
-    cuDNN's algorithm tuning on."""
+    cuDNN's algorithm tuning on.  A convolution (``weight`` given) asks
+    the ``conv_layout`` autotune site first: a tuned "NCHW" keeps the
+    input contiguous; off, cold or malformed, the hand-set format."""
     if x.is_cuda and x.dim() == 4 and _CUDA_CONV_FORMAT is not None:
         torch.backends.cudnn.benchmark = True
+        if weight is not None and _tuned_conv_layout(x, weight,
+                                                     stride) == "NCHW":
+            return x.contiguous()
         return x.contiguous(memory_format=_CUDA_CONV_FORMAT)
     return x
+
+
+def _tuned_conv_layout(x, weight, stride):
+    """The ``conv_layout`` winner for a 2-D convolution ("NHWC", the
+    hand-set channels-last, when autotune is off or cold)."""
+    from .. import autotune as _at
+
+    if not _at.is_enabled():
+        return "NHWC"
+    n, c, h, w = x.shape
+    o, _i, kh, kw = weight.shape
+    s0 = int(stride[0]) if stride else 1
+    cfg = _at.lookup("conv_layout",
+                     (n, c, h, w, o, kh, kw, s0, _dtype_name(x.dtype)),
+                     "NHWC")
+    if cfg not in ("NCHW", "NHWC"):
+        _at.fallback("invalid_config")
+        return "NHWC"
+    return cfg
 
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -429,7 +456,7 @@ def convolution(x, weight, bias=None, kernel=None, stride=None, dilate=None,
     x, back = _to_nc(x, lay)
     x, weight = _promote(*_amp_pair(x, weight))
     b = None if bias is None or no_bias else bias.to(x.dtype)
-    y = _CONV[n](_card_format(x), weight, b,
+    y = _CONV[n](_card_format(x, weight, stride), weight, b,
                  stride=tuple(stride) if stride else 1,
                  padding=tuple(pad) if pad else 0,
                  dilation=tuple(dilate) if dilate else 1, groups=num_group)
@@ -550,9 +577,35 @@ def adaptive_avg_pooling(x, output_size=1):
 # ---- batch norm ------------------------------------------------------------
 
 
+def _tuned_bn_stat_dtype(x, axis, stat_dtype):
+    """The batch statistics' dtype: an explicit ``stat_dtype``, else the
+    ``bn_stat_dtype`` autotune winner (a value measured bit-identical to
+    float32 under the guard), else float32.  The reduction ``axis`` is in
+    the key, as in the JAX package."""
+    if stat_dtype is not None:
+        return stat_dtype
+    from .. import autotune as _at
+
+    if not _at.is_enabled():
+        return "float32"
+    cfg = _at.lookup("bn_stat_dtype",
+                     tuple(x.shape) + (int(axis), _dtype_name(x.dtype)),
+                     "float32")
+    if cfg not in ("float32", "bfloat16"):
+        _at.fallback("invalid_config")
+        return "float32"
+    return cfg
+
+
+def _dtype_name(dtype):
+    """A torch dtype's numpy spelling ("float32"), as the autotune keys
+    write it."""
+    return str(dtype).replace("torch.", "")
+
+
 def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
                momentum=0.9, fix_gamma=False, use_global_stats=False,
-               axis=1, training=False):
+               axis=1, training=False, stat_dtype=None):
     """Returns ``(out, new_moving_mean, new_moving_var)``.
 
     Training (and not ``use_global_stats``) normalises with the batch's
@@ -564,9 +617,25 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
     statistics and returns them as they are.  The statistics and the
     normalisation are float32 whatever x's dtype (bf16 x with f32 gamma,
     beta and statistics under mixed precision); the output has x's
-    dtype.  ``fix_gamma`` scales by one."""
+    dtype.  ``fix_gamma`` scales by one.
+
+    ``stat_dtype`` (None: the ``bn_stat_dtype`` autotune site, default
+    "float32") is the dtype the batch mean and variance are taken in; with
+    "bfloat16", as in the JAX package, x is rounded to bf16, the mean and
+    the biased variance are taken in float32 and rounded to bf16, and the
+    normalisation runs in float32 on the unrounded x."""
     g = torch.ones_like(gamma) if fix_gamma else gamma
-    if axis != 1 and axis != 1 - x.dim():
+    moved = axis != 1 and axis != 1 - x.dim()
+    if training and not use_global_stats and \
+            _tuned_bn_stat_dtype(x, axis, stat_dtype) == "bfloat16":
+        out, mean, var = _bn_bf16_stats(x, g, beta, axis, eps)
+        with torch.no_grad():
+            new_mean = moving_mean * momentum + \
+                mean.to(moving_mean.dtype) * (1 - momentum)
+            new_var = moving_var * momentum + \
+                var.to(moving_var.dtype) * (1 - momentum)
+        return out, new_mean, new_var
+    if moved:
         x = x.movedim(axis, 1)
     if training and not use_global_stats:
         out, mean, invstd = torch.native_batch_norm(
@@ -581,9 +650,26 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
         out = F.batch_norm(x, moving_mean, moving_var, g, beta,
                            training=False, eps=eps)
         new_mean, new_var = moving_mean, moving_var
-    if axis != 1 and axis != 1 - x.dim():
+    if moved:
         out = out.movedim(1, axis)
     return out, new_mean, new_var
+
+
+def _bn_bf16_stats(x, g, beta, axis, eps):
+    """Training batch norm with bf16 statistics (the JAX package's
+    ``stat_dtype="bfloat16"``): -> (out, mean, biased variance)."""
+    axis = axis % x.dim()
+    dims = tuple(i for i in range(x.dim()) if i != axis)
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    xf = x.float()
+    xs = xf.to(torch.bfloat16).float()
+    mean = xs.mean(dims).to(torch.bfloat16).float()
+    var = xs.var(dims, unbiased=False).to(torch.bfloat16).float()
+    inv = torch.rsqrt(var + eps)
+    out = (xf - mean.reshape(shape)) * (g.float() * inv).reshape(shape) + \
+        beta.float().reshape(shape)
+    return out.to(x.dtype), mean, var
 
 
 # ---- the ops only mx.nd calls ----------------------------------------------

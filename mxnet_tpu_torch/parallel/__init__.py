@@ -41,7 +41,7 @@ under its first name.
 Not ported (they raise): ``mesh=`` and ``zero=`` (multi-device training),
 ``PipelineTrainer`` and ``moe_apply``.  The JAX package's fault-injection
 site in ``step`` waits with the rest of ``resilience`` (``ROADMAP.md``
-Queue 1 item 8).
+Queue 1 item 8, part 2).
 """
 from __future__ import annotations
 

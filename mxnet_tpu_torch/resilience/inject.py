@@ -33,7 +33,7 @@ The sites wired in the port: the checkpoint writer's
 speculative sequence's verify, keyed by request id).  The other sites of
 ``SITES`` (trainer step, collectives, compile cache, data reads) are
 accepted by the grammar and wait for their modules (``ROADMAP.md`` Queue
-1 item 8).  Without an explicit ``*count`` an entry fires once, but a
+1 item 8, part 2).  Without an explicit ``*count`` an entry fires once, but a
 ``serve_poison`` entry stays live: a poisoned request stays poisoned
 through every retry of its batch.
 

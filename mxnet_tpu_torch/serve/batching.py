@@ -12,9 +12,10 @@ Overload policy is explicit backpressure: a full queue REJECTS with
 deadline; expired requests fail with ``RequestTimeout`` before dispatch
 and never reach the model.  Each dispatch is the ``serve_dispatch`` fault
 site, and a request id the fault plan marks ``serve_poison`` fails its
-batch until bisection pins it alone (``resilience/inject.py``).  The JAX
-package's hang watchdog and deadline-miss detector wait in ``ROADMAP.md``
-Queue 1 item 8.
+batch until bisection pins it alone (``resilience/inject.py``).  Each
+dispatch is a ``serve_dispatch`` scope of the hang watchdog
+(``trace/watchdog.py``), and each request that fails its deadline feeds
+the deadline-miss burst detector (``trace.anomaly.deadline_miss``).
 """
 from __future__ import annotations
 
@@ -76,6 +77,10 @@ def fail_request(req, exc, result):
             time.perf_counter() - req.enqueued, ctx=req.trace, root=True,
             cat="serve", args={"result": result,
                                "request_id": req.request_id})
+    if result == "timeout":
+        # deadline misses that cluster are the stalled backend's signature:
+        # the burst detector dumps the flight record
+        trace.anomaly.deadline_miss()
 
 
 class Request:
@@ -302,7 +307,8 @@ class Scheduler:
         try:
             with trace.use(head.trace), \
                     trace.span("serve_dispatch", hist=False, cat="serve",
-                               args={"batch": len(live)}):
+                               args={"batch": len(live)}), \
+                    trace.watchdog.watch("serve_dispatch"):
                 _inject.fire("serve_dispatch")
                 pairs = self._run_split(runner, live)
         except BaseException as exc:  # noqa: BLE001 - surfaced per request

@@ -47,8 +47,7 @@ paging-agnostic.
 
 Not ported yet (each raises or is absent, and is queued in
 ``ROADMAP.md``): tenancy (``tenant=``, item 9), a runner over a mesh
-(``mesh=``, item 7), the ``decode_bucket`` autotune lookup and idle tuner
-(item 8: the power-of-two bucket table is used), fleet export and handoff
+(``mesh=``, item 7), fleet export and handoff
 (item 9), and persisted programs (``compile/``, item 3:
 ``provenance()`` reports ``"not ported"``).  Steps run eagerly; a CUDA
 graph per decode bucket is queued too.
@@ -154,9 +153,8 @@ class DecodeConfig:
             raise ValueError("no prefill bucket <= max_context=%d"
                              % self.max_context)
         if batch_sizes is None:
-            # the JAX package first asks the decode_bucket autotune site
-            # (ROADMAP.md Queue 1 item 8); the port takes its default
-            batch_sizes = _pow2_up_to(1, max(1, self.max_live))
+            default_set = _pow2_up_to(1, max(1, self.max_live))
+            batch_sizes = self._tuned_batch_sizes(default_set)
         self.batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))
         if self.batch_sizes[-1] < self.max_live:
             raise ValueError(
@@ -172,6 +170,29 @@ class DecodeConfig:
             if prefix_cache is None else bool(prefix_cache)
         self.spec_k = get_env("MXNET_SERVE_SPEC_K", int, 0) \
             if spec_k is None else int(spec_k)
+
+    def _tuned_batch_sizes(self, default_set):
+        """The ``decode_bucket`` autotune winner for this ``max_live``
+        (committed by a decode runner's idle tuner), when it still covers
+        ``max_live``; else the power-of-two default.  Decode outputs do
+        not depend on the bucket table (the padding design), so a tuned
+        table changes builds and step latency, never tokens."""
+        from .. import autotune as _at
+
+        if not _at.is_enabled():
+            return default_set
+        cfg, prov = _at.lookup_info("decode_bucket", (self.max_live,),
+                                    list(default_set))
+        if prov != "tuned":
+            return default_set
+        try:
+            buckets = sorted(set(int(b) for b in cfg))
+        except (TypeError, ValueError):
+            buckets = []
+        if not buckets or buckets[0] < 1 or buckets[-1] < self.max_live:
+            _at.fallback("invalid_config")
+            return default_set
+        return buckets
 
     def as_dict(self):
         return {
@@ -592,6 +613,18 @@ class DecodeRunner:
                     prog.fn(*self._null_inputs(batch, chunk,
                                                floors=(kind == "chunk")))
         self._warmed = True
+        # autotune's idle tuner (MXNET_AUTOTUNE=search): every decode
+        # bucket program is warm and harmless on null inputs (page tables
+        # of the drop page), so time each and commit the cheapest bucket
+        # set for the next process's DecodeConfig; a failure leaves the
+        # table untuned
+        from .. import autotune as _autotune
+
+        if _autotune.search_enabled():
+            try:
+                _autotune.measure.decode_idle_tune(self)
+            except Exception:  # noqa: BLE001 - warm-up must not fail
+                _autotune.fallback("serve_idle")
         spec = getattr(self, "spec", None)
         if spec is not None and not spec.warmed:
             fresh += spec.warm_up()
@@ -1359,7 +1392,8 @@ class DecodeScheduler:
         with trace.use(seqs[0].req.trace), \
                 trace.span("serve_decode_step", hist=False, cat="serve",
                            args={"bucket": "decode:b%d" % bucket,
-                                 "live": len(seqs)}):
+                                 "live": len(seqs)}), \
+                trace.watchdog.watch("serve_dispatch"):
             pairs = self._step_split(seqs)
         self.steps += 1
         dt = time.perf_counter() - t0

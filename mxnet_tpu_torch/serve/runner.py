@@ -165,6 +165,17 @@ class ModelRunner:
                            for s in sig])
             n += 1
         self._warmed = True
+        # autotune's idle tuner (MXNET_AUTOTUNE=search): no traffic has
+        # arrived yet, so time each bucket's forward into the store
+        # (serve_bucket records, the cost model's data); within
+        # MXNET_AUTOTUNE_BUDGET_MS, and a failure never fails the warm-up
+        from .. import autotune as _autotune
+
+        if _autotune.search_enabled():
+            try:
+                _autotune.measure.serve_idle_tune(self)
+            except Exception:  # noqa: BLE001 - warm-up must not fail
+                _autotune.fallback("serve_idle")
         return n
 
     def _forward(self, bufs):

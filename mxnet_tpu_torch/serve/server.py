@@ -29,7 +29,7 @@ Counterpart of ``mxnet_tpu/serve/server.py``: thread-safe ``submit()`` /
 Not ported yet (each is queued in ``ROADMAP.md``): tenancy (``tenant=``,
 item 9), fleet registration, ``load_digest``, ``/fleetz`` and the handoff
 routes (item 9), the SLO block of ``/healthz`` and ``/statz`` and the
-preemption drain hook (item 8).
+preemption drain hook (item 8, part 2).
 """
 from __future__ import annotations
 
@@ -316,7 +316,7 @@ class Server:
                 "nonfinite_batches": telemetry.value(
                     "serve_nonfinite_batches_total"),
             },
-            # the SLO engine (obs/) waits in ROADMAP.md Queue 1 item 8
+            # the SLO engine (obs/) waits in ROADMAP.md Queue 1 item 8, part 2
             "slo": None,
             "cache": self._plane_stats("cache"),
             "spec": self._plane_stats("spec"),

@@ -28,8 +28,9 @@ Mechanics:
   non-speculative decode (a breaker strike on the ``("draft", bucket)``
   class; batch-mates keep speculating).
 
-K comes from the argument, then ``MXNET_SERVE_SPEC_K``, then 4; the JAX
-package's ``spec_k`` autotune site waits in ``ROADMAP.md`` Queue 1 item 8.
+K comes from the argument, then ``MXNET_SERVE_SPEC_K``, then the
+``spec_k`` autotune winner (a structural site: K cannot change tokens),
+then 4.
 """
 from __future__ import annotations
 
@@ -49,12 +50,23 @@ _K_MAX = 16
 
 def resolve_k(k, max_live):
     """The per-round proposal count: explicit argument >
-    ``MXNET_SERVE_SPEC_K`` > 4, clamped to [1, 16].  (``max_live`` keys
-    the JAX package's autotune lookup.)"""
+    ``MXNET_SERVE_SPEC_K`` > the committed ``spec_k`` autotune winner
+    for this ``max_live`` > 4.  Clamped to [1, 16]."""
     if k is None:
         env = get_env("MXNET_SERVE_SPEC_K", int, 0)
         if env > 0:
             k = env
+    if k is None:
+        from .. import autotune as _at
+
+        if _at.is_enabled():
+            cfg, prov = _at.lookup_info("spec_k", (int(max_live),),
+                                        _K_DEFAULT)
+            if prov == "tuned":
+                try:
+                    k = int(cfg)
+                except (TypeError, ValueError):
+                    _at.fallback("invalid_config")
     if k is None:
         k = _K_DEFAULT
     return max(1, min(_K_MAX, int(k)))

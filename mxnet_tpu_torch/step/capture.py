@@ -585,8 +585,9 @@ class StepProgram:
         prev = {i: counts.get(i) for i in cap.train_idx}
         prev_num = opt.num_update
         cap.mutating = False
-        with _trace.span("train_step", hist=False,
-                         args={"step": step, "captured": 1}):
+        with _trace.span("train_step", hist=False, anomaly=True,
+                         args={"step": step, "captured": 1}), \
+                _trace.watchdog.watch("train_step"):
             try:
                 self._prepare(cap)
                 xs, ys = self._stage(cap, datas, labels)

@@ -11,19 +11,31 @@ bucket planner (``kvstore/collective.py``), of ``monitor/``, of the
 whole-step capture (``step/capture.py``), of the input pipeline
 (``gluon/data/dataloader.py``, ``io``, ``data/``), of ``checkpoint/``, of
 the serving hot swap and of the fault plan (``resilience/inject.py``),
-under the JAX package's names.  Disabled cost is one
+under the JAX package's names, and the families of the operational
+planes: ``autotune/``, the flight recorder's dumps and watchdog
+(``trace/``), the monitor's publisher and ``device_memory_bytes``.  The
+timers ``span``/``timed`` feed a live ``mx.profiler`` session; ``dump``,
+``log_line`` and ``start_logger`` (``MXNET_TELEMETRY_LOG_INTERVAL``) are
+the JAX package's.  Disabled cost is one
 boolean check per hook (``if telemetry.ENABLED:``);
 ``MXNET_TELEMETRY_DISABLE=1`` flips it at import.
 """
 from __future__ import annotations
 
+import json
+import logging
 import threading
+import time
 
 from .base import get_env
 
 __all__ = ["ENABLED", "enable", "disable", "counter", "gauge", "histogram",
-           "get_metric", "reset", "totals", "value", "snapshot",
-           "histogram_quantiles", "prometheus", "DEFAULT_BUCKETS"]
+           "get_metric", "reset", "span", "timed", "totals", "value",
+           "snapshot", "dump", "histogram_quantiles", "prometheus",
+           "sample_device_memory", "log_line", "start_logger",
+           "DEFAULT_BUCKETS"]
+
+_LOGGER = logging.getLogger("mxnet_tpu_torch.telemetry")
 
 _LOCK = threading.Lock()
 _REGISTRY = {}  # name -> Metric, insertion-ordered
@@ -394,6 +406,144 @@ def value(name, labels=None):
     return tot
 
 
+def dump(path):
+    """Write the JSON snapshot to ``path``; returns the path."""
+    with open(path, "w") as f:
+        json.dump({"time": time.time(), "enabled": ENABLED,
+                   "metrics": snapshot()}, f, indent=2, sort_keys=True)
+    return path
+
+
+# ---------------------------------------------------------------------------
+# timers
+# ---------------------------------------------------------------------------
+
+def _feed_profiler(name, start, dur, cat="telemetry", args=None):
+    """Land a span in a live ``mx.profiler`` session's user events, with
+    the thread that recorded it.  With no session live this is one
+    boolean read; the flag is read again under the profiler's lock, so a
+    concurrent ``set_state('stop')`` cannot interleave with the append."""
+    from . import profiler
+
+    if not profiler._state["running"]:
+        return
+    with profiler._events_lock:
+        if profiler._state["running"]:
+            t = threading.current_thread()
+            ev = {"name": name, "cat": cat, "ts": start, "dur": dur,
+                  "tid": t.ident, "tname": t.name}
+            if args:
+                ev["args"] = args
+            profiler._state["events"].append(ev)
+
+
+class span:
+    """Monotonic-clock timing context: observes ``<name>_seconds`` (or the
+    given histogram) and feeds a profiler event when a session is live.
+    A span entered while telemetry is off observes nothing."""
+
+    __slots__ = ("name", "_hist", "_start")
+
+    def __init__(self, name, hist=None):
+        self.name = name
+        self._hist = hist
+        self._start = None
+
+    def __enter__(self):
+        self._start = time.perf_counter() if ENABLED else None
+        return self
+
+    def __exit__(self, *exc):
+        if self._start is None or not ENABLED:
+            return False
+        dur = time.perf_counter() - self._start
+        hist = self._hist
+        if hist is None:
+            hist = histogram(self.name + "_seconds",
+                             "duration of %s spans" % self.name)
+        hist.observe(dur)
+        _feed_profiler(self.name, self._start, dur)
+        return False
+
+
+def timed(name, hist=None):
+    """Decorator form of ``span``: time every call of fn."""
+    def deco(fn):
+        import functools
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not ENABLED:
+                return fn(*args, **kwargs)
+            with span(name, hist):
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
+
+
+# ---------------------------------------------------------------------------
+# device memory and the periodic log line
+# ---------------------------------------------------------------------------
+
+def sample_device_memory(device=None):
+    """Refresh the ``device_memory_bytes`` gauges from
+    ``profiler.memory_info()`` (the caching allocator's
+    ``torch.cuda.memory_stats`` and ``mem_get_info``; the CPU reports
+    nothing).  Returns the report."""
+    if not ENABLED:
+        return {}
+    from . import profiler
+
+    try:
+        report = profiler.memory_info(device)
+    except Exception:  # noqa: BLE001 - telemetry must never raise
+        return {}
+    for dev, stats in report.items():
+        for stat, v in stats.items():
+            DEVICE_MEMORY.labels(device=dev, stat=stat).set(v)
+    return report
+
+
+_logger_started = False
+
+
+def log_line():
+    """One compact 'telemetry k=v ...' line over the nonzero totals
+    (histograms with their bucket-estimated p50/p95/p99)."""
+    tot = totals(nonzero=True, quantiles=True)
+    body = " ".join(
+        "%s=%s" % (k, ("%d" % v) if float(v).is_integer() else
+                   ("%.6g" % v))
+        for k, v in sorted(tot.items()))
+    return "telemetry " + (body or "(all zero)")
+
+
+def _log_loop(interval):
+    while True:
+        time.sleep(interval)
+        try:
+            if ENABLED:
+                sample_device_memory()
+                _LOGGER.info(log_line())
+        except Exception:  # noqa: BLE001 - the log thread must survive
+            _LOGGER.exception("telemetry log tick failed")
+
+
+def start_logger(interval=None):
+    """Start the periodic telemetry log thread (once a process).  With no
+    argument, reads MXNET_TELEMETRY_LOG_INTERVAL (seconds; 0 = off)."""
+    global _logger_started
+    if interval is None:
+        interval = get_env("MXNET_TELEMETRY_LOG_INTERVAL", float, 0.0)
+    if not interval or interval <= 0 or _logger_started:
+        return False
+    t = threading.Thread(target=_log_loop, args=(float(interval),),
+                         daemon=True, name="mxnet-telemetry-log")
+    t.start()
+    _logger_started = True
+    return True
+
+
 # mx.serve: queue wait is the time a request sat in the BatchQueue before
 # its micro-batch was dispatched; pad waste is the zero-fill the bucket
 # table forced.
@@ -697,3 +847,69 @@ RESILIENCE_FAULTS = counter(
     "resilience_faults_injected_total",
     "planned faults fired, by injection site (MXNET_FAULTS / "
     "resilience.plan())", ("site",))
+
+# mx.trace: flight-recorder dumps by trigger reason (manual / crash / exit
+# / slow_step / deadline_burst / divergence / hang / dry_run) and
+# watchdog fires by the watch scope that stalled
+TRACE_DUMPS = counter(
+    "trace_dumps_total",
+    "flight-recorder dumps written, by trigger reason", ("reason",))
+TRACE_WATCHDOG_FIRES = counter(
+    "trace_watchdog_fires_total",
+    "hang-watchdog reports (no progress past the scope timeout)",
+    ("scope",))
+
+# mx.monitor's publisher (monitor/core.py): stat programs built, the
+# global norm's distribution, entries the bounded ring displaced
+MONITOR_STAT_BUILDS = counter(
+    "monitor_stat_builds_total",
+    "stat reduction program builds (trace + compile; steady state: "
+    "one per parameter group, zero per-step retraces)")
+MONITOR_GRAD_GLOBAL_NORM_HIST = histogram(
+    "monitor_grad_global_norm_hist",
+    "distribution of the global gradient L2 norm over observed steps",
+    buckets=(0.001, 0.01, 0.1, 0.5, 1.0, 2.0, 5.0, 10.0, 50.0, 100.0,
+             1000.0))
+MONITOR_DROPS = counter(
+    "monitor_dropped_total",
+    "stat entries displaced from the bounded host-fetch ring before "
+    "the publisher drained them")
+
+# device memory (sample_device_memory): the caching allocator's stats
+DEVICE_MEMORY = gauge(
+    "device_memory_bytes", "PJRT device memory stats "
+    "(sample_device_memory refreshes)", ("device", "stat"))
+
+# mx.autotune (autotune/): every degrade to the hand-set default is
+# counted, so a process that silently fell back is visible
+AUTOTUNE_LOOKUPS = counter(
+    "autotune_lookup_total",
+    "build-time tuned-config lookups by site and result (tuned = a "
+    "stored winner was served; default = hand-set literal)",
+    ("site", "result"))
+AUTOTUNE_MEASURE = counter(
+    "autotune_measure_total",
+    "candidate configs measured by the search harness / idle tuners "
+    "(a warm store means a fresh process re-measures NOTHING)",
+    ("site",))
+AUTOTUNE_REJECT = counter(
+    "autotune_reject_total",
+    "candidates rejected by the measure guards (numerics = output "
+    "not bit-identical to the default config's; shape; nonfinite; "
+    "error)", ("site", "reason"))
+AUTOTUNE_FALLBACK = counter(
+    "autotune_fallback_total",
+    "degrades to the hand-set default by reason (store_unavailable / "
+    "store_corrupt / store_error / store_write / invalid_config / "
+    "measure_error / serve_idle / ...)", ("reason",))
+AUTOTUNE_STORE_COMMITS = counter(
+    "autotune_store_commits_total",
+    "tuning records durably committed to the TuningStore")
+AUTOTUNE_STORE_QUARANTINE = counter(
+    "autotune_store_quarantine_total",
+    "corrupt/torn tuning records parked at *.corrupt (never trusted "
+    "again; lookups degraded to defaults)")
+AUTOTUNE_TUNE_SECONDS = histogram(
+    "autotune_tune_seconds",
+    "wall time of one tune() search (default + all candidates)",
+    buckets=(0.01, 0.05, 0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0))

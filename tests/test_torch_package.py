@@ -210,6 +210,7 @@ class _HostKernels:
 
     def __init__(self):
         self.calls = []
+        self.rows = []   # the forward tile's query rows of each launch
 
     def _in(self, ptrs, bh, Tq, Tk, D, code, tk_rows):
         dt = _DTYPE_OF_CODE[code]
@@ -217,8 +218,9 @@ class _HostKernels:
                 for p, k in zip(ptrs, tk_rows)]
 
     def mx_flash_fwd(self, q, k, v, o, lse, bh, Tq, Tk, D, scale, causal,
-                     code, *rest):
+                     code, rows, *rest):
         self.calls.append(("fwd", D, code))
+        self.rows.append(rows)
         q, k, v, o = self._in((q, k, v, o), bh, Tq, Tk, D, code,
                               (0, 1, 1, 0))
         out, l = fa.flash_attention_reference(q, k, v, causal, scale.value)
@@ -288,6 +290,52 @@ def test_fp16_and_ragged_head_dim_reach_the_kernel(monkeypatch, dtype, D):
                         [want] + [t.grad for t in dense]):
         torch.testing.assert_close(got.float(), ref.detach(), rtol=0,
                                    atol=tol * max(1.0, ref.abs().max().item()))
+
+
+def test_uncompiled_tiles_are_refused_on_the_card(monkeypatch):
+    """The forward's tile is a compiled choice: each compiled pair reaches
+    the launch as its row count; an explicit pair that was not compiled
+    raises before anything is launched (nothing is rounded, nothing falls
+    back), as does another row count under dropout, which runs the
+    default tile alone."""
+    lib = _HostKernels()
+    monkeypatch.setattr(_ext, "load", lambda: lib)
+    monkeypatch.setattr(fa, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(fa, "_check_device", lambda name, ts: None)
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    q = torch.randn(1, 2, 64, 64)
+    for bq, bk in fa.compiled_tiles("float32", 64):
+        fa.flash_attention(q, q, q, block_q=bq, block_k=bk)
+    fa.flash_attention(q, q, q, block_q=64)    # block_k: the default's 64
+    assert lib.rows == [128, 64, 64]
+    launches = fa.flash_attention.launches
+    for bq, bk in ((512, 512), (128, 32), (96, 64), (256, 64)):
+        with pytest.raises(MXNetError, match="not compiled"):
+            fa.flash_attention(q, q, q, block_q=bq, block_k=bk)
+    with pytest.raises(MXNetError, match="not compiled"):
+        fa.flash_attention(q, q, q, block_q=64, block_k=64, dropout_p=0.1,
+                           seed=1)
+    with pytest.raises(MXNetError, match="not compiled"):
+        fa.flash_attention_lse(q, q, q, block_q=32)
+    assert fa.flash_attention.launches == launches and len(lib.rows) == 3
+
+
+@pytest.mark.parametrize("bq,bk", [(None, None), (64, 64), (128, 64),
+                                   (512, 512), (7, 3)])
+def test_cpu_ignores_the_tiles(bq, bk):
+    """On the CPU the plain version runs whatever the pair: it is exact
+    whatever the tiling."""
+    rs = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rs.randn(2, 3, 96, 40).astype(np.float32))
+               for _ in range(3))
+    for causal in (False, True):
+        want, want_lse = fa.flash_attention_reference(q, k, v, causal)
+        out = fa.flash_attention(q, k, v, causal, block_q=bq, block_k=bk)
+        out2, lse = fa.flash_attention_lse(q, k, v, causal, block_q=bq,
+                                           block_k=bk)
+        assert (out - want).abs().max().item() == 0
+        assert (out2 - want).abs().max().item() == 0
+        assert (lse - want_lse).abs().max().item() == 0
 
 
 @pytest.mark.parametrize("which", [0, 1, 2, 3], ids=["q", "k", "v", "dO"])
@@ -375,9 +423,10 @@ def test_ext_bind_declares_every_entry_point():
     for name in ("mx_flash_fwd", "mx_flash_bwd_dq", "mx_flash_bwd_dkv"):
         setattr(lib, name, type(name, (), {})())
     _ext.bind(lib)
+    # the forward also takes its tile's query rows
     assert [len(getattr(lib, n).argtypes) for n in
             ("mx_flash_fwd", "mx_flash_bwd_dq", "mx_flash_bwd_dkv")] \
-        == [18, 20, 21]
+        == [19, 20, 21]
 
 
 def test_ptxas_report_reads_registers_and_spills():
@@ -462,7 +511,7 @@ def test_dropout_seed_reaches_the_kernels_by_address(monkeypatch, kind):
 
     class Lib(_HostKernels):
         def mx_flash_fwd(self, *args):
-            note(*args[12:14])
+            note(*args[13:15])        # after the tile's rows
             return super().mx_flash_fwd(*args)
 
         def mx_flash_bwd_dq(self, *args):
@@ -552,7 +601,6 @@ SPELLINGS = {
     ".serve.server.Server": (["tenant"], "ROADMAP.md Queue 1 item 9"),
     ".monitor.stats.group_stats": (["g_arrs", "w_arrs"],
                                    "ROADMAP.md Queue 1 item 8"),
-    ".trace.span": (["anomaly"], "ROADMAP.md Queue 1 item 8"),
     # dropout draws from the port's generators, not threefry keys
     # (random.py; ROADMAP.md Rules, "RNG")
     ".ops.nn.dropout": (["key", "mode"], "ROADMAP.md Rules, RNG"),
@@ -560,11 +608,14 @@ SPELLINGS = {
                                      "ROADMAP.md Rules, RNG"),
     ".ndarray.multi_head_attention": (["dropout_key"],
                                       "ROADMAP.md Rules, RNG"),
-    # the hook of the JAX autotune site ``bn_stat_dtype``; the port has no
-    # autotune yet, and no caller asks for bfloat16 statistics
-    ".ops.nn.batch_norm": (["stat_dtype"], "ROADMAP.md Queue 1 item 8"),
-    ".ndarray.batch_norm": (["stat_dtype"], "ROADMAP.md Queue 1 item 8"),
-    ".ndarray.BatchNorm": (["stat_dtype"], "ROADMAP.md Queue 1 item 8"),
+    # the flash kernels take the port's ``seed`` for the threefry key, and
+    # their plain version on the CPU stands for Pallas' interpret mode
+    ".ops.flash_attention.flash_attention": (["dropout_key", "interpret"],
+                                             "ROADMAP.md Rules, RNG"),
+    ".ops.flash_attention.flash_attention_lse": (["interpret"],
+                                                 "ROADMAP.md Rules, RNG"),
+    ".ops.flash_attention.blockwise_attention": (["dropout_key"],
+                                                 "ROADMAP.md Rules, RNG"),
 }
 
 
@@ -594,6 +645,10 @@ def _lacks(jax_obj, port_obj):
     return sorted(out)
 
 
+# port modules whose JAX counterpart has another name
+_PAIRED = {".ops.flash_attention": ".ops.pallas_attention"}
+
+
 def _shared_callables():
     """(dotted name, JAX object, port object) for every public callable
     of a port module that its JAX counterpart also has."""
@@ -605,7 +660,8 @@ def _shared_callables():
     for mod in mods:
         rel = mod[len("mxnet_tpu_torch"):]
         try:
-            jmod = importlib.import_module("mxnet_tpu" + rel)
+            jmod = importlib.import_module(
+                "mxnet_tpu" + _PAIRED.get(rel, rel))
         except ImportError:
             continue
         tmod = importlib.import_module(mod)
@@ -673,7 +729,12 @@ def test_shared_callables_take_the_jax_arguments():
                  ".serve.decode.DecodeScheduler.submit",
                  ".serve.kvcache.PagePool", ".serve.cache.PrefixCache",
                  ".serve.spec.SpecPlane", ".telemetry.totals",
-                 ".resilience.inject.poisoned"):
+                 ".resilience.inject.poisoned",
+                 ".ops.flash_attention.flash_attention",
+                 ".ops.flash_attention.flash_attention_lse",
+                 ".ops.flash_attention.blockwise_attention",
+                 ".profiler.set_state", ".autotune.lookup",
+                 ".trace.watchdog.install", ".monitor.divergence.observe_loss"):
         assert must in names, must
 
 
