@@ -46,6 +46,8 @@ or ``mxnet_tpu``.  Phases, each printed as one JSON line:
    on the CPU within 1e-3*max(1, max|g|).
 5b. ops_planes -- the operational planes around BERT-base (below), and
    after ``decode`` its part e, ``profiler_trap``.
+5c. resilience -- fault handling and the SLO engine around BERT-base
+   (below).
 6. train_bf16 -- the JAX package's BERT recipe (``bench.py``
    ``_bench_bert``): full-width BERT-base pretraining through
    ``parallel.FusedTrainer(dtype='bfloat16')`` with Adam at lr 1e-4, B=16,
@@ -352,7 +354,11 @@ BERT-base, files under ``$TMPDIR``; before ``checkpoint_resume`` and
 this process): (a)
 ``autotune.tune("flash_attention", key)`` at BERT's f32 key, its bf16
 B=16 key and the GPT LM's causal D=32 key on a fresh store, each tile's
-ms (10 launches and a synchronize a run), verdict and the winner; (b)
+ms (10 launches between two CUDA events, a sleep ahead holding the card
+while the host enqueues them), verdict and the winner,
+which must be the tile phase ``kernels``' CUDA-event times rank first
+wherever the two differ by more than 5 % (the GPT key's case runs
+here); (b)
 BERT-base fp32 serving the serve recipe's 32 requests in full batches of
 8 in a child process with ``MXNET_AUTOTUNE=1`` on that store: every
 lookup ``tuned``, the launches a tile, every answer bit-identical to the
@@ -370,10 +376,37 @@ evidence (no session open, the threads alive, a probe from a new thread).
 Every compiled forward tile is held against the plain version in phase
 ``kernels`` (``case["tiles"]``), and each phase prints its seconds.
 
+After ``ops_planes``, phase ``resilience`` (files under ``$TMPDIR``):
+every drill runs the ``train`` recipe (BERT-base pretraining, fp32,
+dropout 0.1, Adam 1e-4, B=8, T=512) through ``resilience.GluonStepLoop``
+with ``batches(step)`` seeding the port's generators from the step.  (a)
+six uninterrupted steps, stitched and through ``trainer.capture``: losses
+and a SHA-256 over every parameter and Adam state; (b) ``Supervisor``
+(``checkpoint_every=3``) with ``trainer_step@4:transient``, the obs plane
+and attribution on: one restart from step 2, one ``restart`` dump, the
+losses and digest of (a), a record a step executed with its shares; (c)
+the same captured with ``step_capture@4:transient``: the fault re-raised
+(no fallback, no stitched step), the digest of (a)'s captured run, records
+with ``flops`` and ``mfu`` (against 989 TFLOP/s, counted without the
+flash kernels; the figure with them beside it); (d) the monitor's
+``skip_step`` sentinel and one gradient poisoned at step 3: one divergence
+dump naming the group, one restore at the next boundary, no nonfinite
+checkpoint on disk, the digest of (a); (e) child A arms the SIGTERM
+handler, serves BERT-base to a client thread and runs the supervised loop
+(``exit_on_preempt``); a real SIGTERM after its step-1 line: the
+emergency checkpoint of step 1, every accepted request answered, exit
+``MXNET_PREEMPT_EXIT_CODE``; child B resumes to (a)'s digest; (f) 32
+served requests with a 10 ms and a 10 s p99 objective: PAGE and OK,
+``/healthz`` "degraded", ``/statz``'s ``slo`` block, ``obs_slo_state`` in
+the log line; (g) ``dist.run_with_deadline`` around a wait that never
+returns (``DistTimeout`` in 1-3 s, one ``dist_timeout`` dump, counted) and
+``resilience.health_check`` (``{"cuda:0": "ok"}``; a blocked probe
+reports a timeout within its bound).
+
 Then the ``{"kernels": [...]}`` summary (gpt_lm's causal D=32 bf16 route
-as ``routes["bfloat16_causal_d32"]``; ``checkpoint_resume``'s and
-``ops_planes``' launches in the routes and ``launches_by_path``), the
-``nvidia-smi``
+as ``routes["bfloat16_causal_d32"]``; ``checkpoint_resume``'s,
+``ops_planes``' and ``resilience``'s launches in the routes and
+``launches_by_path``), the ``nvidia-smi``
 line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the script exits non-zero and prints no result line.  Without a card,
@@ -881,7 +914,16 @@ def _fwd_case(torch, F, fa, q, k, v, causal, p, dname, iters):
              % case["shape"])
     case["tiles"] = _tile_cases(torch, fa, q, k, v, causal, p, dname, out,
                                 lse, ref_out, ref_lse, seed, iters)
+    if not p:   # the tiles' device times, for the autotune check
+        TILE_MS[(B, H, Tq, Tk, D, dname, causal)] = {
+            t: (ms if c.get("default") else c["ms"])
+            for t, c in case["tiles"].items()}
     return case
+
+
+# (B, H, Tq, Tk, D, dtype, causal) -> {"128x64": device ms} without
+# dropout, from ``_tile_cases``' CUDA events
+TILE_MS = {}
 
 
 def _bits(torch, t):
@@ -6128,7 +6170,53 @@ def _planes_tune(mx, cfg, store):
             out.append(row)
     finally:
         autotune.disable()
-    return {"keys": out, "tune_s": time.perf_counter() - t0}
+    tune_s = time.perf_counter() - t0
+    return {"keys": out, "tune_s": tune_s,
+            "against_kernel_times": _tune_against_events(mx, out)}
+
+
+TILE_MARGIN = 0.05   # tiles closer than this are a tie
+
+
+def _tune_against_events(mx, rows):
+    """Each key's winner against the tiles' CUDA-event times from
+    ``_tile_cases`` (phase ``kernels``' case at that key, or the same case
+    run here where that phase has none): where the two differ by more than
+    ``TILE_MARGIN`` the faster must win, and every record must hold the
+    device clock."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    out = []
+    for row in rows:
+        key = tuple(row["key"])
+        B, H, Tq, Tk, D, dname, causal = key
+        source = "kernels"
+        if key not in TILE_MS:
+            source = "ops_planes"
+            gen = torch.Generator(device="cuda").manual_seed(17)
+            q, k, v = (torch.randn(B, H, T, D, device="cuda", generator=gen,
+                                   dtype=getattr(torch, dname))
+                       for T in (Tq, Tk, Tk))
+            _fwd_case(torch, F, fa, q, k, v, causal, 0.0, dname, 20)
+            del q, k, v
+        times = TILE_MS[key]
+        fastest = min(times, key=times.get)
+        slowest = max(times, key=times.get)
+        gap = times[slowest] / times[fastest] - 1.0
+        winner = "%dx%d" % tuple(row["config"])
+        res = {"key": list(key), "tile_ms": times, "source": source,
+               "winner": winner, "gap": gap, "clock": row.get("clock")}
+        out.append(res)
+        if row.get("clock") != "cuda_events":
+            fail("ops_planes: the tune at %s ranked on the %s clock"
+                 % (key, row.get("clock")))
+        if gap > TILE_MARGIN and winner != fastest:
+            fail("ops_planes: the tune at %s chose %s where the CUDA-event "
+                 "times rank %s first: %s" % (key, winner, fastest, times))
+    return out
 
 
 _PLANES_SERVE = r"""
@@ -6454,6 +6542,667 @@ def phase_ops_planes(torch, mx, fa, seed, smi, cfg=PLANES_CFG):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase resilience: fault handling and the SLO engine around BERT-base
+# ---------------------------------------------------------------------------
+
+RESIL_CFG = dict(B=8, T=512, M=76, vocab=30522, steps=6, every=3,
+                 seed_base=7000, n_req=32, page_target_s=0.010,
+                 ok_target_s=10.0, deadline_s=1.0, health_s=5.0,
+                 child_timeout_s=400)
+# the card's dense bf16 peak, the figure attribution's MFU divides by
+PEAK_TFLOPS_H100 = 989.0
+
+
+def _resil_model(mx, bert, seed, cfg, captured):
+    """The ``train`` recipe's net (BERT-base pretraining, dropout 0.1,
+    ``bert_params`` weights) with Adam at 1e-4, as a ``GluonStepLoop``
+    (through ``trainer.capture`` when ``captured``)."""
+    net = pretrain_step(mx, bert, seed, vocab_size=cfg["vocab"],
+                        max_length=cfg["T"], dropout=DROPOUT_P)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-4})
+
+    def loss_fn(out, labels, weights, nsp):
+        return bert.pretraining_loss(out[0], out[1], labels, weights, nsp)
+
+    program = trainer.capture(net, loss_fn) if captured else None
+    loop = mx.resilience.GluonStepLoop(net, trainer, loss_fn,
+                                       step_program=program)
+    return net, trainer, program, loop
+
+
+def _resil_batches(torch, mx, seed, cfg):
+    """``batches(step)``: the step's own ``_train_batch`` on the card, and
+    the port's generators seeded from the step, so a replay repeats the
+    dropout masks as it repeats the data."""
+    cache = {}
+
+    def batches(step):
+        if step not in cache:
+            host = _train_batch(np.random.default_rng(seed + 100 + step),
+                                cfg["B"], cfg["T"], cfg["M"], cfg["vocab"])
+            cache[step] = (
+                tuple(torch.from_numpy(host[k]).cuda()
+                      for k in ("ids", "types", "pos")),
+                tuple(torch.from_numpy(host[k]).cuda()
+                      for k in ("labels", "weights", "nsp")))
+        mx.random.seed(cfg["seed_base"] + step)
+        return cache[step]
+
+    return batches
+
+
+def _digest(torch, net, trainer):
+    """SHA-256 over the bytes of every parameter and every Adam state."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in net.collect_params().values():
+        h.update(p.detach().contiguous().cpu().numpy().tobytes())
+    for i in sorted(trainer._states):
+        for t in _state_leaves(trainer._states[i]):
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _resil_reference(torch, mx, bert, seed, cfg, captured):
+    """Part a: ``steps`` uninterrupted steps from the same init."""
+    net, trainer, program, loop = _resil_model(mx, bert, seed, cfg,
+                                               captured)
+    batches = _resil_batches(torch, mx, seed, cfg)
+    t0 = time.perf_counter()
+    losses, step_s = [], []
+    for s in range(cfg["steps"]):
+        t1 = time.perf_counter()
+        losses.append(loop.step(*batches(s)).item())   # synchronizes
+        step_s.append(time.perf_counter() - t1)
+    out = {"losses": losses, "digest": _digest(torch, net, trainer),
+           "step_s": step_s, "s": time.perf_counter() - t0}
+    if program is not None:
+        out["paths"] = program.report()["paths"]
+    del net, trainer, program, loop
+    torch.cuda.empty_cache()
+    return out
+
+
+def _attribution_lines(path):
+    with open(path) as f:
+        return [json.loads(x) for x in f]
+
+
+def _shares(recs):
+    keys = sorted({k for r in recs for k in r["shares"]})
+    return {k: round(float(np.mean([r["shares"].get(k, 0.0)
+                                    for r in recs])), 4) for k in keys}
+
+
+def _resil_transient(torch, mx, bert, seed, cfg, tmp, captured, ref):
+    """Parts b and c: one planned transient (``trainer_step@4`` stitched,
+    ``step_capture@4`` captured) under the supervisor, with the obs plane
+    and attribution on."""
+    from mxnet_tpu_torch import obs, telemetry, trace
+    from mxnet_tpu_torch.resilience import inject, supervisor
+
+    name = "captured" if captured else "stitched"
+    root = os.path.join(tmp, "ckpt-" + name)
+    stream = os.path.join(tmp, "attribution-%s.jsonl" % name)
+    os.environ["MXNET_OBS_ATTRIBUTION"] = stream
+    obs.enable()
+    obs.attribution.reset()
+    telemetry.reset()
+    dumps0 = _plane_dumps(mx, "restart")
+    net, trainer, program, loop = _resil_model(mx, bert, seed, cfg,
+                                               captured)
+    sup = supervisor.Supervisor(
+        loop, mx.checkpoint.CheckpointManager(root),
+        checkpoint_every=cfg["every"],
+        backoff=supervisor.Backoff(base=0.0))
+    inject.plan(("step_capture@4:transient" if captured
+                 else "trainer_step@4:transient"))
+    t0 = time.perf_counter()
+    try:
+        losses = sup.run(_resil_batches(torch, mx, seed, cfg), cfg["steps"])
+    finally:
+        inject.clear()
+        obs.disable()
+        os.environ.pop("MXNET_OBS_ATTRIBUTION", None)
+    run_s = time.perf_counter() - t0
+    obs.attribution.reset()
+    digest = _digest(torch, net, trainer)
+    rec = supervisor.recent_restarts()[-1]
+    dumps = sorted(_plane_dumps(mx, "restart") - dumps0)
+    recs = _attribution_lines(stream)
+    out = {"losses": losses, "digest_equal": digest == ref["digest"],
+           "losses_equal": losses == ref["losses"],
+           "restarts": sup.restarts, "restart": rec,
+           "restarts_counted": telemetry.value(
+               "resilience_restarts_total", {"kind": "transient"}),
+           "restart_dumps": len(dumps), "records": len(recs),
+           "record_steps": [r["step"] for r in recs],
+           "shares": _shares(recs), "run_s": run_s}
+    if sup.restarts != 1 or rec["kind"] != "transient" or \
+            rec["restored_step"] != cfg["every"] - 1 or \
+            out["restarts_counted"] != 1 or len(dumps) != 1:
+        fail("resilience %s: restarts %s, record %s, counted %s, dumps %s"
+             % (name, sup.restarts, rec, out["restarts_counted"], dumps))
+    if not out["digest_equal"] or not out["losses_equal"]:
+        fail("resilience %s: the supervised run is not bit-identical to "
+             "the uninterrupted one (losses %s vs %s)"
+             % (name, losses, ref["losses"]))
+    # every step executed, the replays included: 4 before the fault, then
+    # the steps after the restored one
+    executed = 4 + cfg["steps"] - cfg["every"]
+    if len(recs) != executed or any(
+            set(obs.attribution.SCHEMA_KEYS) - set(r) for r in recs):
+        fail("resilience %s: %d attribution records for %d steps executed"
+             % (name, len(recs), executed))
+    if captured:
+        rep = program.report()
+        out["paths"] = rep["paths"]
+        out["fallbacks"] = rep["fallbacks"]
+        if rep["fallbacks"] or rep["paths"]["stitched"]:
+            fail("resilience captured: the fault was replayed stitched: %s"
+                 % rep)
+        flops = [r["flops"] for r in recs]
+        if not all(flops) or any(r["mfu"] is None for r in recs):
+            fail("resilience captured: records without flops or mfu: %s"
+                 % recs[:2])
+        flash = _flash_train_flops(cfg)
+        peak = PEAK_TFLOPS_H100 * 1e12
+        # the reference's pure replays (step 0 runs eagerly, step 1
+        # captures), each timed to its synchronizing loss read
+        wall = float(np.median(ref["step_s"][2:]))
+        out.update({
+            "flops_counted": flops[0],
+            "flash_flops_not_counted": flash,
+            "record_mfu_median": float(np.median(
+                [r["mfu"] for r in recs])),
+            "record_total_s_median": float(np.median(
+                [r["total_s"] for r in recs])),
+            "step_wall_s_median": wall,
+            "mfu_without_flash": flops[0] / wall / peak,
+            "mfu_with_flash": (flops[0] + flash) / wall / peak,
+            "mfu_peak_tflops": PEAK_TFLOPS_H100,
+            "mfu_note": "flops counted by FlopCounterMode over the eager "
+                        "pass, without the flash kernels (ctypes "
+                        "launches); with_flash adds their 12 B H T^2 D a "
+                        "layer.  record_mfu is the records' own: the host "
+                        "time of the call, which for a graph replay is "
+                        "its enqueue; the mfu_* pair divides by the step's "
+                        "time of the reference's graph replays, each to "
+                        "its synchronizing loss read"})
+
+    del net, trainer, program, loop, sup
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _flash_train_flops(cfg, layers=12, heads=12, head_dim=64):
+    """The attention products the flash kernels do in one training step
+    (forward Q K^T and P V, backward dP, dS K, dS^T Q and P^T dO; no
+    recompute counted): 12 B H T^2 D a layer."""
+    return float(layers * 12 * cfg["B"] * heads * cfg["T"] ** 2 * head_dim)
+
+
+def _resil_divergence(torch, mx, bert, seed, cfg, tmp, ref):
+    """Part d: the monitor's skip_step sentinel and a gradient poisoned
+    once at step ``every`` (the step after a save): one divergence dump
+    naming the group, one restore, no nonfinite checkpoint on disk."""
+    from mxnet_tpu_torch import autograd, monitor
+    from mxnet_tpu_torch.resilience import supervisor
+
+    root = os.path.join(tmp, "ckpt-divergence")
+    net, trainer, program, loop = _resil_model(mx, bert, seed, cfg, False)
+    poison_at = cfg["every"]
+    name, param = next(iter(net.collect_params().items()))
+    state = {"armed": True, "steps": []}
+    plain = loop.step
+
+    def step(x, y):
+        state["steps"].append(trainer.step_count)
+        if not (state["armed"] and trainer.step_count == poison_at):
+            return plain(x, y)
+        state["armed"] = False
+        with autograd.record():
+            loss = loop._loss_fn(net(*x), *y)
+        autograd.backward(loss)
+        param.grad.view(-1)[0] = float("nan")
+        trainer.step(x[0].shape[0])
+        return loss.mean()
+
+    loop.step = step
+    os.environ["MXNET_MONITOR_SENTINEL"] = "skip_step"
+    monitor.reset()
+    monitor.enable()
+    dumps0 = _plane_dumps(mx, "divergence")
+    sup = supervisor.Supervisor(
+        loop, mx.checkpoint.CheckpointManager(root),
+        checkpoint_every=cfg["every"], restore_on_divergence=True,
+        backoff=supervisor.Backoff(base=0.0))
+    t0 = time.perf_counter()
+    try:
+        losses = sup.run(_resil_batches(torch, mx, seed, cfg), cfg["steps"])
+    finally:
+        monitor.disable()
+        monitor.shutdown(timeout=60)
+        monitor.reset()
+        os.environ.pop("MXNET_MONITOR_SENTINEL", None)
+    run_s = time.perf_counter() - t0
+    digest = _digest(torch, net, trainer)
+    dumps = sorted(_plane_dumps(mx, "divergence") - dumps0)
+    group = None
+    if len(dumps) == 1:
+        with open(dumps[0]) as f:
+            group = json.load(f)["traceEvents"][0]["args"].get("group")
+    mgr = mx.checkpoint.CheckpointManager(root)
+    saved = mgr.steps()
+    nonfinite = []
+    for s in saved:
+        _, tree = mgr.restore(step=s, ctx=mx.cpu())
+        leaves = [t for v in (tree["params"], tree["states"])
+                  for t in _flat_tensors(list(v.values()))]
+        if not all(bool(torch.isfinite(t).all()) for t in leaves
+                   if isinstance(t, torch.Tensor) and t.is_floating_point()):
+            nonfinite.append(s)
+        del tree, leaves
+    out = {"divergence_restores": sup.divergence_restores,
+           "divergence_dumps": len(dumps), "group": group,
+           "poisoned": name, "steps_run": state["steps"],
+           "saved_steps": saved, "nonfinite_checkpoints": nonfinite,
+           "digest_equal": digest == ref["digest"],
+           "losses_equal": losses == ref["losses"], "run_s": run_s}
+    if len(dumps) != 1 or name not in str(group) or \
+            sup.divergence_restores != 1:
+        fail("resilience divergence: %s" % out)
+    rec = supervisor.recent_restarts()[-1]
+    out["restore"] = rec
+    if rec["kind"] != "divergence" or rec["step"] != poison_at + 1 or \
+            rec["restored_step"] != poison_at - 1:
+        fail("resilience divergence: the restore did not come at the "
+             "boundary after the poisoned step (it reached the supervisor "
+             "after the next save): %s, steps %s" % (rec, state["steps"]))
+    if nonfinite or not out["digest_equal"]:
+        fail("resilience divergence: %s" % out)
+    del net, trainer, loop, sup
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+_RESIL_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+print(json.dumps(chip_smoke._resil_child(sys.argv[2], sys.argv[3],
+                                         int(sys.argv[4]))), flush=True)
+"""
+
+
+def _resil_requests(seed, cfg):
+    rng = np.random.default_rng(seed + 1)
+    lengths = rng.integers(64, cfg["T"] + 1, cfg["n_req"])
+    return [(rng.integers(0, cfg["vocab"], L).astype(np.int32),
+             (np.arange(L) >= L // 2).astype(np.int32)) for L in lengths]
+
+
+def _resil_child(role, root, seed, cfg=RESIL_CFG):
+    """Part e in a process of its own.  ``A``: arms the SIGTERM handler,
+    serves BERT-base to a client thread that keeps submitting, and runs
+    the supervised stitched loop (a line a step) with
+    ``exit_on_preempt=True``; after the preemption exit it reports what
+    was submitted and answered and exits with that code.  ``B``: resumes
+    the loop from ``root`` and finishes the steps."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.resilience import preempt, supervisor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    _reset_flash(fa)
+
+    class Manager(mx.checkpoint.CheckpointManager):
+        """Times the emergency save: its snapshot, commit and wait."""
+        emergency_s = None
+
+        def save_async(self, step, tree):
+            self._t_async = time.perf_counter()
+            return super().save_async(step, tree)
+
+        def wait(self):
+            out = super().wait()
+            if getattr(self, "_t_async", None) is not None:
+                self.emergency_s = time.perf_counter() - self._t_async
+            return out
+
+    net, trainer, _, loop = _resil_model(mx, bert, seed, cfg, False)
+    inner = _resil_batches(torch, mx, seed, cfg)
+
+    def batches(step):
+        print(json.dumps({"child": role, "step": step}), flush=True)
+        return inner(step)
+
+    mgr = Manager(root)
+    out = {"role": role}
+    if role == "B":
+        sup = supervisor.Supervisor(loop, mgr,
+                                    checkpoint_every=cfg["every"])
+        out["resumed_from"] = mgr.latest_step()
+        out["losses"] = sup.run(batches, cfg["steps"])
+        out["digest"] = _digest(torch, net, trainer)
+        out["launches"] = _flash_counts(fa)
+        out["wall_s"] = time.perf_counter() - t_start
+        return out
+
+    if not preempt.install():
+        raise SystemExit("the SIGTERM handler could not be armed")
+    block = bert.bert_12_768_12(vocab_size=cfg["vocab"], max_length=cfg["T"])
+    mx.convert.load_jax_params(block, bert_params(block, seed))
+    srv = mx.serve.Server(block, config=mx.serve.ServeConfig(
+        max_batch_size=8, sample_shapes=[((cfg["T"],), (cfg["T"],))],
+        dtype="int32"))
+    reqs = _resil_requests(seed, cfg)
+    futs, stop = [], threading.Event()
+    counts = {"submitted": 0, "overloaded": 0, "closed": 0}
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            try:
+                futs.append(srv.submit_async(reqs[i % len(reqs)]))
+                counts["submitted"] += 1
+                i += 1
+            except mx.serve.ServerOverloaded:
+                counts["overloaded"] += 1
+                time.sleep(0.005)
+            except mx.serve.ServerClosed:
+                counts["closed"] += 1
+                return
+            time.sleep(0.002)
+
+    th = threading.Thread(target=client, name="resil-client")
+    th.start()
+    sup = supervisor.Supervisor(loop, mgr, checkpoint_every=cfg["every"],
+                                exit_on_preempt=True)
+    code = None
+    try:
+        sup.run(batches, cfg["steps"])
+    except SystemExit as exc:
+        code = exc.code
+    stop.set()
+    th.join(timeout=60)
+    answered = errors = 0
+    for f in futs:
+        try:
+            f.result(timeout=60)
+            answered += 1
+        except Exception:  # noqa: BLE001 - counted, the check is below
+            errors += 1
+    srv.shutdown(timeout=60)
+    out.update({"exit_code": code, "preempted": sup.preempted,
+                "emergency_checkpoint": sup.emergency_checkpoint,
+                "emergency_step": mgr.latest_step(),
+                "emergency_save_s": mgr.emergency_s,
+                "accepted": counts["submitted"], "answered": answered,
+                "dropped": errors, "overloaded": counts["overloaded"],
+                "client_alive": th.is_alive(),
+                "launches": _flash_counts(fa),
+                "wall_s": time.perf_counter() - t_start})
+    print(json.dumps(out), flush=True)
+    sys.stdout.flush()
+    sys.exit(code if code is not None else 1)
+
+
+def _resil_sigterm(torch, mx, seed, cfg, tmp, ref):
+    """Part e: child A is sent a real SIGTERM after its step-1 line; child
+    B resumes from the emergency checkpoint to the uninterrupted digest."""
+    import signal
+
+    from mxnet_tpu_torch.resilience import preempt
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, "ckpt-sigterm")
+    env = dict(os.environ, MXNET_PREEMPT_GRACE_SECONDS="120")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _RESIL_CHILD, here, "A", root, str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    lines, sent = [], None
+    killer = threading.Timer(cfg["child_timeout_s"], proc.kill)
+    killer.start()
+    try:
+        for line in proc.stdout:
+            lines.append(line.strip())
+            if sent is None and '"step": 1}' in line:
+                proc.send_signal(signal.SIGTERM)
+                sent = time.perf_counter()
+        rc = proc.wait(timeout=60)
+        err = proc.stderr.read()
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    a_s = time.perf_counter() - t0
+    try:
+        a = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail("resilience sigterm: child A printed no summary (rc %s): %s"
+             % (rc, err[-3000:]))
+    if sent is None or rc != preempt.exit_code() or \
+            a["exit_code"] != preempt.exit_code():
+        fail("resilience sigterm: child A exited %s after SIGTERM at %s "
+             "(want %d): %s %s" % (rc, sent, preempt.exit_code(), a,
+                                   err[-2000:]))
+    if a["emergency_step"] != 1 or not a["preempted"] or \
+            not a["emergency_checkpoint"] or a["dropped"] or \
+            a["answered"] != a["accepted"] or not a["accepted"] or \
+            a["client_alive"]:
+        fail("resilience sigterm: child A %s" % a)
+    t1 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", _RESIL_CHILD, here, "B", root, str(seed)],
+        capture_output=True, text=True, timeout=cfg["child_timeout_s"],
+        env=env)
+    b_s = time.perf_counter() - t1
+    if out.returncode:
+        fail("resilience sigterm: child B exited %d: %s"
+             % (out.returncode, out.stderr[-3000:]))
+    b = json.loads(out.stdout.strip().splitlines()[-1])
+    if b["resumed_from"] != 1 or b["digest"] != ref["digest"] or \
+            b["losses"] != ref["losses"][2:]:
+        fail("resilience sigterm: child B resumed from %s to another "
+             "digest (losses %s vs %s)" % (b["resumed_from"], b["losses"],
+                                           ref["losses"][2:]))
+    shutil.rmtree(root, ignore_errors=True)
+    return {"child_a": {k: a[k] for k in (
+                "exit_code", "emergency_step", "emergency_save_s",
+                "accepted", "answered", "dropped", "overloaded",
+                "launches", "wall_s")},
+            "child_a_lines": [x for x in lines if '"step"' in x],
+            "child_a_process_s": a_s,
+            "child_b": {k: b[k] for k in ("resumed_from", "losses",
+                                          "launches", "wall_s")},
+            "child_b_process_s": b_s, "digest_equal": True}
+
+
+def _resil_slo(torch, mx, seed, cfg):
+    """Part f: two SLOs on ``serve_request_seconds`` (q=0.99) of an
+    in-process BERT-base server, evaluated once before the requests: a
+    10 ms target (below one forward) pages, a 10 s one stays OK; /statz,
+    /healthz and the telemetry log line show them."""
+    import urllib.request
+
+    from mxnet_tpu_torch import obs, telemetry
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    block = bert.bert_12_768_12(vocab_size=cfg["vocab"], max_length=cfg["T"])
+    mx.convert.load_jax_params(block, bert_params(block, seed))
+    srv = mx.serve.Server(block, config=mx.serve.ServeConfig(
+        max_batch_size=8, sample_shapes=[((cfg["T"],), (cfg["T"],))],
+        dtype="int32"))
+    obs.enable()
+    obs.slo_engine.clear()
+    telemetry.reset()
+    page, ok = "serve_p99_10ms", "serve_p99_10s"
+    try:
+        obs.slo(page, histogram="serve_request_seconds", q=0.99,
+                target=cfg["page_target_s"])
+        obs.slo(ok, histogram="serve_request_seconds", q=0.99,
+                target=cfg["ok_target_s"])
+        obs.slo_engine.evaluate()          # the baseline sample
+        reqs = _resil_requests(seed, cfg)
+        with ThreadPoolExecutor(max_workers=len(reqs)) as pool:
+            outs = list(pool.map(srv.submit, reqs))
+        if not all(np.isfinite(o).all() for out in outs for o in out):
+            fail("resilience slo: nonfinite answers")
+        host, port = srv.start_http()
+
+        def get(path):
+            try:
+                with urllib.request.urlopen(
+                        "http://%s:%d%s" % (host, port, path),
+                        timeout=60) as r:
+                    return r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        code_h, health = get("/healthz")
+        code_s, statz = get("/statz")
+        line = telemetry.log_line()
+        p99 = telemetry.histogram_quantiles("serve_request_seconds",
+                                            (0.5, 0.99))
+    finally:
+        srv.shutdown(timeout=60)
+        obs.slo_engine.clear()
+        obs.disable()
+    slo = statz.get("slo") or {}
+    out = {"healthz": [code_h, health.get("status"), health.get("slo")],
+           "statz_slo": slo, "obs_slo_state_in_log_line":
+               "obs_slo_state=2" in line,
+           "request_p50_s": p99.get(0.5), "request_p99_s": p99.get(0.99),
+           "requests": len(outs)}
+    if code_h != 200 or health.get("status") != "degraded" or \
+            health.get("slo") != {page: "PAGE", ok: "OK"} or \
+            slo.get(page, {}).get("state") != "PAGE" or \
+            slo.get(ok, {}).get("state") != "OK" or \
+            not out["obs_slo_state_in_log_line"]:
+        fail("resilience slo: %s" % out)
+    del srv, block
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resil_deadlines(torch, mx, cfg):
+    """Part g: a collective deadline around a wait that never returns, and
+    the device health probe, healthy and blocked."""
+    from mxnet_tpu_torch import dist, resilience, telemetry
+
+    release = threading.Event()
+    dumps0 = _plane_dumps(mx, "dist_timeout")
+    n0 = telemetry.value("dist_collective_timeouts_total",
+                         {"site": "resilience_drill"})
+    t0 = time.perf_counter()
+    try:
+        dist.run_with_deadline(lambda: release.wait(600),
+                               site="resilience_drill",
+                               timeout=cfg["deadline_s"])
+        fail("resilience deadline: run_with_deadline returned")
+    except dist.DistTimeout as exc:
+        late = time.perf_counter() - t0
+        kind = mx.resilience.classify(exc)
+    finally:
+        release.set()
+    dumps = sorted(_plane_dumps(mx, "dist_timeout") - dumps0)
+    counted = telemetry.value("dist_collective_timeouts_total",
+                              {"site": "resilience_drill"}) - n0
+    t1 = time.perf_counter()
+    health = resilience.health_check(timeout=cfg["health_s"])
+    health_s = time.perf_counter() - t1
+    block = threading.Event()
+    t2 = time.perf_counter()
+    try:
+        hung = resilience.health_check(timeout=cfg["deadline_s"],
+                                       probe=lambda d: block.wait(600))
+    finally:
+        block.set()
+    hung_s = time.perf_counter() - t2
+    out = {"timeout_after_s": late, "classified": kind,
+           "dist_timeout_dumps": len(dumps), "counted": counted,
+           "health": health, "health_s": health_s, "hung": hung,
+           "hung_s": hung_s}
+    if not 1.0 <= late <= 3.0 or kind != "transient" or len(dumps) != 1 \
+            or counted != 1 or health != {"cuda:0": "ok"} or \
+            not all(v.startswith("error: timeout") for v in hung.values()) \
+            or hung_s > cfg["deadline_s"] + 2.0:
+        fail("resilience deadlines: %s" % out)
+    return out
+
+
+def phase_resilience(torch, mx, fa, seed, smi, cfg=RESIL_CFG):
+    """Fault handling and the SLO engine around BERT-base (the ``train``
+    and ``serve`` recipes): (a) the uninterrupted stitched and captured
+    references, (b) a stitched transient, (c) a captured one, (d) a
+    divergence restore, (e) a real SIGTERM across two processes, (f) two
+    SLOs on a server, (g) a collective deadline and the health probe.
+    Every file goes under ``$TMPDIR``."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mx-resilience-")
+    os.environ["MXNET_TRACE_DUMP_DIR"] = os.path.join(tmp, "dumps")
+    os.environ["MXNET_TRACE_DUMP_MIN_SECONDS"] = "0"
+    _reset_flash(fa)
+    try:
+        t0 = time.perf_counter()
+        ref_s = _resil_reference(torch, mx, bert, seed, cfg, False)
+        ref_c = _resil_reference(torch, mx, bert, seed, cfg, True)
+        emit({"phase": "resilience", "part": "reference",
+              "stitched": ref_s, "captured": ref_c,
+              "s": time.perf_counter() - t0, "card": smi})
+        for name, captured, ref in (("stitched", False, ref_s),
+                                    ("captured", True, ref_c)):
+            t0 = time.perf_counter()
+            res = _resil_transient(torch, mx, bert, seed, cfg, tmp,
+                                   captured, ref)
+            emit({"phase": "resilience", "part": "transient_" + name,
+                  **res, "s": time.perf_counter() - t0, "card": smi})
+        t0 = time.perf_counter()
+        res = _resil_divergence(torch, mx, bert, seed, cfg, tmp, ref_s)
+        emit({"phase": "resilience", "part": "divergence", **res,
+              "s": time.perf_counter() - t0, "card": smi})
+        launches = _flash_counts(fa)
+        t0 = time.perf_counter()
+        sig = _resil_sigterm(torch, mx, seed, cfg, tmp, ref_s)
+        emit({"phase": "resilience", "part": "sigterm", **sig,
+              "s": time.perf_counter() - t0, "card": smi})
+        _reset_flash(fa)
+        t0 = time.perf_counter()
+        res = _resil_slo(torch, mx, seed, cfg)
+        emit({"phase": "resilience", "part": "slo", **res,
+              "s": time.perf_counter() - t0, "card": smi})
+        res = _resil_deadlines(torch, mx, cfg)
+        emit({"phase": "resilience", "part": "deadlines", **res,
+              "phase_s": time.perf_counter() - t_phase, "card": smi})
+    finally:
+        os.environ.pop("MXNET_TRACE_DUMP_MIN_SECONDS", None)
+        os.environ.pop("MXNET_TRACE_DUMP_DIR", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the in-process drills (first runs and replays), the children's own
+    # counts and the SLO part's served forwards
+    served = _flash_counts(fa)
+    total = {n: launches[n] + sig["child_a"]["launches"][n]
+             + sig["child_b"]["launches"][n] + served[n] for n in launches}
+    if not all(total.values()):
+        fail("resilience: a flash kernel never launched: %s" % total)
+    return total
+
+
 _TRAP_PROBE = r"""
 import json, sys
 sys.path.insert(0, sys.argv[1])
@@ -6592,6 +7341,7 @@ def main():
     # the planes' profile must hold kernels: before checkpoint_resume and
     # decode, after which torch's profiler records none in this process
     planes_launches = run_phase(phase_ops_planes, *common)
+    resil_launches = run_phase(phase_resilience, *common)
     bf16_launches = run_phase(phase_train_bf16, *common)
     resnet_launches = run_phase(phase_train_resnet, *common)
     captured_launches = run_phase(phase_train_captured, *common)
@@ -6628,7 +7378,8 @@ def main():
                     + captured_launches["flash_attention"]
                     + nd_fwd["float32"] + ck_f32["flash_attention"]
                     + np_launches["flash_attention"]
-                    + planes_launches["flash_attention"],
+                    + planes_launches["flash_attention"]
+                    + resil_launches["flash_attention"],
                     "bfloat16": bf16_launches["flash_attention"]
                     + nd_fwd["bfloat16"]
                     + gpt_launches["flash_attention"]
@@ -6660,14 +7411,15 @@ def main():
         + ck_bf16["flash_attention"],
         "np_front": np_launches["flash_attention"],
         "nd_tail": tail_launches["flash_attention"],
-        "ops_planes": planes_launches["flash_attention"]}
+        "ops_planes": planes_launches["flash_attention"],
+        "resilience": resil_launches["flash_attention"]}
     for kname, short, outs in (("flash_bwd_dq", "dq", ("dq",)),
                                ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
         nd_k = nd_launches[kname]
         launches = {"float32": train_launches[kname]
                     + captured_launches[kname] + nd_k["float32"]
                     + ck_f32[kname] + np_launches[kname]
-                    + planes_launches[kname],
+                    + planes_launches[kname] + resil_launches[kname],
                     "bfloat16": bf16_launches[kname] + nd_k["bfloat16"]
                     + gpt_launches[kname] + ck_bf16[kname],
                     "float16": amp_launches[kname]}
@@ -6696,7 +7448,8 @@ def main():
             "checkpoint_resume": ck_f32[kname] + ck_bf16[kname],
             "np_front": np_launches[kname],
             "nd_tail": tail_launches[kname],
-            "ops_planes": planes_launches[kname]}
+            "ops_planes": planes_launches[kname],
+            "resilience": resil_launches[kname]}
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -44,6 +44,10 @@ from .util import is_np_array, reset_np, set_np, use_np  # noqa: F401
 from .ndarray import NDArray, waitall  # noqa: F401
 from .optimizer import lr_scheduler  # noqa: F401  (mx.lr_scheduler)
 from . import config, metric  # noqa: F401  (mx.config, mx.metric)
+from . import dist  # noqa: F401  (collective deadlines)
+from . import obs  # noqa: F401  (SLOs, step attribution, publishing)
+from . import elastic  # noqa: F401  (failure detection + auto-resume)
+
 from .base import MXNetError, get_env  # noqa: F401
 from .context import (Context, cpu, cpu_pinned,  # noqa: F401
                       current_context, gpu, num_gpus)

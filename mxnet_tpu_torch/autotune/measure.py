@@ -13,8 +13,14 @@ candidate to the guards
   rejected, not ranked slower);
 
 and commits the surviving winner to the ``TuningStore``.  A bench's
-``run()`` ends in a synchronize on the card, so the timings are the
-work's.  The cost model may prune the grid first
+``run()`` ends in a synchronize on the card.  A bench on the card carries
+the device time of its last run (``run.device_ms``, two CUDA events on
+its stream), and candidates are ranked by the trimmed mean of those: a
+run of a few sub-millisecond launches is bound by the host, whose clock
+would rank the launch overhead.  A CPU bench, and the serving idle
+tuners (whole batches of several ms), keep the host clock.  Every stored
+record says which clock it holds (``"clock": "cuda_events"`` or
+``"host"``).  The cost model may prune the grid first
 (``MXNET_AUTOTUNE_PRUNE``); a cold model measures everything.  Every
 failure gives the hand-set default with a counted
 ``autotune_fallback_total{reason}``.
@@ -67,6 +73,7 @@ class TuneResult:
         self.pruned = 0
         self.budget_exhausted = False
         self.committed = False
+        self.clock = None          # "cuda_events" or "host"
 
     @property
     def improved(self):
@@ -84,6 +91,7 @@ class TuneResult:
             "candidates": list(self.candidates),
             "pruned": self.pruned,
             "budget_exhausted": self.budget_exhausted,
+            "clock": self.clock,
         }
 
     def as_dict(self):
@@ -142,11 +150,14 @@ def _bit_identical(a_list, b_list):
     return True
 
 
-def measure_candidate(site, key, config, repeats=None, warmup=None):
+def measure_candidate(site, key, config, repeats=None, warmup=None,
+                      audit=None):
     """``(host outputs, ms)`` for one config: build the bench, take the
     first run's outputs (kernel build and first-call costs excluded from
-    the timing), discard ``warmup`` runs, trimmed-mean the rest.  Raises
-    whatever the bench raises: ``tune`` classifies."""
+    the timing), discard ``warmup`` runs, trimmed-mean the rest.  A bench
+    that carries ``device_ms`` after each run (the card's CUDA events) is
+    timed by it, else by the host clock; ``audit['clock']`` says which.
+    Raises whatever the bench raises: ``tune`` classifies."""
     repeats = _repeats() if repeats is None else int(repeats)
     warmup = _warmup() if warmup is None else int(warmup)
     fn = site.make_bench(key, config)
@@ -155,14 +166,20 @@ def measure_candidate(site, key, config, repeats=None, warmup=None):
         outs = _host(fn())  # first call: build + correctness sample
         for _ in range(max(0, warmup)):
             fn()
-        samples = []
+        host, device = [], []
         for _ in range(max(1, repeats)):
             t0 = _time.perf_counter()
             fn()
-            samples.append((_time.perf_counter() - t0) * 1000.0)
+            host.append((_time.perf_counter() - t0) * 1000.0)
+            dms = getattr(fn, "device_ms", None)
+            if dms is not None:
+                device.append(float(dms))
     if _tel.ENABLED:
         _tel.AUTOTUNE_MEASURE.labels(site=site.name).inc()
-    return outs, _trimmed_mean(samples)
+    clock = "cuda_events" if len(device) == len(host) else "host"
+    if audit is not None:
+        audit["clock"] = clock
+    return outs, _trimmed_mean(device if clock == "cuda_events" else host)
 
 
 def _reject(site_name, reason):
@@ -194,9 +211,10 @@ def tune(site, key, budget_ms=None, repeats=None, warmup=None,
     res.default_config = sp.default_config(key)
     t_start = _time.perf_counter()
 
+    audit = {}
     try:
         ref_outs, res.default_ms = measure_candidate(
-            sp, key, res.default_config, repeats, warmup)
+            sp, key, res.default_config, repeats, warmup, audit=audit)
     except Exception as exc:
         # the DEFAULT config failed to run: nothing to tune against —
         # degrade without touching the store
@@ -204,6 +222,7 @@ def tune(site, key, budget_ms=None, repeats=None, warmup=None,
         raise MXNetError(
             "autotune %s: default config %r failed to measure: %r"
             % (sp.name, res.default_config, exc)) from exc
+    res.clock = audit["clock"]
     if _nonfinite(ref_outs):
         fallback("nonfinite_reference")
         raise MXNetError(
@@ -218,7 +237,7 @@ def tune(site, key, budget_ms=None, repeats=None, warmup=None,
 
         st = store if store is not None else _resolve_store()
         if st is not None:
-            kept = CostModel(st).prune(sp, key, cands,
+            kept = CostModel(st, clock=res.clock).prune(sp, key, cands,
                                        keep=max(1, _prune_k()))
             res.pruned = len(cands) - len(kept)
             cands = kept
@@ -231,7 +250,8 @@ def tune(site, key, budget_ms=None, repeats=None, warmup=None,
                 {"config": cfg, "status": "skipped", "ms": None})
             continue
         try:
-            outs, ms = measure_candidate(sp, key, cfg, repeats, warmup)
+            outs, ms = measure_candidate(sp, key, cfg, repeats, warmup,
+                                         audit=audit)
         except Exception:
             _reject(sp.name, "error")
             res.candidates.append(
@@ -253,7 +273,8 @@ def tune(site, key, budget_ms=None, repeats=None, warmup=None,
             res.candidates.append(
                 {"config": cfg, "status": "rejected_numerics", "ms": ms})
             continue
-        res.candidates.append({"config": cfg, "status": "ok", "ms": ms})
+        res.candidates.append({"config": cfg, "status": "ok", "ms": ms,
+                               "clock": audit["clock"]})
         if ms < best_ms:
             best_cfg, best_ms = cfg, ms
 

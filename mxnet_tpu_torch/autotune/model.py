@@ -16,7 +16,10 @@ is as fresh as the store:
   prune (a cold model means measuring everything).
 
 The model only orders measurement: a candidate it keeps must still pass
-the measure harness's bitwise guard to win.
+the measure harness's bitwise guard to win.  A record's ``clock``
+(``cuda_events`` or ``host``; a record without one is ``host``) keeps
+the two clocks apart: the model reads the rows of one clock, the
+``clock`` it is built with (default ``host``).
 """
 from __future__ import annotations
 
@@ -37,8 +40,9 @@ def _cfg_key(config):
 class CostModel:
     """Nearest-neighbor table model over a ``TuningStore``'s records."""
 
-    def __init__(self, store):
+    def __init__(self, store, clock=None):
         self._store = store
+        self.clock = clock or "host"
         self._table = None  # site -> [(log_feats, {cfg_key: ms})]
 
     def _load(self):
@@ -53,7 +57,8 @@ class CostModel:
             except Exception:
                 continue
             key = rec.get("key")
-            if not isinstance(key, (list, tuple)):
+            if not isinstance(key, (list, tuple)) or \
+                    (rec.get("clock") or "host") != self.clock:
                 continue
             try:
                 feats = _log_features(sp.features(tuple(key)))

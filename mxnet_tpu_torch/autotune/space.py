@@ -41,6 +41,8 @@ the JAX package's.
 """
 from __future__ import annotations
 
+import time
+
 __all__ = ["TuningSite", "register_site", "get_site", "sites"]
 
 _REGISTRY = {}
@@ -154,12 +156,22 @@ class _FlashAttention(TuningSite):
     the block's height, so the row candidates are expected to pass the
     bitwise guard; another key tile would change the online softmax's
     partition, so none is compiled.  Dropout pins the default.  A bench
-    run is ``LAUNCHES`` launches and one synchronize: a lone launch of a
-    sub-millisecond kernel would time the host's launch and sync."""
+    run is ``LAUNCHES`` launches and one synchronize; on the card it
+    records a CUDA event on the current stream before and after the
+    launches and carries the time between them (``run.device_ms``), by
+    which ``measure.tune`` ranks the tiles.  A ``torch.cuda._sleep``
+    enqueued ahead of the first event holds the card while the host
+    enqueues the launches, so the events time them back to back: a
+    kernel of 0.06-0.09 ms launches faster on the card than the host
+    issues it, and the host's clock, or events with the host's gaps
+    between them, ranked the tiles by the launch overhead."""
 
     name = "flash_attention"
     doc = "flash forward kernel (block_q, block_k) tile"
     LAUNCHES = 10
+    # above the H100's 1.98 GHz boost clock, so a sleep of this many
+    # cycles a second lasts at least as long as asked
+    SLEEP_CYCLES_PER_S = 2.0e9
 
     def default_config(self, key):
         from ..ops import flash_attention as fa
@@ -192,15 +204,34 @@ class _FlashAttention(TuningSite):
         k = _seeded((b, h, tk, d), dtype, 2, dev)
         v = _seeded((b, h, tk, d), dtype, 3, dev)
         bq, bk = int(config[0]), int(config[1])
+        # the sleep ahead of the launches: twice the host's last enqueue
+        hold_ms = [2.0]
 
         def run():
+            cuda = dev.type == "cuda"
+            if cuda:
+                stream = torch.cuda.current_stream(dev)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                with torch.cuda.device(dev):
+                    torch.cuda._sleep(int(hold_ms[0] * 1e-3
+                                          * self.SLEEP_CYCLES_PER_S))
+                start.record(stream)
+            t0 = time.perf_counter()
             with torch.no_grad():
                 for _ in range(self.LAUNCHES):
                     out = fa.flash_attention(q, k, v, bool(causal),
                                              block_q=bq, block_k=bk)
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            if cuda:
+                end.record(stream)
             _sync(dev)
+            if cuda:
+                run.device_ms = start.elapsed_time(end)
+                hold_ms[0] = max(hold_ms[0], 2.0 * enqueue_ms + 1.0)
             return [out]
 
+        run.device_ms = None
         return run
 
 

@@ -222,6 +222,74 @@ ENV_VARS = {
         float, 0.0,
         "Seconds between periodic 'telemetry k=v ...' log lines "
         "(telemetry.start_logger; 0 disables)."),
+    # fault handling: preemption, the restart supervisor, the collective
+    # deadline; and the obs plane
+    "MXNET_PREEMPT_INSTALL": (
+        bool, False,
+        "Arm the SIGTERM preemption handler at import: the supervisor "
+        "stops at the next step boundary, flushes an emergency "
+        "checkpoint, drains serve and the loaders, and exits with "
+        "MXNET_PREEMPT_EXIT_CODE (resilience/preempt.py)."),
+    "MXNET_PREEMPT_GRACE_SECONDS": (
+        float, 30.0,
+        "Grace budget after SIGTERM: shutdown hooks are skipped (the "
+        "emergency checkpoint is not) once it is exhausted; a second "
+        "SIGTERM exits immediately."),
+    "MXNET_PREEMPT_EXIT_CODE": (
+        int, 85,
+        "Exit status of a clean preemption shutdown, distinct from "
+        "crash codes so the scheduler knows to resume the job."),
+    "MXNET_RESTART_BUDGET": (
+        int, 3,
+        "Supervisor restart budget: max transient-failure restarts "
+        "within MXNET_RESTART_WINDOW_STEPS (resilience/supervisor.py)."),
+    "MXNET_RESTART_WINDOW_STEPS": (
+        int, 0,
+        "Sliding step window the restart budget applies over (0 = the "
+        "whole run, the old FaultTolerantRunner semantics)."),
+    "MXNET_RESTART_BACKOFF_BASE": (
+        float, 1.0,
+        "First-restart backoff delay in seconds (doubles per restart, "
+        "jittered, capped at MXNET_RESTART_BACKOFF_MAX)."),
+    "MXNET_RESTART_BACKOFF_MAX": (
+        float, 60.0,
+        "Backoff delay ceiling between supervisor restarts."),
+    "MXNET_HEALTH_TIMEOUT": (
+        float, 60.0,
+        "Wall-clock bound on the post-failure device health probe (2 x 2 "
+        "on each CUDA device, read back); a hung probe reports 'error: "
+        "timeout' instead of blocking the supervisor."),
+    "MXNET_DIST_COLLECTIVE_TIMEOUT": (
+        float, 0.0,
+        "Deadline (seconds) of dist.run_with_deadline: a collective past "
+        "it raises a transient-classified DistTimeout into the "
+        "supervisor instead of hanging this rank (dist/timeouts.py; 0 = "
+        "no deadline)."),
+    "MXNET_OBS": (
+        bool, False,
+        "Arm mx.obs: the step cadence (obs_step_seconds), per-step "
+        "attribution, SLO gauges and payload publishing (obs/).  Off = "
+        "one flag check per hook."),
+    "MXNET_OBS_PUBLISH_SECONDS": (
+        float, 5.0,
+        "Minimum interval between obs payload publishes into the "
+        "membership KV (obs/core.py)."),
+    "MXNET_OBS_SLO_FAST_SECONDS": (
+        float, 300.0,
+        "Fast burn-rate window of SLO evaluation (PAGE/WARN need both "
+        "windows over threshold; obs/slo_engine.py)."),
+    "MXNET_OBS_SLO_SLOW_SECONDS": (
+        float, 3600.0,
+        "Slow burn-rate window of SLO evaluation."),
+    "MXNET_OBS_ATTRIBUTION": (
+        str, None,
+        "Append one JSON line of per-step time attribution (phase "
+        "shares, data wait, MFU estimate) to this path."),
+    "MXNET_OBS_PEAK_TFLOPS": (
+        float, None,
+        "Per-card peak TFLOP/s of the attribution MFU, overriding the "
+        "table of NVIDIA cards (obs/attribution.py; an unknown card "
+        "reports mfu null)."),
 }
 
 

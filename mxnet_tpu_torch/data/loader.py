@@ -19,9 +19,10 @@ autotune site (a structural site: they change overlap, never the sample
 stream) when autotune is on, else from ``MXNET_DATA_PREFETCH`` and
 ``MXNET_DATA_WORKERS`` (2 and 2 by default).
 
-Not ported: a ``mesh`` (sharded placement, ``ROADMAP.md`` Queue 1 item 7)
-raises; the preemption drain hook (``resilience.preempt``) is not
-installed.
+A preemption (``resilience.preempt.graceful_shutdown``) quiesces the
+loader's reader and stager threads through a drain hook held weakly; the
+cursor survives.  Not ported: a ``mesh`` (sharded placement,
+``ROADMAP.md`` Queue 1 item 7) raises.
 """
 from __future__ import annotations
 
@@ -151,8 +152,27 @@ class StreamLoader:
         self._worker_records = {}
         self._order_cache = None    # (epoch, order) — one shuffle/epoch
         self.last_ids = None
+        self._preempt_hook = "data_loader-%d" % id(self)
+        self._install_preempt_hook()
         with _LIVE_LOCK:
             _LIVE.add(self)
+
+    # -- resilience ------------------------------------------------------------
+    def _install_preempt_hook(self):
+        """SIGTERM mid-epoch must not leak reader/stager threads: the
+        loader quiesces under ``resilience.preempt.graceful_shutdown``
+        as ``serve.Server`` drains.  Held weakly: the hook must not keep
+        a dropped loader alive."""
+        from ..resilience import preempt as _preempt
+
+        ref = weakref.ref(self)
+
+        def _drain():
+            ldr = ref()
+            if ldr is not None:
+                ldr.close()
+
+        _preempt.add_shutdown_hook(self._preempt_hook, _drain)
 
     # -- lifecycle ------------------------------------------------------------
     def _probe_sample_bytes(self):
@@ -183,10 +203,13 @@ class StreamLoader:
         loader can be state_dict'ed and resumed)."""
         with self._lock:
             self._teardown()
+        from ..resilience import preempt as _preempt
+
+        _preempt.remove_shutdown_hook(self._preempt_hook)
 
     def __del__(self):
         try:
-            self.close()
+            self.close()   # threads and the preempt hook: no leaks
         except Exception:
             pass
 

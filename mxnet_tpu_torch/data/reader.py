@@ -17,8 +17,9 @@ The :class:`ReaderPool` runs ``num_workers`` threads; batch ``b`` is built
 by worker ``b % W`` (each with its own file handles), completions reorder
 by batch index, and read-ahead is bounded by what the prefetch ring
 downstream holds.  A read that fails with ``OSError`` reopens its handles
-and retries with backoff (the JAX package's ``MXNET_FAULTS`` injection
-site is not ported).
+and retries with backoff; the ``data_read`` fault site (``mx.resilience``)
+fires inside that loop, keyed by batch index, so an ``io`` fault is
+retried like a real storage hiccup.
 """
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ import numpy as _np
 from .. import telemetry as _tel
 from .. import trace as _trace
 from ..base import MXNetError, get_env
+from ..resilience import inject as _inject
+
 
 __all__ = ["ShardSet", "ReaderPool", "default_decode", "world_coords",
            "read_record_at"]
@@ -314,7 +317,8 @@ class ReaderPool:
 
     def _build_batch(self, handles, b):
         """Read, decode and batchify batch ``b``, with the bounded IO
-        retry loop around the read phase."""
+        retry loop around the read phase (the ``data_read`` fault site
+        fires there, keyed by batch index)."""
         entries = self._batch_entries(b)
         ids = _np.asarray([self._set.global_id(si, pos)
                            for si, pos in entries], dtype=_np.int64)
@@ -322,9 +326,11 @@ class ReaderPool:
         for attempt in range(_READ_RETRIES):
             t0 = _time.perf_counter()
             try:
+                _inject.fire("data_read", seq=b)
                 raws = [self._read_one(handles, si, pos)
                         for si, pos in entries]
                 break
+
             except OSError:
                 # a storage hiccup: reopen the handles and retry with
                 # backoff

@@ -23,8 +23,8 @@ to the card in one copy.
   package does, and ``route`` says so.
 
 ``route`` is ``'inline'``, ``'threads'`` or ``'processes'``: the path the
-last ``iter()`` took.  The preemption drain hook of the JAX package
-(``resilience.preempt``) is not ported.
+last ``iter()`` took.  A process iterator registers a preemption drain
+hook (``resilience.preempt``), held weakly, that shuts its workers down.
 """
 from __future__ import annotations
 
@@ -217,6 +217,22 @@ class _MultiWorkerIter:
         self._sent = 0
         self._rcvd = 0
         self._reorder = {}
+        # SIGTERM mid-epoch (resilience.preempt) must not leak worker
+        # processes: a drain hook as serve.Server's, held weakly so that
+        # it does not keep a finished iterator (and its workers) alive
+        import weakref
+
+        from ...resilience import preempt as _preempt
+
+        self._hook_name = "gluon_dataloader-%d" % id(self)
+        ref = weakref.ref(self)
+
+        def _drain():
+            it = ref()
+            if it is not None:
+                it.shutdown()
+
+        _preempt.add_shutdown_hook(self._hook_name, _drain)
         for _ in range(prefetch):
             self._issue()
 
@@ -276,7 +292,13 @@ class _MultiWorkerIter:
         if self._shutdown:
             return
         self._shutdown = True
+        if getattr(self, "_hook_name", None) is not None:
+            from ...resilience import preempt as _preempt
+
+            _preempt.remove_shutdown_hook(self._hook_name)
+            self._hook_name = None
         try:
+
             # release segments of batches already reordered but unconsumed
             for payload, _err in self._reorder.values():
                 if payload is not None:

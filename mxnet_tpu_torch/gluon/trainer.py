@@ -32,12 +32,14 @@ distributed kvstores and ``update_on_kvstore``.
 from __future__ import annotations
 
 import pickle
+import time as _time
 import weakref
 
 import torch
 
 from .. import optimizer as opt_mod
 from .. import trace
+from ..resilience import inject as _inject
 from ..base import MXNetError
 from ..checkpoint import cached_manager
 from ..optimizer import multi_tensor as _mt
@@ -142,13 +144,25 @@ class Trainer:
                     self._optimizer.create_state_multi_precision(i, param)
 
     def step(self, batch_size, ignore_stale_grad=False):
-        """allreduce_grads + update, gradients scaled by 1/batch_size."""
+        """allreduce_grads + update, gradients scaled by 1/batch_size.
+
+        The ``trainer_step`` fault site fires first, keyed by the step
+        count, before anything changes (a faulted step is cleanly
+        retryable from the last checkpoint); with ``mx.obs`` on the
+        step's host time feeds the cadence (``obs.core.note_step``)."""
+        from .. import obs as _obs
+
         self._optimizer.rescale_grad = self._scale / batch_size
+        t0 = _time.perf_counter() if _obs.core.ENABLED else 0.0
         with trace.span("trainer_step", hist=False, anomaly=True,
                         args={"step": self._step_count}), \
                 trace.watchdog.watch("trainer_step"):
+            _inject.fire("trainer_step", seq=self._step_count)
             self.allreduce_grads()
             self._update(ignore_stale_grad)
+        if _obs.core.ENABLED:
+            # the captured path notes its own steps
+            _obs.core.note_step(_time.perf_counter() - t0)
 
     def allreduce_grads(self):
         """Reduce gradients across devices: one device has nothing to

@@ -39,10 +39,9 @@ either package.  A parameter held under several names is trained once,
 under its first name.
 
 Not ported (they raise): ``mesh=`` and ``zero=`` (multi-device training),
-``PipelineTrainer`` and ``moe_apply``.  The JAX package's fault-injection
-site in ``step`` waits with the rest of ``resilience`` (``ROADMAP.md``
-Queue 1 item 8, part 2).
+``PipelineTrainer`` and ``moe_apply``.
 """
+
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -178,7 +177,13 @@ class FusedTrainer:
         """One training step: forward, loss, gradients (over
         ``grad_accum`` microbatches) and the update.  ``x``/``y`` may each
         be one tensor (or NDArray, or array) or a tuple; every leading dim
-        is the batch.  Returns the loss, a 0-d tensor."""
+        is the batch.  Returns the loss, a 0-d tensor.  The
+        ``trainer_step`` fault site fires first, before anything is
+        launched, so a faulted step leaves the weights and the optimizer
+        state untouched and a restore-and-replay is exact."""
+        from ..resilience import inject as _inject
+
+        _inject.fire("trainer_step", seq=self._step_count)
         device = self._device()
         NDArray = _registry.NDArray
 
@@ -285,14 +290,16 @@ class FusedTrainer:
                 if not isinstance(v, torch.Tensor) else v
 
         names = set(self._named)
+        # a stateless rule (sgd without momentum) keeps no state a name
+        by_name = self._state_by_name()
         extra = sorted(set(state["params"]) - names)
-        missing = sorted(set(self._trainable) - set(state["opt_state"]))
+        missing = sorted(set(by_name) - set(state["opt_state"]))
         if extra or missing:
             raise MXNetError(
                 "FusedTrainer state does not fit this block: unknown "
                 "parameters %s, no optimizer state for %s" % (extra,
                                                               missing))
-        by_name = self._state_by_name()
+
         with torch.no_grad():
             for n, v in state["params"].items():
                 self._named[n].copy_(value(v))

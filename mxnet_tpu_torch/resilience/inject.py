@@ -24,16 +24,20 @@ Kinds: ``transient`` (default, ``InjectedFault``), ``io``
 ``fatal`` (``InjectedFault`` of kind ``fatal``) and ``abort``
 (``os._exit``: cleanup handlers never run, as on a preempted node).
 
-The sites wired in the port: the checkpoint writer's
+The sites wired in the port: ``trainer_step`` (``gluon.Trainer.step`` and
+``parallel.FusedTrainer.step``, keyed by the trainer's step count, before
+anything changes), ``step_capture`` (a captured step's build, and its
+dispatch before the graph replays), the checkpoint writer's
 ``checkpoint_commit`` (each commit attempt) and ``checkpoint_marker``
-(just before the ``COMMITTED`` marker lands); the serving planes'
-``serve_dispatch`` (each micro-batch dispatch and decode iteration),
-``serve_poison`` (request ids, read through ``poisoned``), ``serve_cache``
-(a prefix-cache admission, keyed by request id) and ``spec_verify`` (a
-speculative sequence's verify, keyed by request id).  The other sites of
-``SITES`` (trainer step, collectives, compile cache, data reads) are
-accepted by the grammar and wait for their modules (``ROADMAP.md`` Queue
-1 item 8, part 2).  Without an explicit ``*count`` an entry fires once, but a
+(just before the ``COMMITTED`` marker lands), the streaming reader's
+``data_read`` (keyed by batch index, inside its retry loop), and the
+serving planes' ``serve_dispatch`` (each micro-batch dispatch and decode
+iteration), ``serve_poison`` (request ids, read through ``poisoned``),
+``serve_cache`` (a prefix-cache admission, keyed by request id) and
+``spec_verify`` (a speculative sequence's verify, keyed by request id).
+``collective`` and ``compile_commit`` wait for their modules (the
+kvstore, ``ROADMAP.md`` Queue 1 item 7; the compile cache, item 3).
+Without an explicit ``*count`` an entry fires once, but a
 ``serve_poison`` entry stays live: a poisoned request stays poisoned
 through every retry of its batch.
 

@@ -17,8 +17,14 @@ Counterpart of ``mxnet_tpu/serve/server.py``: thread-safe ``submit()`` /
   following the ``serve/decode.py`` contract, built with
   ``decode_config``): ``submit_decode()`` futures over the paged-KV
   continuous-batching loop;
+- **preemption drain**: ``resilience.preempt.graceful_shutdown`` drains
+  the server (a hook held weakly, removed at shutdown), so a SIGTERM'd
+  process answers what it accepted before it exits;
+- **SLOs**: with objectives registered through ``mx.obs.slo``,
+  ``stats()["slo"]`` holds each one's evaluated state and burn rates;
 - **HTTP endpoint** (``start_http``, stdlib ``http.server``, threading):
-  ``GET /healthz`` (process up; open breakers make it "degraded"),
+  ``GET /healthz`` (process up; open breakers, or an SLO past OK, make it
+  "degraded", with the objectives' states under ``slo``),
   ``/readyz`` (every plane warmed -> 200, else 503), ``/metrics``
   (Prometheus text), ``/statz`` (JSON); ``POST /predict`` (``inputs`` to
   the micro-batch plane, ``tokens`` to the decode plane, collected or,
@@ -28,8 +34,7 @@ Counterpart of ``mxnet_tpu/serve/server.py``: thread-safe ``submit()`` /
 
 Not ported yet (each is queued in ``ROADMAP.md``): tenancy (``tenant=``,
 item 9), fleet registration, ``load_digest``, ``/fleetz`` and the handoff
-routes (item 9), the SLO block of ``/healthz`` and ``/statz`` and the
-preemption drain hook (item 8, part 2).
+routes (item 9).
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ import numpy as _np
 from .. import telemetry, trace
 from ..base import get_env
 from ..gluon.block import Block
+from ..resilience import preempt as _preempt
 from .batching import (BatchQueue, BucketQuarantined, NoBucketError,
                        Request, RequestTimeout, Scheduler, ServeError,
                        ServerClosed, ServerOverloaded)
@@ -211,6 +217,21 @@ class Server:
         self._draining = False
         self._streams = 0
         self._stream_cv = threading.Condition()
+        # preemption (mx.resilience): SIGTERM drains this server's queue
+        # before the process exits.  Weak for the scheduler's reason: the
+        # module-global hook list must not pin dead servers (a zombie
+        # drain would eat grace budget); stale hooks remove themselves.
+        self._preempt_hook = "serve-drain-%d" % id(self)
+        ref = weakref.ref(self)
+
+        def _drain(hook=self._preempt_hook):
+            srv = ref()
+            if srv is None or srv._closed:
+                _preempt.remove_shutdown_hook(hook)
+                return
+            srv.shutdown(drain=True, timeout=10.0)
+
+        _preempt.add_shutdown_hook(self._preempt_hook, _drain)
 
     # -- introspection ------------------------------------------------------
     @property
@@ -316,12 +337,27 @@ class Server:
                 "nonfinite_batches": telemetry.value(
                     "serve_nonfinite_batches_total"),
             },
-            # the SLO engine (obs/) waits in ROADMAP.md Queue 1 item 8, part 2
-            "slo": None,
+            # mx.obs SLO engine: per-objective OK/WARN/PAGE + burn rates
+            # (None when no objective is registered)
+            "slo": self._slo_states(),
             "cache": self._plane_stats("cache"),
             "spec": self._plane_stats("spec"),
             "tenants": {"enabled": False},
         }
+
+    @staticmethod
+    def _slo_states():
+        """Evaluated SLO results for /statz and /healthz, or None when
+        nothing is registered.  Fail-soft: a sick SLO engine must not
+        take the stats endpoint down."""
+        try:
+            from ..obs import slo_engine
+
+            if not slo_engine.registered():
+                return None
+            return slo_engine.evaluate()
+        except Exception:  # noqa: BLE001
+            return None
 
     def _plane_stats(self, name):
         plane = getattr(self._decode.runner, name) \
@@ -457,6 +493,7 @@ class Server:
         requests with ``ServerClosed`` and closes the listener at once.
         Returns True when every loop has stopped."""
         self._closed = True
+        _preempt.remove_shutdown_hook(self._preempt_hook)
         if not drain and self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -526,9 +563,23 @@ class _Handler(BaseHTTPRequestHandler):
             if srv.healthy():
                 degraded = any(b["state"] != "closed"
                                for b in breakers.values())
-                self._send(200, {"status": "degraded" if degraded
-                                 else "ok", "breakers": breakers})
+                body = {"status": "degraded" if degraded else "ok",
+                        "breakers": breakers}
+                # an SLO past OK degrades liveness as an open breaker
+                # does: alive, but tell the router
+                slo = srv._slo_states()
+                if slo is not None:
+                    worst = max((s.get("state", "OK")
+                                 for s in slo.values()),
+                                key=lambda st: {"OK": 0, "WARN": 1,
+                                                "PAGE": 2}.get(st, 0))
+                    body["slo"] = {k: s.get("state", "OK")
+                                   for k, s in slo.items()}
+                    if worst != "OK":
+                        body["status"] = "degraded"
+                self._send(200, body)
             else:
+
                 self._send(503, {"status": "down", "breakers": breakers})
         elif self.path == "/readyz":
             ready = srv.ready()

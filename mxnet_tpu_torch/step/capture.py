@@ -39,8 +39,25 @@ Every capture failure degrades to the stitched path (``autograd.record``
 forward, ``autograd.backward``, ``Trainer.step``), counted by reason in
 ``step_capture_fallback_total`` -- never a lost step; a failure once the
 step's update has begun raises instead.  ``MXNET_STEP_CAPTURE=0`` is the
-kill switch.  Not ported: the ZeRO and mesh branches, ``axis_name``
-(cross-process psum), the fault-injection and deadline sites and the
+kill switch.
+
+The ``step_capture`` fault site (``mx.resilience``) fires at a program's
+build, keyed by the trainer's step count: that signature then runs
+stitched, with reason ``injected_fault``.  It fires again at dispatch,
+after the update counts are bumped and before the step runs: an injected
+fault there, or any failure that carries ``mx_fault_kind``, is re-raised
+with the counts rewound, never replayed stitched, so the supervisor owns
+the recovery.  With ``mx.obs`` on, both paths note the step's host time
+and hand ``obs.attribution`` its parts (stitched: forward, backward,
+update; captured: slots, stage, dispatch and, under the monitor,
+host_publish).  No synchronize is added for them: they are host times.
+``cap.flops`` (the ``flops`` of ``report()``'s programs) is counted once,
+by ``torch.utils.flop_counter.FlopCounterMode`` over the program's first
+eager pass made with obs on (None until then); the flash kernels are
+ctypes launches it does not see.
+
+Not ported: the ZeRO and mesh branches, ``axis_name`` (cross-process
+psum), the collective deadline around a multi-process dispatch and the
 compile-cache fingerprint.
 """
 from __future__ import annotations
@@ -52,6 +69,7 @@ import time as _time
 import torch
 
 from .. import autograd
+from .. import obs as _obs
 from .. import random as _random
 from .. import telemetry as _tel
 from .. import trace as _trace
@@ -59,6 +77,7 @@ from ..base import MXNetError, get_env
 from ..kvstore.collective import (default_bucket_bytes, observe_bucket_fill,
                                   plan_buckets)
 from ..optimizer import multi_tensor as _mt
+from ..resilience import inject as _inject
 
 __all__ = ["StepProgram", "capture", "is_enabled", "CaptureError",
            "remat_mode"]
@@ -180,6 +199,8 @@ class _Captured:
         self.warm = 0           # eager warm-up steps run
         self.replays = 0
         self.mutating = False   # the update of the running step began
+        self.flops = None       # counted over the first eager pass
+        self.counted = False
 
 
 class StepProgram:
@@ -240,6 +261,13 @@ class StepProgram:
                 # the step's update began (or ran and was vetoed): a
                 # stitched replay would apply it twice
                 raise
+            if isinstance(exc, (_inject.InjectedFault,
+                                _inject.InjectedIOError)) or \
+                    getattr(exc, "mx_fault_kind", None) is not None:
+                # injected faults and DistTimeout carry resilience
+                # semantics: the supervisor owns the recovery, and a
+                # stitched replay here would hide the drill or failure
+                raise
             self._programs.pop(cap.sig, None)
             if cap.sig[5] == "blocks":
                 self._remat_override = "all"
@@ -283,6 +311,7 @@ class StepProgram:
                 "device": str(cap.device),
                 "warmup_steps": cap.warm,
                 "replays": cap.replays,
+                "flops": cap.flops,
                 "remat": cap.remat,
                 "monitor_fused": cap.monitor,
                 "gate": cap.gate,
@@ -313,12 +342,20 @@ class StepProgram:
         def put(x):
             return None if x is None else torch.as_tensor(x, device=dev)
 
+        parts = _obs.attribution.StepParts(self._trainer._step_count)
         with _trace.span("train_step", hist=False, args={"captured": 0}):
-            with autograd.record():
-                out = self._block(*map(put, datas))
-                loss = self._loss_fn(out, *map(put, labels))
-            autograd.backward(loss)
+            with _trace.span("forward", hist=False):
+                with autograd.record():
+                    out = self._block(*map(put, datas))
+                    loss = self._loss_fn(out, *map(put, labels))
+            parts.mark("forward")
+            with _trace.span("backward", hist=False):
+                autograd.backward(loss)
+            parts.mark("backward")
             self._trainer.step(batch_size)
+        parts.mark("update")
+        # note_step fired inside Trainer.step; attribution is this path's
+        parts.observe()
         return loss.detach()
 
     def _note_fallback(self, reason, detail=""):
@@ -357,7 +394,10 @@ class StepProgram:
                              args={"step": self._trainer._step_count}):
                 cap = self._build(sig, datas, labels)
         except Exception as exc:
-            reason = getattr(exc, "reason", None) or "trace_error"
+            reason = getattr(exc, "reason", None) or (
+                "injected_fault" if isinstance(
+                    exc, (_inject.InjectedFault, _inject.InjectedIOError))
+                else "trace_error")
             self._dead[sig] = reason
             if reason == "trace_error" and sig[5] == "blocks":
                 self._remat_override = "all"
@@ -373,6 +413,9 @@ class StepProgram:
         from ..monitor.core import _group_label
 
         trainer = self._trainer
+        # mx.resilience drill site: a planned fault here poisons the
+        # capture; the signature degrades to the stitched path
+        _inject.fire("step_capture", seq=trainer._step_count)
         opt = trainer._optimizer
         block = self._block
         named = block.collect_params()
@@ -563,6 +606,22 @@ class StepProgram:
             if len(plan) != 1:
                 raise CaptureError("scalars_diverged", group.opt_name)
 
+    def _eager_step(self, cap, xs, ys):
+        """One eager pass of the step; the first one of a program made
+        with obs on is counted by ``FlopCounterMode`` into ``cap.flops``
+        (the flash kernels' ctypes launches are invisible to it), since
+        only obs' attribution reads it."""
+        if cap.counted or not _obs.core.ENABLED:
+            return self._step_fn(cap, xs, ys, False)
+        from torch.utils.flop_counter import FlopCounterMode
+
+        counter = FlopCounterMode(display=False)
+        with counter:
+            out = self._step_fn(cap, xs, ys, False)
+        cap.counted = True
+        cap.flops = float(counter.get_total_flops()) or None
+        return out
+
     def _capture(self, cap):
         """Capture the step into a CUDA graph (nothing runs on the card);
         the port's generator of the card joins the graph, so each replay
@@ -579,7 +638,9 @@ class StepProgram:
         trainer = self._trainer
         opt = trainer._optimizer
         step = trainer._step_count
-        t0 = _time.perf_counter() if _tel.ENABLED else 0.0
+        obs_on = _obs.core.ENABLED
+        t0 = _time.perf_counter() if (_tel.ENABLED or obs_on) else 0.0
+        marks = [0.0] * 5   # obs phase marks: slots/stage/dispatch/publish
         opt.rescale_grad = trainer._scale / batch_size
         counts = opt._index_update_count
         prev = {i: counts.get(i) for i in cap.train_idx}
@@ -589,24 +650,41 @@ class StepProgram:
                          args={"step": step, "captured": 1}), \
                 _trace.watchdog.watch("train_step"):
             try:
-                self._prepare(cap)
+                if obs_on:
+                    marks[0] = _time.perf_counter()
+                with _trace.span("step_slots", hist=False):
+                    self._prepare(cap)
+                # mx.resilience drill site, after the count bump: a fault
+                # here exercises the rewind and the supervisor's restore
+                _inject.fire("step_capture", seq=step)
+                if obs_on:
+                    marks[1] = _time.perf_counter()
                 xs, ys = self._stage(cap, datas, labels)
-                if not cap.cuda:
-                    loss, statvecs = self._step_fn(cap, xs, ys, False)
-                elif cap.warm < WARMUP_STEPS:
-                    side = torch.cuda.Stream(cap.device)
-                    side.wait_stream(torch.cuda.current_stream(cap.device))
-                    with torch.cuda.stream(side):
-                        loss, statvecs = self._step_fn(cap, xs, ys, False)
-                    torch.cuda.current_stream(cap.device).wait_stream(side)
-                    cap.warm += 1
-                else:
-                    if cap.graph is None:
-                        self._capture(cap)
-                    cap.mutating = True
-                    cap.graph.replay()
-                    cap.replays += 1
-                    loss, statvecs = cap.out
+                if obs_on:
+                    marks[2] = _time.perf_counter()
+                with _trace.span("step_dispatch", hist=False,
+                                 args={"groups": len(cap.groups),
+                                       "buckets": len(cap.bucket_plan)}):
+                    if not cap.cuda:
+                        loss, statvecs = self._eager_step(cap, xs, ys)
+                    elif cap.warm < WARMUP_STEPS:
+                        side = torch.cuda.Stream(cap.device)
+                        side.wait_stream(
+                            torch.cuda.current_stream(cap.device))
+                        with torch.cuda.stream(side):
+                            loss, statvecs = self._eager_step(cap, xs, ys)
+                        torch.cuda.current_stream(cap.device).wait_stream(
+                            side)
+                        cap.warm += 1
+                    else:
+                        if cap.graph is None:
+                            self._capture(cap)
+                        cap.mutating = True
+                        cap.graph.replay()
+                        cap.replays += 1
+                        loss, statvecs = cap.out
+                if obs_on:
+                    marks[3] = _time.perf_counter()
             except Exception as exc:
                 if cap.mutating:
                     exc.mx_step_no_fallback = True
@@ -618,12 +696,16 @@ class StepProgram:
             try:
                 applied = True
                 if cap.monitor:
-                    try:
-                        verdict = _mon.core.observe_captured(
-                            trainer, step, list(zip(cap.labels, statvecs)))
-                    except MXNetError:
-                        _mt.rewind(opt, prev, prev_num)
-                        raise
+                    with _trace.span("step_publish", hist=False):
+                        try:
+                            verdict = _mon.core.observe_captured(
+                                trainer, step,
+                                list(zip(cap.labels, statvecs)))
+                        except MXNetError:
+                            _mt.rewind(opt, prev, prev_num)
+                            raise
+                    if obs_on:
+                        marks[4] = _time.perf_counter()
                     if verdict == "skip":
                         _mt.rewind(opt, prev, prev_num)
                         self._skipped += 1
@@ -638,10 +720,29 @@ class StepProgram:
                     _tel.STEP_CAPTURE_STEPS.labels(path="captured").inc()
                     _tel.STEP_PROGRAM_SECONDS.observe(
                         _time.perf_counter() - t0)
+                if obs_on:
+                    self._observe(cap, step, t0, marks)
                 return loss.clone()
             except Exception as exc:
                 exc.mx_step_no_fallback = True
                 raise
+
+    @staticmethod
+    def _observe(cap, step, t0, marks):
+        """The captured step's cadence and attribution (host times; never
+        raises into the step)."""
+        try:
+            total = _time.perf_counter() - t0
+            parts = {"slots": marks[1] - marks[0],
+                     "stage": marks[2] - marks[1],
+                     "dispatch": marks[3] - marks[2]}
+            if marks[4]:
+                parts["host_publish"] = marks[4] - marks[3]
+            _obs.core.note_step(total)
+            _obs.attribution.observe_step(step, total, parts=parts,
+                                          flops=cap.flops, path="captured")
+        except Exception:  # noqa: BLE001 - obs never raises into the step
+            pass
 
 
 def capture(block_or_trainer, loss_fn, trainer=None, block=None,

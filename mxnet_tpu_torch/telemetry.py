@@ -13,7 +13,11 @@ whole-step capture (``step/capture.py``), of the input pipeline
 the serving hot swap and of the fault plan (``resilience/inject.py``),
 under the JAX package's names, and the families of the operational
 planes: ``autotune/``, the flight recorder's dumps and watchdog
-(``trace/``), the monitor's publisher and ``device_memory_bytes``.  The
+(``trace/``), the monitor's publisher and ``device_memory_bytes``, the
+restart supervisor and preemption (``resilience/``), the collective
+deadlines (``dist/timeouts.py``) and ``obs/``'s publisher, SLOs, step
+cadence and attribution; ``log_line`` evaluates the registered SLOs
+first, so their gauges are fresh in the line.  The
 timers ``span``/``timed`` feed a live ``mx.profiler`` session; ``dump``,
 ``log_line`` and ``start_logger`` (``MXNET_TELEMETRY_LOG_INTERVAL``) are
 the JAX package's.  Disabled cost is one
@@ -280,10 +284,15 @@ def _bucket_quantile(cum, count, q):
     return last_finite
 
 
-def _merged_read(metric):
+def _merged_read(metric, match=None):
     """(count, sum, merged cumulative buckets) over a histogram family's
-    label children (they share the family's bucket edges)."""
-    reads = [c.read() for _, c in metric._samples()]
+    label children (they share the family's bucket edges); ``match``
+    keeps the children whose labels contain it (a per-tenant SLO reads
+    one tenant's samples out of a shared histogram)."""
+    want = {k: str(v) for k, v in (match or {}).items()}
+    reads = [c.read() for values, c in metric._samples()
+             if all(_labels_dict(metric, values).get(k) == v
+                    for k, v in want.items())]
     count = sum(r[0] for r in reads)
     total = sum(r[1] for r in reads)
     cum = [(ub, sum(r[2][i][1] for r in reads))
@@ -509,7 +518,16 @@ _logger_started = False
 
 def log_line():
     """One compact 'telemetry k=v ...' line over the nonzero totals
-    (histograms with their bucket-estimated p50/p95/p99)."""
+    (histograms with their bucket-estimated p50/p95/p99).  Registered
+    SLOs are evaluated first, so their state and burn gauges are fresh in
+    the same line."""
+    try:
+        from .obs import slo_engine as _slo
+
+        if _slo.registered():
+            _slo.evaluate()
+    except Exception:  # noqa: BLE001 - the log line must never fail
+        pass
     tot = totals(nonzero=True, quantiles=True)
     body = " ".join(
         "%s=%s" % (k, ("%d" % v) if float(v).is_integer() else
@@ -715,6 +733,8 @@ TRAINER_UPDATE_SECONDS = histogram(
     "imperative Trainer optimizer-apply host latency per step")
 # mx.monitor (monitor/): per-group health numerics, published on the
 # training thread (the publisher thread is not ported)
+
+
 MONITOR_STAT_PROGRAMS = counter(
     "monitor_stat_programs_total",
     "stat reductions dispatched (groups x observed steps)")
@@ -842,11 +862,60 @@ CHECKPOINT_SAVES = counter(
 CHECKPOINT_RESTORES = counter(
     "checkpoint_restores_total", "checkpoint restore calls")
 
-# mx.resilience: planned faults fired (resilience/inject.py)
+# mx.resilience: planned faults fired (resilience/inject.py), the
+# restart supervisor's recoveries and backoff, preemptions and their
+# emergency checkpoints (resilience/{supervisor,preempt}.py)
 RESILIENCE_FAULTS = counter(
     "resilience_faults_injected_total",
     "planned faults fired, by injection site (MXNET_FAULTS / "
     "resilience.plan())", ("site",))
+RESILIENCE_RESTARTS = counter(
+    "resilience_restarts_total",
+    "supervisor recovery events by kind (transient / divergence / "
+    "fatal / budget_exhausted / unhealthy)", ("kind",))
+RESILIENCE_BACKOFF_SECONDS = histogram(
+    "resilience_backoff_seconds",
+    "jittered exponential backoff slept between restarts")
+RESILIENCE_PREEMPTIONS = counter(
+    "resilience_preemptions_total",
+    "preemption requests observed (SIGTERM or resilience.request())")
+RESILIENCE_EMERGENCY_SAVES = counter(
+    "resilience_emergency_saves_total",
+    "emergency checkpoints flushed during preemption shutdown")
+
+# mx.dist: collectives that missed their deadline (dist/timeouts.py)
+DIST_COLLECTIVE_TIMEOUTS = counter(
+    "dist_collective_timeouts_total",
+    "collectives that missed MXNET_DIST_COLLECTIVE_TIMEOUT (a peer "
+    "rank unreachable), by site", ("site",))
+
+# mx.obs (obs/): payload publishes into the membership KV, SLO states and
+# burn rates, the step cadence and the attribution records
+OBS_PUBLISHES = counter(
+    "obs_publish_total",
+    "per-rank obs payloads published into the membership KV")
+OBS_PUBLISH_FAILURES = counter(
+    "obs_publish_failures_total",
+    "obs payload publishes that failed (dead/partitioned KV; the "
+    "fleet view degrades to local-only until it recovers)")
+OBS_SLO_STATE = gauge(
+    "obs_slo_state",
+    "per-objective SLO state (0=OK 1=WARN 2=PAGE, multi-window "
+    "burn-rate evaluation)", ("slo",))
+OBS_SLO_BURN = gauge(
+    "obs_slo_burn_rate",
+    "error-budget burn rate per objective and window (1.0 = burning "
+    "exactly the budget)", ("slo", "window"))
+OBS_STEP_SECONDS = histogram(
+    "obs_step_seconds",
+    "training-step wall time as seen by the obs cadence hook",
+    buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0, 10.0, 30.0, 60.0))
+OBS_ATTRIB_RECORDS = counter(
+    "obs_attribution_records_total",
+    "per-step attribution records written (JSONL stream when "
+    "MXNET_OBS_ATTRIBUTION is set)")
+
 
 # mx.trace: flight-recorder dumps by trigger reason (manual / crash / exit
 # / slow_step / deadline_burst / divergence / hang / dry_run) and

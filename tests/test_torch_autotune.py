@@ -294,7 +294,73 @@ def test_guard_rejects_last_bit_and_nonfinite(tmp_path):
                             "reason": "numerics"}) == 1
 
 
+class _ClockSite(space.TuningSite):
+    """Two configs whose host and device times rank opposite ways: "busy"
+    holds the host for 30 ms a run while its device work takes 0.1 ms,
+    "default" returns at once with 0.5 ms of device work.  ``device``
+    False makes it a CPU bench (no device time)."""
+
+    name = "_clock_probe"
+
+    def __init__(self, device):
+        self.device = device
+
+    def default_config(self, key):
+        return "default"
+
+    def candidates(self, key):
+        return ["default", "busy"]
+
+    def make_bench(self, key, config):
+        import time as _t
+
+        def run():
+            if config == "busy":
+                _t.sleep(0.03)
+            if self.device:
+                run.device_ms = 0.1 if config == "busy" else 0.5
+            return [torch.ones(4)]
+
+        run.device_ms = None
+        return run
+
+
+@pytest.mark.parametrize("device", [True, False])
+def test_tune_ranks_a_card_bench_by_device_time(tmp_path, monkeypatch,
+                                                device):
+    """A bench that carries its device time (CUDA events on the card) is
+    ranked by it, where the host clock would rank the other way; a CPU
+    bench keeps the host clock.  The record and each candidate say which
+    clock they hold, and the cost model reads one clock's rows."""
+    st = _store(tmp_path)
+    res = measure_mod.tune(_ClockSite(device), (1,), store=st, repeats=3,
+                           warmup=0)
+    clock = "cuda_events" if device else "host"
+    assert res.clock == clock and res.record()["clock"] == clock
+    assert [c["clock"] for c in res.candidates] == [clock]
+    if device:
+        assert res.winner == "busy"
+        assert (res.winner_ms, res.default_ms) == pytest.approx((0.1, 0.5))
+    else:
+        assert res.winner == "default" and res.candidates[0]["ms"] > 25.0
+    audit = {}
+    measure_mod.measure_candidate(_ClockSite(device), (1,), "busy",
+                                  repeats=1, warmup=0, audit=audit)
+    assert audit == {"clock": clock}
+    site = _ClockSite(device)
+    site.features = lambda key: [1.0]
+    real = space.get_site
+    monkeypatch.setattr(space, "get_site", lambda name: site
+                        if name == site.name else real(name))
+
+    assert CostModel(st, clock=clock).predict(site, (1,), "busy") \
+        is not None
+    other = "host" if device else "cuda_events"
+    assert CostModel(st, clock=other).predict(site, (1,), "busy") is None
+
+
 def test_tune_commits_and_lookup_serves_the_winner(tmp_path):
+
     """A CPU tune of the flash site: both row counts run the plain
     version, so both pass the guard; the winner is committed and read
     back with provenance 'tuned'."""
